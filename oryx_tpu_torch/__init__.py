@@ -12,3 +12,8 @@ Ported so far: the ALS serving layer (``python -m oryx_tpu_torch serving``).
 """
 
 __version__ = "0.1.0"
+
+
+class NotYetPortedError(NotImplementedError):
+    """A setting or message the JAX package serves that the port does not
+    yet; raised instead of silently serving something else."""

@@ -27,6 +27,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.api.serving import AbstractServingModelManager, ServingModel
 from oryx_tpu_torch.app import pmml as app_pmml
 from oryx_tpu_torch.app.als.common import (
@@ -46,11 +47,6 @@ from oryx_tpu_torch.serving.batcher import score_default, score_indexed_default
 log = logging.getLogger(__name__)
 
 _SCORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
-
-
-class NotYetPortedError(NotImplementedError):
-    """A setting or message the JAX package serves that the port does not
-    yet; raised instead of silently serving something else."""
 
 
 class ALSServingModel(ServingModel):

@@ -27,7 +27,8 @@
 //     selection entirely. Each CTA writes its list to [splits, b, m].
 //   - topn_candidates (B2): grid = query tiles x fixed 16384-item blocks;
 //     no state crosses blocks. Each CTA writes its block's top-m to
-//     [blocks, b, m].
+//     [blocks, b, m]. Both entry points launch the same range kernel and
+//     differ only in the span and grid they pass.
 //   - topn_merge: one CTA per query merges the sorted [S, b, m] lists into
 //     [b, m] with the same tie rule (the TPU B1 merges in its own body,
 //     B2 with one stable lax.top_k outside it).
@@ -38,11 +39,16 @@
 // (8 or 32 queries) sits in shared memory laid out [kf][QB] and is read
 // as float4 broadcasts; the QB partial sums live in registers. At one
 // query tile (b <= 32) the scan moves the plane once and is bound by
-// bytes (device memory at 3.35 TB/s). At b = 256 it issues
-// 2*b*kf*n f32 operations on the CUDA cores (67 TFLOP/s) and is bound
-// by operations; the query tiles of one split are adjacent in the grid
-// so their re-reads of the plane come from L2. The tensor-core form
-// (wgmma with TMA-fed shared-memory tiles) is the later, faster design.
+// bytes (device memory at 3.35 TB/s). At b = 256 a float32 plane is
+// bound by its 2*b*kf*n f32 operations (67 TFLOP/s outside the tensor
+// cores). bfloat16 and int8 planes compute a bf16 product with f32
+// accumulation (int8 codes are exact in bf16; the TPU kernel runs both
+// as bf16 MXU passes), whose bound is the bf16 tensor-core rate
+// (989 TFLOP/s): this kernel does that work as f32 FMAs on the CUDA
+// cores and stays far from it. The query tiles of one split are
+// adjacent in the grid so their re-reads of the plane come from L2. The
+// tensor-core form (wgmma with TMA-fed shared-memory tiles) is the
+// later, faster design.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -214,26 +220,15 @@ __device__ __forceinline__ void scan_range(const float* __restrict__ q, int b, i
   }
 }
 
-// B1: CTA (x, y) scans query tile x over items [y * span, (y + 1) * span).
+// CTA (x, y) scans query tile x over items [y * span, (y + 1) * span) and
+// writes list slab y of [grid_y, b, m]. topn_scan (B1) launches it with
+// span = n_pad / splits, topn_candidates (B2) with span = one item block.
 template <typename T, int QB>
 __global__ void __launch_bounds__(kThreads)
-    topn_scan_kernel(const float* __restrict__ q, int b, int kf, const T* __restrict__ mat,
-                     long long n_pad, const float* __restrict__ aux, int n_items, int m, int mode,
-                     long long span, float* __restrict__ out_v, int* __restrict__ out_i) {
-  const long long begin = (long long)blockIdx.y * span;
-  const long long end = min(begin + span, n_pad);
-  const long long slab = (long long)blockIdx.y * b * m;
-  scan_range<T, QB>(q, b, kf, mat, n_pad, aux, n_items, m, mode, blockIdx.x * QB, begin, end,
-                    out_v + slab, out_i + slab);
-}
-
-// B2: CTA (x, y) reduces item block y (span items) for query tile x.
-template <typename T, int QB>
-__global__ void __launch_bounds__(kThreads)
-    topn_candidates_kernel(const float* __restrict__ q, int b, int kf,
-                           const T* __restrict__ mat, long long n_pad,
-                           const float* __restrict__ aux, int n_items, int m, int mode,
-                           long long span, float* __restrict__ out_v, int* __restrict__ out_i) {
+    topn_range_kernel(const float* __restrict__ q, int b, int kf, const T* __restrict__ mat,
+                      long long n_pad, const float* __restrict__ aux, int n_items, int m,
+                      int mode, long long span, float* __restrict__ out_v,
+                      int* __restrict__ out_i) {
   const long long begin = (long long)blockIdx.y * span;
   const long long end = min(begin + span, n_pad);
   const long long slab = (long long)blockIdx.y * b * m;
@@ -330,11 +325,11 @@ size_t scan_smem_bytes(int qb, int kf, int m) {
          sizeof(int) * (size_t)qb * m;
 }
 
-template <typename T, int QB, bool kCandidates>
+template <typename T, int QB>
 int launch_scan(const float* q, int b, int kf, const void* mat, long long n_pad,
                 const float* aux, int n_items, int m, int mode, long long span, int grid_y,
                 float* out_v, int* out_i, cudaStream_t stream) {
-  auto kernel = kCandidates ? topn_candidates_kernel<T, QB> : topn_scan_kernel<T, QB>;
+  auto kernel = topn_range_kernel<T, QB>;
   const size_t smem = scan_smem_bytes(QB, kf, m);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -345,7 +340,6 @@ int launch_scan(const float* q, int b, int kf, const void* mat, long long n_pad,
   return (int)cudaGetLastError();
 }
 
-template <bool kCandidates>
 int dispatch_scan(const float* q, int b, int kf, const void* mat, int dtype, long long n_pad,
                   const float* aux, int n_items, int m, int mode, long long span, int grid_y,
                   float* out_v, int* out_i, void* stream) {
@@ -353,10 +347,10 @@ int dispatch_scan(const float* q, int b, int kf, const void* mat, int dtype, lon
   if (m < 1 || m > kMaxM || b < 1 || kf < 1 || grid_y < 1) return (int)cudaErrorInvalidValue;
   const bool narrow = b <= 8;
 #define ORYX_SCAN(T)                                                                          \
-  return narrow ? launch_scan<T, 8, kCandidates>(q, b, kf, mat, n_pad, aux, n_items, m, mode, \
-                                                 span, grid_y, out_v, out_i, st)              \
-                : launch_scan<T, 32, kCandidates>(q, b, kf, mat, n_pad, aux, n_items, m,      \
-                                                  mode, span, grid_y, out_v, out_i, st)
+  return narrow ? launch_scan<T, 8>(q, b, kf, mat, n_pad, aux, n_items, m, mode, span,       \
+                                    grid_y, out_v, out_i, st)                                 \
+                : launch_scan<T, 32>(q, b, kf, mat, n_pad, aux, n_items, m, mode, span,      \
+                                     grid_y, out_v, out_i, st)
   switch (dtype) {
     case 0:
       ORYX_SCAN(float);
@@ -379,15 +373,15 @@ extern "C" {
 int topn_scan(const float* q, int b, int kf, const void* mat, int dtype, long long n_pad,
               const float* aux, int n_items, int m, int mode, long long span, int splits,
               float* out_v, int* out_i, void* stream) {
-  return dispatch_scan<false>(q, b, kf, mat, dtype, n_pad, aux, n_items, m, mode, span, splits,
-                              out_v, out_i, stream);
+  return dispatch_scan(q, b, kf, mat, dtype, n_pad, aux, n_items, m, mode, span, splits, out_v,
+                       out_i, stream);
 }
 
 int topn_candidates(const float* q, int b, int kf, const void* mat, int dtype, long long n_pad,
                     const float* aux, int n_items, int m, int mode, long long block,
                     int blocks, float* out_v, int* out_i, void* stream) {
-  return dispatch_scan<true>(q, b, kf, mat, dtype, n_pad, aux, n_items, m, mode, block, blocks,
-                             out_v, out_i, stream);
+  return dispatch_scan(q, b, kf, mat, dtype, n_pad, aux, n_items, m, mode, block, blocks, out_v,
+                       out_i, stream);
 }
 
 int topn_merge(const float* cv, const int* ci, int lists, int b, int m, float* out_v,

@@ -70,16 +70,11 @@ _INT8_FEAT_MULTIPLE = 32
 _KERNEL_THREADS = 256
 
 
-def configure_scan(
-    *,
-    oversample: int | None = None,
-    chunk: int | None = None,
-    block: int | None = None,
-) -> None:
-    """Apply ``oryx.serving.scan.*`` tuning at serving-layer startup. Only
-    ``oversample`` means anything here: ``chunk`` and ``block`` tune the
-    JAX package's CPU-only XLA twin of the scan, which the port does not
-    have (on the CPU it runs the plain versions of the kernels)."""
+def configure_scan(*, oversample: int | None = None) -> None:
+    """Apply ``oryx.serving.scan.oversample`` at serving-layer startup.
+    The JAX package's ``chunk`` and ``block`` tune its CPU-only XLA twin
+    of the scan, which the port does not have (on the CPU it runs the
+    plain versions of the kernels)."""
     global RESCORE_OVERSAMPLE
     if oversample is not None:
         RESCORE_OVERSAMPLE = int(oversample)

@@ -228,12 +228,9 @@ def _submit(run, uploaded: StreamingItemMatrix, make_handle, keep=()):
 
 
 def submit_top_k(
-    uploaded: StreamingItemMatrix, queries: np.ndarray, k: int, cosine: bool = False,
-    nprobe: int | None = None,
+    uploaded: StreamingItemMatrix, queries: np.ndarray, k: int, cosine: bool = False
 ) -> TopNHandle:
-    """Enqueue a batched top-k without waiting. ``nprobe`` is accepted for
-    interface parity with the JAX package (it tunes its IVF tier, which
-    is not ported) and ignored."""
+    """Enqueue a batched top-k without waiting."""
     q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
     dl = _auto_download_dtype(uploaded)
     return _submit(
@@ -249,7 +246,6 @@ def submit_top_k_multi(
     k: int,
     cosine: bool = False,
     scan_batch: int = 256,
-    nprobe: int | None = None,
 ) -> MultiTopNHandle:
     """ceil(n / scan_batch) full-matrix scans submitted at once; one
     handle collects them all."""
@@ -270,7 +266,6 @@ def submit_top_k_multi_indexed(
     k: int,
     cosine: bool = False,
     scan_batch: int = 256,
-    nprobe: int | None = None,
 ) -> MultiTopNHandle:
     """submit_top_k_multi with the query vectors already on the card: the
     host ships int32 row indices into ``x_dev`` and the gather runs on

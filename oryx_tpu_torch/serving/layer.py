@@ -14,8 +14,9 @@ is present, unless the caller chose the CPU
 
 Not ported yet: tenancy, online experiments, the model registry and
 rollback, MODEL-REF restage, overload control, the native HTTP front,
-TLS and auth, ``/metrics``, ``/healthz``, ``/readyz``, tracing export
-routes and profiling.
+TLS and auth (a config that sets a key file or credentials is refused
+at construction), ``/metrics``, ``/healthz``, ``/readyz``, tracing
+export routes and profiling.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, HTTPServer
 from urllib.parse import parse_qs, urlsplit
 
+from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.bus.core import get_broker
 from oryx_tpu_torch.common import ledger, metrics, tracing
 from oryx_tpu_torch.common.config import Config
@@ -194,9 +196,21 @@ def _observe_request(method: str, status: int, t0: float) -> None:
     metrics.registry.histogram("serving.request.seconds").observe(time.perf_counter() - t0)
 
 
+def _refuse_tls_and_auth(config: Config) -> None:
+    """TLS and HTTP Basic auth are not ported: a config that asks for
+    either must not come up as a plaintext server open to anyone."""
+    for key in ("keystore-file", "key-file", "keystore-password", "user-name", "password"):
+        if config.get_optional_string(f"oryx.serving.api.{key}") is not None:
+            raise NotYetPortedError(
+                f"oryx.serving.api.{key} is set, but TLS and HTTP Basic auth are not "
+                "yet ported to oryx_tpu_torch"
+            )
+
+
 class ServingLayer:
     def __init__(self, config: Config) -> None:
         default_device()  # the port serves from the card: fail now, not per request
+        _refuse_tls_and_auth(config)
         self.config = config
         tracing.configure_from(config)
         self.port = config.get_int("oryx.serving.api.port")
@@ -220,11 +234,7 @@ class ServingLayer:
             max_inflight=config.get_optional_int("oryx.serving.scan.max-inflight"),
             latency_budget_ms=config.get_optional_float("oryx.serving.scan.latency-budget-ms"),
         )
-        configure_scan(
-            oversample=config.get_optional_int("oryx.serving.scan.oversample"),
-            chunk=config.get_optional_int("oryx.serving.scan.chunk"),
-            block=config.get_optional_int("oryx.serving.scan.block"),
-        )
+        configure_scan(oversample=config.get_optional_int("oryx.serving.scan.oversample"))
 
         self.model_manager = None
         self.input_producer = None

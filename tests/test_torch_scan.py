@@ -177,7 +177,7 @@ def test_padding_never_wins():
 def test_configure_scan_oversample():
     old = stn.RESCORE_OVERSAMPLE
     try:
-        stn.configure_scan(oversample=2, chunk=64, block=4096)
+        stn.configure_scan(oversample=2)
         assert stn.RESCORE_OVERSAMPLE == 2
         assert stn._scan_k(10, 1000, object()) == 32
         assert stn._scan_k(30, 1000, object()) == 60

@@ -428,6 +428,15 @@ def test_unported_settings_raise(extra):
         tsm.ALSServingModelManager(serving_config("torch", "inproc://unused2", extra))
 
 
+@pytest.mark.parametrize("key", [
+    "keystore-file", "key-file", "keystore-password", "user-name", "password",
+])
+def test_tls_and_auth_settings_raise(key):
+    cfg = serving_config("torch", "inproc://unused5", f'serving.api.{key} = "secret"')
+    with pytest.raises(tsm.NotYetPortedError, match=key):
+        ServingLayer(cfg)
+
+
 def test_index_ref_and_other_buses_raise():
     mgr = tsm.ALSServingModelManager(serving_config("torch", "inproc://unused3"))
     mgr.consume(iter([KeyMessage("MODEL", model_message("torch", ["U0"], ["I0"]))]))

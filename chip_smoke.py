@@ -22,9 +22,24 @@ Phases, each printing one JSON line:
 4. serving, float32, on the same factors: /recommend ids must equal the
    exact top-10 (ties to the lowest id), and a 512-query batch through
    ``topn.top_k_scores_batch`` (the candidates kernel) must too;
-5. the kernel table: launches during phases 3-4 (counted from zero just
-   before phase 3) and the numbers of phase 2;
-6. the card's name and power limit, then ``{"ok": true, "device": ...}``.
+5. kmeans-kernels: ``kmeans_sweep`` + ``kmeans_reduce`` (the Lloyd sweep)
+   against their plain versions on Gaussian blobs at 200,000 x 20 (k = 10,
+   the repo's k-means shape), 10,000,000 x 20 (k = 10) and 1,000,000 x 256
+   (k = 256): counts equal but for near ties (two smallest distances
+   within 1e-5 relative), sums within rtol 1e-5 of max |sum| (plus the
+   near ties' share), cost within rtol 1e-5; with CUDA-event times;
+6. kmeans-batch: the port's BatchLayer with KMeansUpdate on an inproc
+   bus (reference.conf defaults: 30 iterations, 3 runs, k-means||,
+   SILHOUETTE, test-fraction 0.1) trains on 200,000 CSV points of 20
+   features in 10 blobs; the port's ServingLayer answers /assign and
+   /distanceToNearest for 1,000 sampled points exactly as a float64
+   numpy nearest-center search does, and every true blob center has a
+   trained center within 0.5; a second generation with mini-batch size
+   10,000 warm-starts from the champion under the same checks;
+7. the kernel table: launches on the main paths (ALS during phases 3-4,
+   k-means during phase 6, each counted from zero just before) and the
+   numbers of phases 2 and 5;
+8. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the exit code is not 0. Without CUDA, or run
 from a directory that holds no ``oryx_tpu_torch``, it exits 2 before
@@ -35,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,13 +64,26 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 989e12}  # see kernel_bound()
-SOURCE = "oryx_tpu_torch/csrc/topn.cu"
+SOURCES = {
+    "topn_scan": "oryx_tpu_torch/csrc/topn.cu",
+    "topn_merge": "oryx_tpu_torch/csrc/topn.cu",
+    "topn_candidates": "oryx_tpu_torch/csrc/topn.cu",
+    "kmeans_sweep": "oryx_tpu_torch/csrc/kmeans.cu",
+    "kmeans_reduce": "oryx_tpu_torch/csrc/kmeans.cu",
+}
 REPLACES = {
     "topn_scan": "oryx_tpu/ops/pallas_topn.py:300",
     "topn_merge": "oryx_tpu/ops/pallas_topn.py:300",
     "topn_candidates": "oryx_tpu/ops/pallas_topn.py:364",
+    "kmeans_sweep": "oryx_tpu/ops/pallas_kmeans.py:59",
+    "kmeans_reduce": "oryx_tpu/ops/pallas_kmeans.py:59",
 }
 RTOL = 1e-5
+# (points, features, clusters) of the k-means kernel phase; the first is
+# the repo's k-means training shape (tools/train_benchmark.py:161-170)
+KMEANS_SHAPES = ((200_000, 20, 10), (10_000_000, 20, 10), (1_000_000, 256, 256))
+SWEEP_LIBRARY_NOTE = "no single PyTorch call computes the fused sweep"
+REDUCE_LIBRARY_NOTE = "no single PyTorch call reduces the sums, counts and cost together"
 
 
 def emit(obj) -> None:
@@ -330,6 +359,329 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
     return layer, model, bodies, statuses, lat, dict(load_s=load_s, first_request_s=first_s)
 
 
+# -- phases 5 and 6: k-means -------------------------------------------------------
+
+
+def gaussian_blobs(n: int, d: int, k: int, seed: int):
+    """(points [n, d] f32, true centers [k, d]): k centers at 6 N(0, 1),
+    unit noise, as tools/train_benchmark.py:163-166 makes them."""
+    gen = np.random.default_rng(seed)
+    centers = 6.0 * gen.standard_normal((k, d))
+    labels = gen.integers(0, k, n)
+    pts = centers[labels].astype(np.float32)
+    pts += gen.standard_normal((n, d), dtype=np.float32)
+    return pts, centers
+
+
+def sweep_bound(n: int, d: int, kp: int) -> tuple[float, str]:
+    """Least time for one Lloyd sweep: the bytes it must move (points,
+    centers in, sums, counts and cost out) over 3.35 TB/s against
+    2*n*kp*d + n*d float32 operations (the TPU kernel's HIGHEST) over
+    67 TFLOP/s."""
+    t_bytes = (n * d + 2 * kp * d + kp + 1) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = (2.0 * n * kp * d + n * d) / PEAK_OPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_sweep(torch, what, pts, ctr, n, k, got, ref):
+    """Kernel sweep ``got`` against the plain ``ref`` (each sums, counts,
+    cost): counts equal except where a point's two smallest distances lie
+    within 1e-5 relative (a near tie the two summation orders may break
+    apart); sums within rtol 1e-5 of max |sum| plus those points' share;
+    cost within rtol 1e-5. Returns the comparison's numbers."""
+    sums, counts, cost = (t.double() for t in got)
+    rsums, rcounts, rcost = (t.double() for t in ref)
+    d2 = torch.cat([
+        torch.topk(
+            torch.where(
+                torch.arange(ctr.shape[0], device=ctr.device)[None, :] < k,
+                torch.sum(blk * blk, 1, keepdim=True) - 2.0 * (blk @ ctr.T)
+                + torch.sum(ctr * ctr, 1)[None, :],
+                torch.inf,
+            ),
+            2, dim=1, largest=False,
+        ).values
+        for blk in torch.split(pts[:n], 1 << 20)
+    ])
+    near = (d2[:, 1] - d2[:, 0]) <= 1e-5 * d2[:, 1].abs()
+    n_near = int(near.sum())
+    share = float(pts[:n][near].abs().sum(0).max()) if n_near else 0.0
+    count_diff = (counts - rcounts).abs()
+    sums_err = float((sums - rsums).abs().max())
+    scale = float(rsums.abs().max())
+    cost_rel = float((cost - rcost).abs().max() / rcost.abs().max())
+    out = {
+        "near_ties": n_near, "count_abs_diff": float(count_diff.sum()),
+        "sums_max_abs_err": sums_err, "sums_scale": scale, "near_share": share,
+        "cost_rel_err": cost_rel,
+    }
+    if float(count_diff.max()) > n_near or float(count_diff.sum()) > 2 * n_near:
+        raise AssertionError(
+            f"{what}: counts differ by {count_diff.sum()} with {n_near} near ties"
+        )
+    if sums_err > RTOL * scale + share:
+        raise AssertionError(f"{what}: sums differ by {sums_err} (scale {scale}, share {share})")
+    if cost_rel > RTOL:
+        raise AssertionError(f"{what}: cost differs by {cost_rel} relative")
+    if float(counts.sum()) != n:
+        raise AssertionError(f"{what}: counts sum to {float(counts.sum())}, not {n}")
+    return out
+
+
+def check_non_finite_rows(torch, pk, pts, ctr, k) -> dict:
+    """The sweep kernels against their plain versions on 3,000 rows (2,900
+    real) with a NaN row, a row with one inf feature, a row whose squared
+    norm overflows float32, and a NaN padding row: counts equal, sums
+    within rtol 1e-5 and finite, cost NaN in both."""
+    bad = pts[:3000].clone()
+    n = 2900
+    bad[5] = math.nan
+    bad[777, 2] = math.inf
+    bad[1500] = 1e20
+    bad[2950] = math.nan  # padding: counts for nothing
+    num_ctas, rows_per_cta = pk.sweep_grid(bad.shape[0], bad.device)
+    got = pk.kmeans_reduce(*pk.kmeans_sweep(bad, ctr, n, k))
+    ref = pk.kmeans_reduce_plain(*pk.kmeans_sweep_plain(bad, ctr, n, k, num_ctas, rows_per_cta))
+    torch.cuda.synchronize()
+    what = "sweep non-finite rows"
+    if not torch.equal(got[1], ref[1]):
+        raise AssertionError(f"{what}: counts differ")
+    if float(got[1].sum()) != n - 2:  # the NaN and inf rows go to no center
+        raise AssertionError(f"{what}: counts sum to {float(got[1].sum())}, not {n - 2}")
+    if not (bool(torch.isfinite(got[0]).all()) and bool(torch.isfinite(ref[0]).all())):
+        raise AssertionError(f"{what}: a sum is not finite")
+    err = float((got[0].double() - ref[0].double()).abs().max())
+    if err > RTOL * float(ref[0].abs().max()):
+        raise AssertionError(f"{what}: sums differ by {err}")
+    if not (math.isnan(float(got[2][0])) and math.isnan(float(ref[2][0]))):
+        raise AssertionError(f"{what}: cost {float(got[2][0])}, plain {float(ref[2][0])}")
+    out = {"phase": "kmeans-kernels", "case": what, "counts": float(got[1].sum()),
+           "sums_max_abs_err": err, "cost": "nan"}
+    emit(out)
+    return out
+
+
+def phase_kmeans_kernels(torch, pk, seed: int, scale: float = 1.0, device="cuda") -> dict:
+    """kmeans_sweep and kmeans_reduce against their plain versions on the
+    card at KMEANS_SHAPES; returns the per-kernel record of the first
+    shape (the main path's) with the largest error over all shapes and
+    the near ties of all shapes."""
+    dev = torch.device(device)
+    rec: dict[str, dict] = {}
+    worst = {"kmeans_sweep": 0.0, "kmeans_reduce": 0.0}
+    near_ties = 0
+    for i, (n, d, k) in enumerate(KMEANS_SHAPES):
+        n = max(1024, int(n * scale))
+        pts_np, _ = gaussian_blobs(n, d, k, seed + 100 + i)
+        gen = np.random.default_rng(seed + 200 + i)
+        kp = pk.padded_k(k)
+        pts = torch.from_numpy(pk.pad_to_block(pts_np)).to(dev)
+        ctr = torch.zeros((kp, d), dtype=torch.float32, device=dev)
+        ctr[:k] = torch.from_numpy(pts_np[gen.choice(n, size=k, replace=False)]).to(dev)
+        del pts_np
+        num_ctas, rows_per_cta = pk.sweep_grid(pts.shape[0], pts.device)
+        parts = pk.kmeans_sweep(pts, ctr, n, k)
+        got = pk.kmeans_reduce(*parts)
+        plain_parts = pk.kmeans_sweep_plain(pts, ctr, n, k, num_ctas, rows_per_cta)
+        ref = pk.kmeans_reduce_plain(*plain_parts)
+        again = pk.kmeans_reduce(*pk.kmeans_sweep(pts, ctr, n, k))
+        torch.cuda.synchronize()
+        case = f"sweep n={n} d={d} k={k}"
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{case}: two launches disagree")
+        cmp = check_sweep(torch, case, pts, ctr, n, k, got, ref)
+        # the reduce kernel against its plain version on the kernel's partials
+        red_ref = pk.kmeans_reduce_plain(*parts)
+        if not torch.equal(got[1], red_ref[1]):
+            raise AssertionError(f"{case}: kmeans_reduce counts disagree")
+        red_err = max(float((a - b).abs().max()) for a, b in zip(got, red_ref))
+        red_scale = max(float(b.abs().max()) for b in red_ref)
+        if red_err > RTOL * red_scale:
+            raise AssertionError(f"{case}: kmeans_reduce differs by {red_err}")
+        if i == 0:
+            check_non_finite_rows(torch, pk, pts, ctr, k)
+        del plain_parts, ref, red_ref, again
+        torch.cuda.empty_cache()
+        ms = time_ms(torch, lambda: pk.kmeans_sweep(pts, ctr, n, k), 10)
+        plain_ms = time_ms(
+            torch, lambda: pk.kmeans_sweep_plain(pts, ctr, n, k, num_ctas, rows_per_cta), 3
+        )
+        red_ms = time_ms(torch, lambda: pk.kmeans_reduce(*parts), 10)
+        red_plain_ms = time_ms(torch, lambda: pk.kmeans_reduce_plain(*parts), 10)
+        bound_ms, bound_by = sweep_bound(n, d, kp)
+        red_bound = (
+            num_ctas * (kp * d * 8 + kp * 4 + 8) + (kp * d + kp + 1) * 4
+        ) / HBM_BYTES_PER_S * 1e3
+        # the sweep's error includes the points of near ties that the two
+        # versions assign apart (counted in near_ties)
+        worst["kmeans_sweep"] = max(worst["kmeans_sweep"], cmp["sums_max_abs_err"])
+        worst["kmeans_reduce"] = max(worst["kmeans_reduce"], red_err)
+        near_ties += cmp["near_ties"]
+        emit({
+            "phase": "kmeans-kernels", "case": case, "kp": kp, "ctas": num_ctas,
+            "rows_per_cta": rows_per_cta, "groups": pk._sweep_groups(kp, d), **cmp,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "library_note": SWEEP_LIBRARY_NOTE,
+            "reduce_max_abs_err": red_err, "reduce_ms": red_ms,
+            "reduce_plain_ms": red_plain_ms, "reduce_bound_ms": red_bound,
+        })
+        if i == 0:
+            rec["kmeans_sweep"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, library_note=SWEEP_LIBRARY_NOTE,
+            )
+            rec["kmeans_reduce"] = dict(
+                ms=red_ms, plain_ms=red_plain_ms, bound_ms=red_bound, bound_by="bytes",
+                library_ms=None, library_note=REDUCE_LIBRARY_NOTE,
+            )
+        del pts, ctr, parts, got
+        torch.cuda.empty_cache()
+    for name in rec:
+        rec[name]["max_abs_err"] = worst[name]
+    rec["kmeans_sweep"]["near_ties"] = near_ties
+    return rec
+
+
+def kmeans_config(broker_loc: str, root: str, d: int, k: int, minibatch: int | None):
+    from oryx_tpu_torch.common import config as config_utils
+
+    features = ", ".join(f'"{j}"' for j in range(d))
+    mb = f"ml.kmeans.minibatch-size = {minibatch}" if minibatch else ""
+    return config_utils.get_default().with_overlay(
+        f"""
+        oryx {{
+          id = "ChipSmokeKMeans"
+          input-topic.broker = "{broker_loc}"
+          update-topic.broker = "{broker_loc}"
+          input-schema {{ num-features = {d}, numeric-features = [{features}] }}
+          kmeans.hyperparams.k = {k}
+          batch {{
+            update-class = "oryx_tpu_torch.app.kmeans.update:KMeansUpdate"
+            storage {{ data-dir = "{root}/data/", model-dir = "{root}/model/" }}
+          }}
+          serving {{
+            api.port = 0
+            model-manager-class = "oryx_tpu_torch.app.kmeans.serving:KMeansServingModelManager"
+            application-resources = "oryx_tpu_torch.app.kmeans.serving"
+          }}
+          {mb}
+        }}
+        """
+    )
+
+
+def check_served_clusters(what, base, model, lines, pts, true_centers, gen):
+    """/assign and /distanceToNearest for 1,000 sampled points against a
+    float64 numpy nearest-center search over the served centers; every
+    true center within 0.5 of a trained one."""
+    clusters = model.clusters()
+    ids = np.array([c.id for c in clusters])
+    centers = np.stack([c.center for c in clusters]).astype(np.float64)
+    for true in true_centers:
+        gap = float(np.min(np.linalg.norm(centers - true, axis=1)))
+        if gap > 0.5:
+            raise AssertionError(f"{what}: a true center is {gap} from every trained one")
+    sample = gen.choice(len(lines), size=1000, replace=False)
+    exp_d = np.linalg.norm(pts[sample][:, None, :] - centers[None, :, :], axis=2)
+    exp_id = ids[np.argmin(exp_d, axis=1)]
+    exp_dist = exp_d.min(axis=1)
+    body = "\n".join(lines[j] for j in sample).encode()
+    req = urllib.request.Request(base + "/assign", data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        got = [int(v) for v in json.loads(resp.read())]
+    if got != exp_id.tolist():
+        bad = int(np.sum(np.asarray(got) != exp_id))
+        raise AssertionError(f"{what}: /assign disagrees with numpy on {bad} points")
+    for n_probe, (j, e_id, e_dist) in enumerate(zip(sample, exp_id, exp_dist)):
+        if n_probe < 100:  # the GET route too, on a tenth of the sample
+            status, body, _ = http_get(f"{base}/assign/{lines[j]}")
+            if status != 200 or int(json.loads(body)) != int(e_id):
+                raise AssertionError(f"{what}: GET /assign answered {status} {body!r}")
+        status, body, _ = http_get(f"{base}/distanceToNearest/{lines[j]}")
+        if status != 200 or abs(float(json.loads(body)) - e_dist) > 1e-6 * e_dist:
+            raise AssertionError(f"{what}: /distanceToNearest answered {status} {body!r}")
+
+
+def phase_kmeans_batch(pk, seed: int, scale: float = 1.0) -> dict:
+    """Two generations of the port's k-means batch layer, served by the
+    port's serving layer; returns the kernels' launches (from zero at the
+    start of this phase, the k-means main path)."""
+    import io
+    import tempfile
+
+    from oryx_tpu_torch import bus
+    from oryx_tpu_torch.app.kmeans import common as km
+    from oryx_tpu_torch.common import pmml as pmml_io
+    from oryx_tpu_torch.lambda_.batch import BatchLayer
+    from oryx_tpu_torch.ops import kmeans as km_ops
+    from oryx_tpu_torch.serving.layer import ServingLayer
+
+    n, d, k = max(1024, int(KMEANS_SHAPES[0][0] * scale)), 20, 10
+    pts32, true_centers = gaussian_blobs(n, d, k, seed + 300)
+    buf = io.StringIO()
+    np.savetxt(buf, pts32, fmt="%.6f", delimiter=",")
+    lines = buf.getvalue().splitlines()
+    pts = np.loadtxt(io.StringIO(buf.getvalue()), delimiter=",", dtype=np.float64)
+    del buf
+    gen = np.random.default_rng(seed + 301)
+    loc = "inproc://chip-smoke-kmeans"
+    root = tempfile.mkdtemp(prefix="chip-smoke-kmeans-")
+    serving = ServingLayer(kmeans_config(loc, root, d, k, None))
+    serving.start()
+    base = f"http://127.0.0.1:{serving.port}"
+    pk.reset_launch_counts()  # the k-means main path starts here
+    try:
+        batch = BatchLayer(kmeans_config(loc, root, d, k, None))
+        batch.prepare()
+        with bus.get_broker(loc).producer("OryxInput") as producer:
+            producer.send_many([(None, line) for line in lines])
+        out = {"phase": "kmeans-batch", "points": n, "features": d, "k": k}
+        for gen_no, minibatch in ((1, None), (2, 10_000)):
+            if minibatch:
+                batch.close()  # the next generation's layer resumes the group's offsets
+                batch = BatchLayer(kmeans_config(loc, root, d, k, minibatch))
+                batch.prepare()
+            ts = int(time.time() * 1000)
+            t0 = time.perf_counter()
+            batch.run_one_generation(timestamp_ms=ts)
+            gen_s = time.perf_counter() - t0
+            update = batch._update
+            if minibatch and (update.minibatch_size != minibatch
+                              or update.previous_generation_id is None):
+                raise AssertionError("the second generation did not warm-start mini-batch")
+            published = os.path.join(root, "model", str(ts), "model.pmml")
+            want = np.stack([c.center for c in km.pmml_to_clusters(pmml_io.read_pmml(published))])
+            deadline = time.monotonic() + 120
+            while True:
+                model = serving.model_manager.get_model()
+                if model is not None and http_get(base + "/ready")[0] == 200:
+                    have = np.stack([c.center for c in model.clusters()])
+                    if have.shape == want.shape and np.array_equal(have, want):
+                        break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"generation {gen_no} never reached serving")
+                time.sleep(0.05)
+            check_served_clusters(
+                f"generation {gen_no}", base, model, lines, pts, true_centers, gen
+            )
+            out[f"gen{gen_no}"] = {
+                "seconds": gen_s, "minibatch": minibatch,
+                "warm_start_from": update.previous_generation_id,
+                "train_kmeans_phase_s": dict(km_ops.last_phase_seconds),
+                "mlupdate_phase_s": dict(update.last_phase_seconds),
+            }
+        batch.close()
+    finally:
+        serving.close()
+    launches = pk.launch_counts()  # the k-means main path ends here
+    out["launches"] = launches
+    emit(out)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} was never launched on the k-means batch path")
+    return launches
+
+
 def main() -> int:
     args = parse_args()
     if not os.path.isdir(os.path.join(HERE, "oryx_tpu_torch", "csrc")):
@@ -346,6 +698,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from oryx_tpu_torch.common.metrics import registry as metrics
     from oryx_tpu_torch.ops import _build, topn
+    from oryx_tpu_torch.ops import pallas_kmeans as pk
     from oryx_tpu_torch.ops import streaming_topn as stn
 
     smi = nvidia_smi_line()
@@ -353,7 +706,9 @@ def main() -> int:
     _build.build()
     build_s = time.perf_counter() - t0
     spills = {
-        line.strip() for line in _build.log_path("topn").read_text().splitlines()
+        f"{name}: {line.strip()}"
+        for name in _build.SOURCES
+        for line in _build.log_path(name).read_text().splitlines()
         if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
     }
     emit({
@@ -420,14 +775,18 @@ def main() -> int:
     finally:
         layer.close()
     launches = stn.launch_counts()  # the main path ends here
-    del model, layer
+    del model, layer, y_exact
+    torch.cuda.empty_cache()
+
+    kernels.update(phase_kmeans_kernels(torch, pk, args.seed))
+    launches.update(phase_kmeans_batch(pk, args.seed))
 
     table = []
-    for name in ("topn_scan", "topn_merge", "topn_candidates"):
+    for name in SOURCES:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the main path")
         table.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "parity": "ok", **kernels[name],
         })
     emit({"kernels": table})

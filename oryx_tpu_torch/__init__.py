@@ -8,7 +8,9 @@ ported path is a CUDA kernel written by hand for Hopper
 keeps as its own copies. The modules mirror ``oryx_tpu``'s layout and
 names, so each has an obvious counterpart.
 
-Ported so far: the ALS serving layer (``python -m oryx_tpu_torch serving``).
+Ported so far: the ALS serving layer (``python -m oryx_tpu_torch serving``)
+and k-means training through the batch layer with k-means serving
+(``python -m oryx_tpu_torch batch``).
 """
 
 __version__ = "0.1.0"

@@ -20,6 +20,7 @@ index generations.
 from __future__ import annotations
 
 import logging
+import math
 import threading
 import time
 from typing import Iterable, Iterator
@@ -98,7 +99,9 @@ class ALSServingModel(ServingModel):
         # packed card copy of Y
         self._cache_lock = threading.Lock()
         self._y_dirty = True
-        self._y_built_at = 0.0
+        # -inf: the first card build is always due; refresh_sec throttles
+        # only rebuilds (a monotonic clock may read below refresh_sec)
+        self._y_built_at = -math.inf
         self._refresh_sec = refresh_sec
         self._y_ids: list[str] = []
         self._y_index: dict[str, int] = {}
@@ -114,7 +117,7 @@ class ALSServingModel(ServingModel):
         self._x_dirty_ids: set[str] = set()
         self._x_dirty = True
         self._x_full_rebuild = True
-        self._x_built_at = 0.0
+        self._x_built_at = -math.inf
         self._x_capacity = 0
         self._x_building = False
         self._x_restage_thread: threading.Thread | None = None

@@ -1,12 +1,15 @@
 """Command-line launcher (counterpart of ``oryx_tpu/cli.py``):
 
     python -m oryx_tpu_torch serving --conf oryx.conf
+    python -m oryx_tpu_torch batch --conf oryx.conf
 
-Only the ``serving`` layer is ported. Config layers as in the JAX
-package: packaged defaults <- ``--conf`` file <- ``--set`` overrides.
+The ``serving`` and ``batch`` layers are ported. Config layers as in the
+JAX package: packaged defaults <- ``--conf`` file <- ``--set`` overrides.
 The config must name the port's classes, e.g.
-``model-manager-class = "oryx_tpu_torch.app.als.serving_model:ALSServingModelManager"``
-and ``application-resources = "oryx_tpu_torch.app.als"``.
+``model-manager-class = "oryx_tpu_torch.app.als.serving_model:ALSServingModelManager"``,
+``application-resources = "oryx_tpu_torch.app.als"`` or
+``update-class = "oryx_tpu_torch.app.kmeans.update:KMeansUpdate"``; a
+name under ``oryx_tpu`` is refused.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from oryx_tpu_torch.common.lang import close_at_shutdown
 
 log = logging.getLogger(__name__)
 
-COMMANDS = ("serving",)
+COMMANDS = ("batch", "serving")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -86,6 +89,17 @@ def _install_signal_handlers(layer) -> None:
             pass
 
 
+def run_batch(cfg: Config) -> None:
+    """deploy/oryx-batch Main.java:31-37 analogue."""
+    from oryx_tpu_torch.lambda_.batch import BatchLayer
+
+    layer = BatchLayer(cfg)
+    close_at_shutdown(layer)
+    _install_signal_handlers(layer)
+    layer.start()
+    layer.await_termination()
+
+
 def run_serving(cfg: Config) -> None:
     from oryx_tpu_torch.serving.layer import ServingLayer
 
@@ -105,7 +119,9 @@ def main(argv: list[str] | None = None) -> int:
     for d in args.app_dir:
         sys.path.insert(0, os.path.abspath(d))
     cfg = load_config(args.conf, args.set)
-    if args.command == "serving":
+    if args.command == "batch":
+        run_batch(cfg)
+    elif args.command == "serving":
         run_serving(cfg)
     return 0
 

@@ -11,7 +11,8 @@ Rebuilds, from the reference's framework/oryx-common:
 - JVMUtils ordered shutdown (lang/JVMUtils.java:26-60) via atexit.
 
 Port note: a copy of ``oryx_tpu/common/lang.py`` (JAX-free), with its imports
-pointed at ``oryx_tpu_torch``.
+pointed at ``oryx_tpu_torch``, plus ``check_port_module``, which the
+layers use to refuse config-named classes of the JAX package.
 """
 
 from __future__ import annotations
@@ -125,6 +126,17 @@ def load_class(name: str) -> type:
         return obj
     except AttributeError as e:
         raise ImportError(f"no class {cls_name!r} in module {mod_name!r}") from e
+
+
+def check_port_module(name: str, key: str) -> None:
+    """Config must name the port's own modules: a class or resource under
+    ``oryx_tpu`` would pull the JAX package into the process."""
+    head = name.split(":", 1)[0].split(".", 1)[0]
+    if head == "oryx_tpu":
+        raise ValueError(
+            f"{key} = {name!r} names the JAX package; the PyTorch port runs "
+            f"{name.replace('oryx_tpu', 'oryx_tpu_torch', 1)!r}"
+        )
 
 
 def load_instance_of(name: str, *args: Any) -> Any:

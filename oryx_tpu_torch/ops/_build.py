@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # name -> source file under csrc/
-SOURCES = {"topn": "topn.cu"}
+SOURCES = {"topn": "topn.cu", "kmeans": "kmeans.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -35,7 +35,7 @@ from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.bus.core import get_broker
 from oryx_tpu_torch.common import ledger, metrics, tracing
 from oryx_tpu_torch.common.config import Config
-from oryx_tpu_torch.common.lang import load_instance_of
+from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
 from oryx_tpu_torch.device import default_device
 from oryx_tpu_torch.serving.web import (
@@ -118,17 +118,6 @@ def _import_recursively(module_name: str) -> None:
 
         for info in pkgutil.walk_packages(path, prefix=module_name + ".", onerror=_fail):
             importlib.import_module(info.name)
-
-
-def _check_port_module(name: str, key: str) -> None:
-    """Config must name the port's own modules: a class or resource under
-    ``oryx_tpu`` would pull the JAX package into the process."""
-    head = name.split(":", 1)[0].split(".", 1)[0]
-    if head == "oryx_tpu":
-        raise ValueError(
-            f"{key} = {name!r} names the JAX package; the PyTorch port serves "
-            f"{name.replace('oryx_tpu', 'oryx_tpu_torch', 1)!r}"
-        )
 
 
 class ServingHealth:
@@ -220,9 +209,9 @@ class ServingLayer:
         self.model_manager_class = config.get_optional_string("oryx.serving.model-manager-class")
         self.app_resources = config.get_optional_strings("oryx.serving.application-resources")
         if self.model_manager_class:
-            _check_port_module(self.model_manager_class, "oryx.serving.model-manager-class")
+            check_port_module(self.model_manager_class, "oryx.serving.model-manager-class")
         for mod in self.app_resources or []:
-            _check_port_module(mod, "oryx.serving.application-resources")
+            check_port_module(mod, "oryx.serving.application-resources")
 
         # push oryx.serving.scan.* into the batcher's scheduler and the
         # scan before either spins up (the default batcher starts on first use)

@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # Runs in a fresh interpreter where importing jax or any oryx_tpu module
 # (other than oryx_tpu_torch) fails: every module of the port imports,
-# and the serving path answers over HTTP on the CPU.
+# the serving path answers over HTTP on the CPU, the k-means batch path
+# trains one generation, and chip_smoke.py imports.
 _ISOLATED = textwrap.dedent(
     r"""
     import importlib.abc, json, pkgutil, sys, time, urllib.request
@@ -83,6 +84,27 @@ _ISOLATED = textwrap.dedent(
             with urllib.request.urlopen(base + path, timeout=10) as resp:
                 assert resp.status == 200 and json.loads(resp.read()), path
         layer.close()
+    # the k-means batch path: one generation, trained through the sweep
+    from oryx_tpu_torch.lambda_.batch import BatchLayer
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    batch = BatchLayer(config.get_default().with_overlay(f'''
+        oryx {{
+          input-topic.broker = "inproc://isolated-kmeans"
+          update-topic.broker = "inproc://isolated-kmeans"
+          input-schema {{ num-features = 2, numeric-features = ["0", "1"] }}
+          kmeans.hyperparams.k = 2
+          batch.update-class = "oryx_tpu_torch.app.kmeans.update:KMeansUpdate"
+          batch.storage {{ data-dir = "{tmp}/data/", model-dir = "{tmp}/model/" }}
+        }}'''))
+    batch.prepare()
+    with bus.get_broker("inproc://isolated-kmeans").producer("OryxInput") as p:
+        for j in range(40):
+            p.send(None, f"{(j % 2) * 10 + gen.standard_normal():.3f},{gen.standard_normal():.3f}")
+    batch.run_one_generation(timestamp_ms=5)
+    batch.close()
+    assert pmml.read_pmml(f"{tmp}/model/5/model.pmml") is not None
+    import chip_smoke  # the chip script imports nothing of JAX either
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "oryx_tpu"
                     or m.startswith("oryx_tpu."))
@@ -103,7 +125,8 @@ def test_port_runs_without_jax_or_the_jax_package():
 
 def test_entry_points_raise_without_cuda_unless_cpu_chosen(monkeypatch):
     from oryx_tpu_torch.common import config
-    from oryx_tpu_torch.ops import streaming_topn, topn
+    from oryx_tpu_torch.lambda_.batch import BatchLayer
+    from oryx_tpu_torch.ops import kmeans, pallas_kmeans, streaming_topn, topn
     from oryx_tpu_torch.serving.layer import ServingLayer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -121,6 +144,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_chosen(monkeypatch):
                                          np.zeros((1, 16384), np.float32), 10)
     with pytest.raises(RuntimeError, match="set_device"):
         ServingLayer(config.get_default())
+    with pytest.raises(RuntimeError, match="set_device"):
+        BatchLayer(config.get_default().with_overlay(
+            'oryx.batch.update-class = "oryx_tpu_torch.app.kmeans.update:KMeansUpdate"'
+        ))
+    with pytest.raises(RuntimeError, match="set_device"):
+        kmeans.train_kmeans(y, 2, iterations=1)
+    with pytest.raises(RuntimeError, match="set_device"):
+        pallas_kmeans.lloyd(y, y[:2], 1)
     try:
         port_device.set_device("cpu")
         assert topn.upload(y).device.type == "cpu"

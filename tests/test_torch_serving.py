@@ -386,6 +386,38 @@ def test_top_n_for_user_index_submit_and_freshness(monkeypatch):
     m2.close()
 
 
+def test_first_request_builds_on_a_freshly_booted_host(monkeypatch):
+    """A monotonic clock that reads below refresh_sec (a host up for less
+    than it) must not hold back the first card build: refresh_sec only
+    throttles rebuilds."""
+    real_monotonic = time.monotonic
+    offset = real_monotonic() - 5.0
+    monkeypatch.setattr(tsm.time, "monotonic", lambda: real_monotonic() - offset)
+    assert tsm.time.monotonic() < 6.0
+    calls = {"indexed": 0}
+    orig = tsm.score_indexed_default
+
+    def indexed(*a, **k):
+        calls["indexed"] += 1
+        return orig(*a, **k)
+
+    monkeypatch.setattr(tsm, "score_indexed_default", indexed)
+    gen = np.random.default_rng(3)
+    m = tsm.ALSServingModel(4, True, refresh_sec=999.0)
+    try:
+        m.set_user_vectors([f"u{i}" for i in range(5)], gen.standard_normal((5, 4)).astype(np.float32))
+        m.set_item_vectors([f"i{i}" for i in range(9)], gen.standard_normal((9, 4)).astype(np.float32))
+        first = m.top_n_for_user("u1", 3)
+        assert first  # not [] for the first refresh_sec after boot
+        assert m._x_restage_thread is not None
+        m._x_restage_thread.join(30)
+        assert not m._x_restage_thread.is_alive()
+        assert m.top_n_for_user("u2", 3)
+        assert calls["indexed"] == 1  # the staged user matrix serves it
+    finally:
+        m.close()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
 def test_index_and_vector_paths_agree_with_jax(dtype):
     """Both packages' models, same factors: index-submitted answers equal

@@ -7,21 +7,30 @@ Phases, each printing one JSON line:
 
 1. card and build: the card, torch and CUDA versions, and the seconds
    ``nvcc`` took to build the kernels from ``oryx_tpu_torch/csrc``;
-2. kernels: every kernel of the serving path (``topn_scan``,
-   ``topn_merge``, ``topn_candidates``) against its plain PyTorch
-   version on the same inputs, at 1,000,000 items x 250 features, for
-   float32, bfloat16 and int8 planes, dot and cosine; with CUDA-event
-   times of the kernel, the plain version and one PyTorch library call
-   (``torch.matmul`` and a stable ``torch.sort``, which the port never
-   calls);
+2. kernels: every kernel of the serving path (``topn_scan`` and
+   ``topn_candidates`` on the tensor cores for bfloat16 and int8 planes
+   and on the CUDA cores for float32 ones, ``topn_merge``) against its
+   plain PyTorch version on the same inputs, at 1,000,000 items x 250
+   features, dot and cosine: float32 at b = 8 and 256, bfloat16 and int8
+   at every batcher bucket (b = 8 to 256), and the candidates kernel at
+   b = 512; planted exact ties (duplicated item columns) must come back
+   in lowest-id order; a 50-feature plane takes the widest query tile
+   (N = 128) at b = 128 and 256; with CUDA-event times of the kernel (on
+   the device alone, and calls back to back), the plain version and two PyTorch
+   library yardsticks that the port never calls (``torch.matmul`` with a
+   stable ``torch.sort``; ``torch.matmul`` in the plane's working type
+   with ``torch.topk``);
 3. serving, int8: the port's ServingLayer fed MODEL + UP messages over
    the update topic and bulk-loaded with 1,000,000 items and users,
    answering concurrent /recommend (index submit through the batcher),
    /recommendToAnonymous, /similarity and /estimate; /recommend recall@10
-   against an exact float32 scan on the card must reach 0.99;
+   against an exact float32 scan on the card must reach 0.99, and so
+   must a 512-query batch through ``topn.top_k_scores_batch`` (the
+   candidates kernel); every scan takes the tensor-core path;
 4. serving, float32, on the same factors: /recommend ids must equal the
    exact top-10 (ties to the lowest id), and a 512-query batch through
-   ``topn.top_k_scores_batch`` (the candidates kernel) must too;
+   ``topn.top_k_scores_batch`` (the candidates kernel) must too; every
+   scan takes the CUDA-core path;
 5. kmeans-kernels: ``kmeans_sweep`` + ``kmeans_reduce`` (the Lloyd sweep)
    against their plain versions on Gaussian blobs at 200,000 x 20 (k = 10,
    the repo's k-means shape), 10,000,000 x 20 (k = 10) and 1,000,000 x 256
@@ -37,8 +46,8 @@ Phases, each printing one JSON line:
    trained center within 0.5; a second generation with mini-batch size
    10,000 warm-starts from the champion under the same checks;
 7. the kernel table: launches on the main paths (ALS during phases 3-4,
-   k-means during phase 6, each counted from zero just before) and the
-   numbers of phases 2 and 5;
+   k-means during phase 6, each counted from zero just before; the scans
+   also by batch rows, per path) and the numbers of phases 2 and 5;
 8. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the exit code is not 0. Without CUDA, or run
@@ -65,20 +74,28 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 989e12}  # see kernel_bound()
 SOURCES = {
-    "topn_scan": "oryx_tpu_torch/csrc/topn.cu",
+    "topn_scan.tc": "oryx_tpu_torch/csrc/topn.cu",
+    "topn_scan.fma": "oryx_tpu_torch/csrc/topn.cu",
     "topn_merge": "oryx_tpu_torch/csrc/topn.cu",
-    "topn_candidates": "oryx_tpu_torch/csrc/topn.cu",
+    "topn_candidates.tc": "oryx_tpu_torch/csrc/topn.cu",
+    "topn_candidates.fma": "oryx_tpu_torch/csrc/topn.cu",
     "kmeans_sweep": "oryx_tpu_torch/csrc/kmeans.cu",
     "kmeans_reduce": "oryx_tpu_torch/csrc/kmeans.cu",
 }
 REPLACES = {
-    "topn_scan": "oryx_tpu/ops/pallas_topn.py:300",
+    "topn_scan.tc": "oryx_tpu/ops/pallas_topn.py:300",
+    "topn_scan.fma": "oryx_tpu/ops/pallas_topn.py:300",
     "topn_merge": "oryx_tpu/ops/pallas_topn.py:300",
-    "topn_candidates": "oryx_tpu/ops/pallas_topn.py:364",
+    "topn_candidates.tc": "oryx_tpu/ops/pallas_topn.py:364",
+    "topn_candidates.fma": "oryx_tpu/ops/pallas_topn.py:364",
     "kmeans_sweep": "oryx_tpu/ops/pallas_kmeans.py:59",
     "kmeans_reduce": "oryx_tpu/ops/pallas_kmeans.py:59",
 }
 RTOL = 1e-5
+# batch rows of the phase-2 scans: the batcher's buckets (serving/batcher.py
+# _b_bucket, up to LOCAL_TOPK_BATCH), and one batch past them
+SCAN_BATCHES = (8, 16, 32, 64, 128, 256)
+CANDIDATES_BATCH = 512
 # (points, features, clusters) of the k-means kernel phase; the first is
 # the repo's k-means training shape (tools/train_benchmark.py:161-170)
 KMEANS_SHAPES = ((200_000, 20, 10), (10_000_000, 20, 10), (1_000_000, 256, 256))
@@ -90,7 +107,7 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def parse_args():
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--items", type=int, default=1_000_000)
     p.add_argument("--users", type=int, default=1_000_000)
@@ -98,7 +115,19 @@ def parse_args():
     p.add_argument("--requests", type=int, default=256)
     p.add_argument("--concurrency", type=int, default=64)
     p.add_argument("--seed", type=int, default=7)
-    return p.parse_args()
+    return p.parse_args(argv)
+
+
+def factors(gen, rows: int, features: int) -> np.ndarray:
+    """Random ALS factors, N(0, 1/features) so that scores are near 1."""
+    return gen.standard_normal((rows, features), dtype=np.float32) * (1.0 / np.sqrt(features))
+
+
+def full_float32(torch) -> None:
+    """The float32 references (plain versions, exact_top) in full float32,
+    never TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def nvidia_smi_line() -> str:
@@ -114,6 +143,24 @@ def time_ms(torch, fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """CUDA-event time of reps launches of fn on the device alone: a sleep
+    kernel holds the stream while the host queues all of them, so the
+    host's own time per call (Python, the wrapper's checks) does not
+    count, as it does in time_ms when the host is the slower side."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # about 0.1 s of the card's clock
     start.record()
     for _ in range(reps):
         fn()
@@ -168,21 +215,34 @@ def kernel_bound(dtype: str, b: int, kf: int, n: int, out_bytes: int) -> tuple[f
 # -- phase 2 --------------------------------------------------------------------
 
 
-def library_topk(torch, q, plane, m):
-    """The yardstick: PyTorch's own matmul and stable sort over the whole
-    plane (no aux, no masking); the port never calls it."""
+def library_sort(torch, q, plane, m):
+    """The first yardstick: PyTorch's own matmul and stable sort over the
+    whole plane (no aux, no masking); the port never calls it."""
     v, i = torch.sort(torch.matmul(q, plane), dim=1, descending=True, stable=True)
     return v[:, :m], i[:, :m]
 
 
+def library_topk(torch, q, plane, m):
+    """The second yardstick: matmul in the plane's working type and
+    torch.topk (no tie order, no aux, no masking); the port never calls
+    it."""
+    return torch.topk(torch.matmul(q, plane), m, dim=1)
+
+
+def scan_queries(torch, stn, gen, b: int, features: int, kf: int):
+    q = torch.from_numpy(gen.standard_normal((b, features), dtype=np.float32)).cuda()
+    return stn._pad_queries(q, kf).contiguous()
+
+
 def phase_kernels(torch, stn, y: np.ndarray, seed: int) -> dict:
     """Every kernel against its plain version on the card; returns the
-    per-kernel record of the representative cases (int8 dot: topn_scan
-    and topn_merge at b = 256, topn_candidates at b = 512) with the
-    largest error seen over all cases."""
+    per-kernel record of the representative cases (topn_scan at b = 256
+    and topn_candidates at b = 512, dot: int8 for the tensor-core path,
+    float32 for the CUDA-core one; topn_merge after the int8 scan) with
+    the largest error seen over all cases of that kernel."""
     gen = np.random.default_rng(seed + 1)
     rec: dict[str, dict] = {}
-    worst = {"topn_scan": 0.0, "topn_merge": 0.0, "topn_candidates": 0.0}
+    worst = {name: 0.0 for name in SOURCES if name.startswith("topn")}
     n = y.shape[0]
     k = 16  # the batcher's smallest k bucket
     for dtype in ("float32", "bfloat16", "int8"):
@@ -190,68 +250,163 @@ def phase_kernels(torch, stn, y: np.ndarray, seed: int) -> dict:
         quantized = up.scales is not None
         kf = up.mat_t.shape[0]
         m = stn._scan_k(k, n, up.resid)
-        lib_plane = up.mat_t.float() if dtype != "bfloat16" else up.mat_t
+        path = "fma" if dtype == "float32" else "tc"
+        sort_plane = up.mat_t.float() if dtype != "bfloat16" else up.mat_t
+        work_plane = up.mat_t if dtype != "int8" else up.mat_t.to(torch.bfloat16)
+        batches = (8, 256) if dtype == "float32" else SCAN_BATCHES
+        runs = [(b, "topn_scan") for b in batches] + [(CANDIDATES_BATCH, "topn_candidates")]
         for cosine in (False, True):
             aux = stn._fold_aux(up.norms, up.scales, cosine).contiguous()
-            for b, kernel in ((8, "topn_scan"), (256, "topn_scan"), (512, "topn_candidates")):
-                q = torch.from_numpy(gen.standard_normal((b, y.shape[1]), dtype=np.float32))
-                q = q.cuda()
-                if dtype == "bfloat16":
-                    q = q.to(torch.bfloat16).float()
-                q = stn._pad_queries(q, kf).contiguous()
+            for b, kernel in runs:
+                q = scan_queries(torch, stn, gen, b, y.shape[1], kf)
                 scan = getattr(stn, kernel)
                 plain = getattr(stn, kernel + "_plain")
+                name = f"{kernel}.{path}"
                 cv, ci = scan(q, up.mat_t, aux, n, m, cosine, quantized)
                 kv, ki = stn.topn_merge(cv, ci, m)
                 pv, pi = stn.topn_merge_plain(*plain(q, up.mat_t, aux, n, m, cosine, quantized), m)
                 torch.cuda.synchronize()
                 case = f"{kernel} {dtype} {'cosine' if cosine else 'dot'} b={b} m={m}"
                 err = check_topk(case, kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
-                worst[kernel] = max(worst[kernel], err)
+                worst[name] = max(worst[name], err)
                 # the merge kernel against its plain version on the same lists
                 mv, mi = stn.topn_merge_plain(cv, ci, m)
                 if not (torch.equal(mv, kv) and torch.equal(mi, ki)):
                     raise AssertionError(f"topn_merge disagrees with its plain version: {case}")
                 merge_err = float(torch.where(mv == kv, 0.0, (mv - kv).abs()).max())
                 worst["topn_merge"] = max(worst["topn_merge"], merge_err)
-                ms = time_ms(torch, lambda: scan(q, up.mat_t, aux, n, m, cosine, quantized), 10)
-                plain_ms = time_ms(torch, lambda: plain(q, up.mat_t, aux, n, m, cosine, quantized), 3)
-                qq = q.to(lib_plane.dtype)
-                library_ms = time_ms(torch, lambda: library_topk(torch, qq, lib_plane, m), 3)
-                merge_ms = time_ms(torch, lambda: stn.topn_merge(cv, ci, m), 10)
+                run = lambda: scan(q, up.mat_t, aux, n, m, cosine, quantized)  # noqa: E731
+                ms = device_ms(torch, run, 10)
+                call_ms = time_ms(torch, run, 10)
+                plain_ms = time_ms(
+                    torch, lambda: plain(q, up.mat_t, aux, n, m, cosine, quantized), 3
+                )
+                qs, qw = q.to(sort_plane.dtype), q.to(work_plane.dtype)
+                library_ms = time_ms(torch, lambda: library_sort(torch, qs, sort_plane, m), 3)
+                library_topk_ms = time_ms(torch, lambda: library_topk(torch, qw, work_plane, m), 3)
+                merge_ms = device_ms(torch, lambda: stn.topn_merge(cv, ci, m), 10)
                 merge_plain_ms = time_ms(torch, lambda: stn.topn_merge_plain(cv, ci, m), 3)
                 flat = cv.permute(1, 0, 2).reshape(b, -1).contiguous()
                 merge_lib_ms = time_ms(
                     torch, lambda: torch.sort(flat, dim=1, descending=True, stable=True), 10
                 )
+                merge_topk_ms = time_ms(torch, lambda: torch.topk(flat, m, dim=1), 10)
                 cand_bytes = cv.numel() * 8
                 bound_ms, bound_by = kernel_bound(dtype, b, y.shape[1], n, cand_bytes)
                 merge_bound = (cand_bytes + b * m * 8) / HBM_BYTES_PER_S * 1e3
-                line = {
-                    "phase": "kernels", "case": case, "lists": int(cv.shape[0]),
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                emit({
+                    "phase": "kernels", "case": case, "path": path, "lists": int(cv.shape[0]),
+                    "max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "library_topk_ms": library_topk_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
                     "merge_max_abs_err": merge_err, "merge_ms": merge_ms,
-                    "merge_plain_ms": merge_plain_ms,
-                    "merge_library_ms": merge_lib_ms, "merge_bound_ms": merge_bound,
-                }
-                emit(line)
-                if dtype == "int8" and not cosine and b in (256, 512):
-                    rec[kernel] = dict(
-                        ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                        bound_ms=bound_ms, bound_by=bound_by,
+                    "merge_plain_ms": merge_plain_ms, "merge_library_ms": merge_lib_ms,
+                    "merge_bound_ms": merge_bound,
+                })
+                if not cosine and dtype in ("float32", "int8") and b in (256, CANDIDATES_BATCH):
+                    rec[name] = dict(
+                        ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+                        library_topk_ms=library_topk_ms, bound_ms=bound_ms, bound_by=bound_by,
                     )
-                    if b == 256:
+                    if dtype == "int8" and b == 256:
                         rec["topn_merge"] = dict(
                             ms=merge_ms, plain_ms=merge_plain_ms, library_ms=merge_lib_ms,
-                            bound_ms=merge_bound, bound_by="bytes",
+                            library_topk_ms=merge_topk_ms, bound_ms=merge_bound,
+                            bound_by="bytes",
                         )
                 del cv, ci, kv, ki, pv, pi, mv, mi, flat
-        del up, lib_plane
+        del up, sort_plane, work_plane
         torch.cuda.empty_cache()
+    check_planted_ties(torch, stn, y, seed)
     for name in rec:
         rec[name]["max_abs_err"] = worst[name]
     return rec
+
+
+def check_planted_ties(torch, stn, y: np.ndarray, seed: int) -> None:
+    """Exact ties through the tensor-core path: item 1234 scaled by 3 and
+    copied into items 60,000-60,299 of a 131,067-item plane (bit-identical
+    columns, so every summation order ties them exactly), and row 0 of
+    each query batch is that item, so its whole top-m is the tie run. The
+    kernel's ids must be the plain version's exactly (the lowest ids of
+    the run, in order), its row-0 values one value; the other rows are
+    held to check_topk."""
+    gen = np.random.default_rng(seed + 2)
+    n, dup = 131_072 - 5, 1234
+    yt = y[:n].copy()
+    yt[dup] *= 3.0
+    yt[60_000:60_300] = yt[dup]
+    for dtype in ("bfloat16", "int8"):
+        up = stn.upload_streaming(yt, dtype=stn.torch_dtype(dtype), device="cuda")
+        quantized = up.scales is not None
+        kf = up.mat_t.shape[0]
+        m = stn._scan_k(16, n, up.resid)
+        want = [dup] + list(range(60_000, 60_000 + m - 1))
+        for cosine in (False, True):
+            aux = stn._fold_aux(up.norms, up.scales, cosine).contiguous()
+            runs = ((8, "topn_scan"), (64, "topn_scan"), (CANDIDATES_BATCH, "topn_candidates"))
+            for b, kernel in runs:
+                q = torch.from_numpy(gen.standard_normal((b, y.shape[1]), dtype=np.float32))
+                q[0] = torch.from_numpy(yt[dup])
+                q = stn._pad_queries(q.cuda(), kf).contiguous()
+                scan = getattr(stn, kernel)
+                plain = getattr(stn, kernel + "_plain")
+                kv, ki = stn.topn_merge(*scan(q, up.mat_t, aux, n, m, cosine, quantized), m)
+                pv, pi = stn.topn_merge_plain(*plain(q, up.mat_t, aux, n, m, cosine, quantized), m)
+                kv, ki, pv, pi = kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu()
+                case = f"planted ties {kernel} {dtype} {'cosine' if cosine else 'dot'} b={b} m={m}"
+                if pi[0].tolist() != want:
+                    raise AssertionError(f"{case}: the plain version does not see the ties")
+                if ki[0].tolist() != want:
+                    raise AssertionError(f"{case}: ids {ki[0].tolist()[:8]}... out of id order")
+                if len(set(kv[0].tolist())) != 1:
+                    raise AssertionError(f"{case}: the tied scores differ in the kernel")
+                err = check_topk(case, kv[1:], ki[1:], pv[1:], pi[1:])
+                emit({"phase": "kernels", "case": case, "ties_in_lowest_id_order": True,
+                      "tied_value": float(kv[0, 0]), "plain_tied_value": float(pv[0, 0]),
+                      "other_rows_max_abs_err": err})
+        del up
+        torch.cuda.empty_cache()
+
+
+def check_widest_query_tile(torch, stn, n: int, seed: int) -> None:
+    """The tensor-core scan's widest query tile, N = 128, which the
+    250-feature plane never gets (its staged products and candidate
+    buffers leave no room): at the reference's narrower published shape,
+    50 features, a bfloat16 plane at k = 16 (m = 16) and an int8 plane
+    at k = 8 (m = 32, a direct call: the batcher asks for k >= 16) take
+    it at b = 128 and 256, as ``tc_plan`` must confirm. Each case, dot
+    and cosine, against its plain version under check_topk."""
+    gen = np.random.default_rng(seed + 3)
+    d = 50
+    y = factors(gen, n, d)
+    for dtype, k in (("bfloat16", 16), ("int8", 8)):
+        up = stn.upload_streaming(y, dtype=stn.torch_dtype(dtype), device="cuda")
+        quantized = up.scales is not None
+        kf = up.mat_t.shape[0]
+        m = stn._scan_k(k, n, up.resid)
+        for b in (128, 256):
+            tile = stn.tc_plan(b, kf, m, up.mat_t.dtype)[0]
+            if tile != 128:
+                raise AssertionError(f"{dtype} b={b} m={m} took query tile {tile}, not 128")
+            q = scan_queries(torch, stn, gen, b, d, kf)
+            for cosine in (False, True):
+                aux = stn._fold_aux(up.norms, up.scales, cosine).contiguous()
+                case = f"topn_scan {dtype} {'cosine' if cosine else 'dot'} b={b} m={m} kf={d}"
+                kv, ki = stn.topn_merge(*stn.topn_scan(q, up.mat_t, aux, n, m, cosine, quantized),
+                                        m)
+                pv, pi = stn.topn_merge_plain(
+                    *stn.topn_scan_plain(q, up.mat_t, aux, n, m, cosine, quantized), m
+                )
+                err = check_topk(case, kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+                ms = device_ms(
+                    torch, lambda: stn.topn_scan(q, up.mat_t, aux, n, m, cosine, quantized), 10
+                )
+                bound_ms, bound_by = kernel_bound(dtype, b, d, n, 0)
+                emit({"phase": "kernels", "case": case, "query_tile": tile, "max_abs_err": err,
+                      "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        del up
+        torch.cuda.empty_cache()
 
 
 # -- phases 3 and 4 ---------------------------------------------------------------
@@ -696,6 +851,7 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs on the GPU only", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    full_float32(torch)
     from oryx_tpu_torch.common.metrics import registry as metrics
     from oryx_tpu_torch.ops import _build, topn
     from oryx_tpu_torch.ops import pallas_kmeans as pk
@@ -719,11 +875,11 @@ def main() -> int:
     })
 
     gen = np.random.default_rng(args.seed)
-    scale = 1.0 / np.sqrt(args.features)
-    y = (gen.standard_normal((args.items, args.features), dtype=np.float32) * scale)
-    x = (gen.standard_normal((args.users, args.features), dtype=np.float32) * scale)
+    y = factors(gen, args.items, args.features)
+    x = factors(gen, args.users, args.features)
 
     kernels = phase_kernels(torch, stn, y, args.seed)
+    check_widest_query_tile(torch, stn, args.items, args.seed)
 
     probe = sorted(gen.choice(np.arange(256, args.users), size=args.concurrency, replace=False))
     y_exact = stn.upload_streaming(y, dtype=torch.float32, device="cuda")
@@ -740,16 +896,30 @@ def main() -> int:
         ]
         recall = sum(hits) / (10.0 * len(probe))
         indexed = metrics.counter("serving.batcher.submitted.indexed").value
+        # bulk scoring: 512 users in one call takes the candidates kernel
+        _, _, handle = model._ensure_y_matrix()
+        bulk = np.arange(256, 768)
+        bi, _ = topn.top_k_scores_batch(handle, x[bulk], 10)
+        _, bulk_ref = exact_top(torch, stn, y_exact, x[bulk], 10)
+        bulk_recall = sum(len(set(g) & set(r)) for g, r in zip(bi.tolist(), bulk_ref.tolist()))
+        bulk_recall /= 10.0 * len(bulk)
+        launches_int8 = stn.launch_counts()
+        batches_int8 = stn.scan_batch_histogram()
         emit({
             "phase": "serving-int8", "requests": len(lat), "concurrency": args.concurrency,
             "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
-            "recall_at_10": recall, "indexed_entries": indexed,
-            "topn_scan_launches": stn.launch_counts()["topn_scan"], **info,
+            "recall_at_10": recall, "bulk_512_recall_at_10": bulk_recall,
+            "indexed_entries": indexed, "launches": launches_int8, "scan_batches": batches_int8,
+            **info,
         })
-        if recall < 0.99:
-            raise AssertionError(f"int8 recall@10 {recall} < 0.99")
-        if indexed <= 0 or stn.launch_counts()["topn_scan"] <= 0:
-            raise AssertionError("int8 serving never reached index submit / topn_scan")
+        if recall < 0.99 or bulk_recall < 0.99:
+            raise AssertionError(f"int8 recall@10 {recall}, bulk {bulk_recall}: below 0.99")
+        if indexed <= 0 or launches_int8["topn_scan.tc"] <= 0:
+            raise AssertionError("int8 serving never reached index submit / topn_scan.tc")
+        if launches_int8["topn_candidates.tc"] <= 0:
+            raise AssertionError("the int8 bulk batch never reached topn_candidates.tc")
+        if launches_int8["topn_scan.fma"] or launches_int8["topn_candidates.fma"]:
+            raise AssertionError(f"an int8 scan took the CUDA-core path: {launches_int8}")
     finally:
         layer.close()
     del model, layer
@@ -767,14 +937,26 @@ def main() -> int:
         bi, bv = topn.top_k_scores_batch(handle, x[bulk], 10)
         rv, ri = exact_top(torch, stn, y_exact, x[bulk], 10)
         bulk_err = check_topk("float32 top_k_scores_batch b=512", bv, bi, rv, ri)
+        launches = stn.launch_counts()
+        # phase 3 counted only the tensor-core keys (checked there)
+        batches_f32 = {
+            name: hist for name, hist in stn.scan_batch_histogram().items()
+            if name.endswith(".fma")
+        }
         emit({
             "phase": "serving-float32", "requests": len(lat),
             "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
-            "recommend_max_abs_err": err, "bulk_512_max_abs_err": bulk_err, **info,
+            "recommend_max_abs_err": err, "bulk_512_max_abs_err": bulk_err,
+            "scan_batches": batches_f32, **info,
         })
+        for name in ("topn_scan.tc", "topn_candidates.tc"):
+            if launches[name] != launches_int8[name]:
+                raise AssertionError(f"a float32 scan took the tensor-core path ({name})")
+        if launches["topn_scan.fma"] <= 0 or launches["topn_candidates.fma"] <= 0:
+            raise AssertionError(f"float32 serving never reached the CUDA-core scans: {launches}")
     finally:
         layer.close()
-    launches = stn.launch_counts()  # the main path ends here
+    # the main path ends here
     del model, layer, y_exact
     torch.cuda.empty_cache()
 
@@ -787,7 +969,8 @@ def main() -> int:
             raise AssertionError(f"{name} was never launched on the main path")
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches[name], "parity": "ok", **kernels[name],
+            "launches": launches[name], "parity": "ok", "library_topk_ms": None,
+            **kernels[name],
         })
     emit({"kernels": table})
     print(smi, flush=True)

@@ -16,6 +16,13 @@ The scan itself runs in hand-written CUDA kernels (``csrc/topn.cu``):
 - ``topn_candidates`` (replaces ``pallas_topn._topn_candidates_kernel``,
   B2) for larger batches, followed by the same ``topn_merge``.
 
+Both scan on the tensor cores (wgmma) for bfloat16 and int8 planes and
+on the CUDA cores for float32 planes; the launch counts name the path
+(``topn_scan.tc``, ``topn_scan.fma``, ...). An int8 plane scores the
+float32 query exactly, as three bfloat16 pieces; a bfloat16 plane
+scores the query rounded to bfloat16, in the kernel and in its plain
+version alike.
+
 Each kernel has a plain PyTorch version of the same function here
 (``*_plain``). A wrapper runs the plain version only for tensors on the
 CPU (the tests); for a CUDA tensor it launches the kernel or raises.
@@ -27,6 +34,7 @@ PyTorch, as it was XLA in the JAX package.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from dataclasses import dataclass
@@ -35,11 +43,6 @@ import numpy as np
 import torch
 
 from oryx_tpu_torch.device import resolve
-
-# float32 scoring is exact float32 on the card, never TF32: the plain
-# versions and the rescore epilogues are the kernels' references
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
 # Items per padding block: the plane's column count is a multiple of it
 # (pallas_topn.BLOCK_N), so capacity() agrees with the JAX package.
@@ -66,8 +69,10 @@ CANDIDATE_BLOCK = BLOCK_N
 # queries pad alike) so codes match the JAX package's layout
 _INT8_FEAT_MULTIPLE = 32
 
-# threads per CTA in csrc/topn.cu = items per tile of topn_scan
-_KERNEL_THREADS = 256
+# items per CTA tile in csrc/topn.cu: the CUDA-core scan (float32 planes)
+# and the tensor-core scan (bfloat16 and int8 planes)
+_FMA_TILE_ITEMS = 256
+_TC_TILE_ITEMS = 128
 
 
 def configure_scan(*, oversample: int | None = None) -> None:
@@ -306,23 +311,40 @@ def _materialized_topk(up: StreamingItemMatrix, queries: torch.Tensor, k: int, c
 # -- the kernels and their plain versions -------------------------------------
 
 _launch_lock = threading.Lock()
-LAUNCHES = {"topn_scan": 0, "topn_merge": 0, "topn_candidates": 0}
+# one count per kernel and path: "tc" the tensor-core scan (bfloat16 and
+# int8 planes), "fma" the CUDA-core scan (float32 planes)
+LAUNCHES = {
+    "topn_scan.tc": 0, "topn_scan.fma": 0, "topn_candidates.tc": 0,
+    "topn_candidates.fma": 0, "topn_merge": 0,
+}
+# the scan batches' row counts per kernel and path: {key: {b: launches}}
+SCAN_BATCHES: dict[str, dict[int, int]] = {}
 
 
-def _count(name: str) -> None:
+def _count(name: str, b: int | None = None) -> None:
     with _launch_lock:
         LAUNCHES[name] += 1
+        if b is not None:
+            hist = SCAN_BATCHES.setdefault(name, {})
+            hist[b] = hist.get(b, 0) + 1
 
 
 def reset_launch_counts() -> None:
     with _launch_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        SCAN_BATCHES.clear()
 
 
 def launch_counts() -> dict[str, int]:
     with _launch_lock:
         return dict(LAUNCHES)
+
+
+def scan_batch_histogram() -> dict[str, dict[int, int]]:
+    """Launches of each scan path by batch rows since the last reset."""
+    with _launch_lock:
+        return {name: dict(sorted(h.items())) for name, h in SCAN_BATCHES.items()}
 
 
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2, (True, True): 3}
@@ -346,21 +368,36 @@ def _kernels():
             fn.restype = _I
         lib.topn_merge.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
         lib.topn_merge.restype = _I
+        lib.topn_tc_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+        lib.topn_tc_plan.restype = _I
         _lib = lib
     return _lib
 
 
+def tc_plan(b: int, kf: int, m: int, dtype: torch.dtype) -> tuple[int, int, int, int]:
+    """(query tile N, ring stages, shared-memory bytes, CTAs per SM) of the
+    tensor-core scan for b queries over kf features keeping m; N = 0 if
+    none fits. Asks the card, so the CUDA context must exist."""
+    out = (_I * 4)()
+    _kernels().topn_tc_plan(int(b), int(kf), int(m), _KERNEL_DTYPES[dtype], out)
+    return out[0], out[1], out[2], out[3]
+
+
 def _score_plain(q, mat_t, aux, n_items, cosine, quantized):
     """[b, n_pad] scores in the order of pallas_topn._score_tile, masked
-    past n_items."""
-    scores = q.float() @ mat_t.float()
+    past n_items. A bfloat16 plane scores the queries rounded to bfloat16
+    (their norm too), as the JAX package casts them to the plane's type."""
+    q = q.float()
+    if mat_t.dtype == torch.bfloat16:
+        q = q.to(torch.bfloat16).float()
+    scores = q @ mat_t.float()
     if quantized:
         scores = scores * aux
         if cosine:
-            qn = torch.sqrt(torch.sum(q.float() * q.float(), dim=1, keepdim=True))
+            qn = torch.sqrt(torch.sum(q * q, dim=1, keepdim=True))
             scores = scores / torch.clamp_min(qn, 1e-12)
     elif cosine:
-        qn = torch.sqrt(torch.sum(q.float() * q.float(), dim=1, keepdim=True))
+        qn = torch.sqrt(torch.sum(q * q, dim=1, keepdim=True))
         scores = scores / torch.clamp_min(aux * qn, 1e-12)
     cols = torch.arange(scores.shape[1], device=scores.device)
     return torch.where(cols[None, :] < n_items, scores, -math.inf)
@@ -399,11 +436,8 @@ def topn_merge_plain(cand_v, cand_i, m):
 
 
 def _check_scan_args(q, mat_t, aux, m):
-    if q.device.type != "cuda":
-        raise ValueError(f"the scan kernels take CUDA tensors, not {q.device}")
-    for name, t in (("mat_t", mat_t), ("aux", aux)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, queries on {q.device}")
+    """Raise ValueError for what the scan kernels do not take (CUDA
+    tensors last, so that the shape rules can be checked anywhere)."""
     if q.dtype != torch.float32 or aux.dtype != torch.float32:
         raise ValueError("queries and aux must be float32")
     if mat_t.dtype not in _KERNEL_DTYPES:
@@ -412,29 +446,53 @@ def _check_scan_args(q, mat_t, aux, m):
         raise ValueError(f"queries {tuple(q.shape)} do not match plane {tuple(mat_t.shape)}")
     if tuple(aux.shape) != (1, mat_t.shape[1]):
         raise ValueError(f"aux {tuple(aux.shape)} does not match plane {tuple(mat_t.shape)}")
-    if mat_t.shape[1] % CANDIDATE_BLOCK:  # whole blocks, hence whole 256-item tiles
+    if mat_t.shape[1] % CANDIDATE_BLOCK:  # whole blocks, hence whole tiles of either scan
         raise ValueError(f"plane width {mat_t.shape[1]} is not a {CANDIDATE_BLOCK} multiple")
+    if mat_t.dtype == torch.int8 and mat_t.shape[0] % _INT8_FEAT_MULTIPLE:
+        # the tensor-core scan reads int8 codes 32 features at a time
+        raise ValueError(
+            f"int8 plane has {mat_t.shape[0]} features, not a {_INT8_FEAT_MULTIPLE} multiple"
+        )
     if not (q.is_contiguous() and mat_t.is_contiguous() and aux.is_contiguous()):
         raise ValueError("the scan kernels take contiguous tensors")
     if not 1 <= m <= MAX_KERNEL_K:
         raise ValueError(f"m = {m} is outside [1, {MAX_KERNEL_K}]")
+    if q.shape[0] < 1:
+        raise ValueError("no queries")
     if q.shape[1] > 1024:
         raise ValueError(f"{q.shape[1]} features exceed the kernels' 1024")
+    if q.device.type != "cuda":
+        raise ValueError(f"the scan kernels take CUDA tensors, not {q.device}")
+    for name, t in (("mat_t", mat_t), ("aux", aux)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, queries on {q.device}")
 
 
-def _scan_splits(b: int, n_pad: int, device) -> tuple[int, int]:
-    """(span, splits) of topn_scan: enough CTAs to fill the card, each
-    walking a contiguous run of whole tiles."""
-    tiles = n_pad // _KERNEL_THREADS
-    qtiles = math.ceil(b / (8 if b <= 8 else 32))
+@functools.lru_cache(maxsize=1024)
+def _scan_splits(b: int, n_pad: int, kf: int, m: int, dtype, device) -> tuple[int, int]:
+    """(span, splits) of topn_scan: each CTA walks a contiguous run of
+    whole tiles, with enough CTAs to fill the card. The CUDA-core scan
+    aims at 4 CTAs per SM; the tensor-core scan at as many as one SM
+    holds (one wave)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(tiles, math.ceil(4 * sms / qtiles)))
+    if dtype == torch.float32:
+        tile, per_sm = _FMA_TILE_ITEMS, 4
+        qtiles = math.ceil(b / (8 if b <= 8 else 32))
+    else:
+        tile = _TC_TILE_ITEMS
+        n, _, _, per_sm = tc_plan(b, kf, m, dtype)
+        if n == 0 or per_sm == 0:
+            raise ValueError(f"no query tile of the tensor-core scan fits kf = {kf}, m = {m}")
+        qtiles = math.ceil(b / n)
+    tiles = n_pad // tile
+    splits = max(1, min(tiles, math.ceil(per_sm * sms / qtiles)))
     per = math.ceil(tiles / splits)
-    return per * _KERNEL_THREADS, math.ceil(tiles / per)
+    return per * tile, math.ceil(tiles / per)
 
 
 def _launch_scan(name, q, mat_t, aux, n_items, m, mode, span, grid_y):
     b = q.shape[0]
+    path = "fma" if mat_t.dtype == torch.float32 else "tc"
     out_v = torch.empty((grid_y, b, m), dtype=torch.float32, device=q.device)
     out_i = torch.empty((grid_y, b, m), dtype=torch.int32, device=q.device)
     rc = getattr(_kernels(), name)(
@@ -444,7 +502,7 @@ def _launch_scan(name, q, mat_t, aux, n_items, m, mode, span, grid_y):
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    _count(name)
+    _count(f"{name}.{path}", b)
     return out_v, out_i
 
 
@@ -454,15 +512,17 @@ def topn_scan(q, mat_t, aux, n_items, m, cosine, quantized):
     if q.device.type == "cpu":
         return topn_scan_plain(q, mat_t, aux, n_items, m, cosine, quantized)
     _check_scan_args(q, mat_t, aux, m)
-    span, splits = _scan_splits(q.shape[0], mat_t.shape[1], q.device)
+    span, splits = _scan_splits(
+        q.shape[0], mat_t.shape[1], mat_t.shape[0], m, mat_t.dtype, q.device
+    )
     return _launch_scan(
         "topn_scan", q, mat_t, aux, n_items, m, _MODES[(cosine, quantized)], span, splits
     )
 
 
 def topn_candidates(q, mat_t, aux, n_items, m, cosine, quantized):
-    """B2: each CANDIDATE_BLOCK-item block's top-m, [blocks, b, m]. CPU
-    tensors take the plain version."""
+    """B2: each CANDIDATE_BLOCK-item block's top-m, [blocks, b, m]. The
+    same query rule as topn_scan. CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return topn_candidates_plain(q, mat_t, aux, n_items, m, cosine, quantized)
     _check_scan_args(q, mat_t, aux, m)
@@ -508,10 +568,7 @@ def _scan_queries(up: StreamingItemMatrix, queries: torch.Tensor, k: int, cosine
         return _materialized_topk(up, queries, k, cosine)
     k_feat = up.mat_t.shape[0]
     quantized = up.scales is not None
-    q = queries.float()
-    if not quantized and up.mat_t.dtype != torch.float32:
-        q = q.to(up.mat_t.dtype).float()  # bf16 planes score bf16 queries
-    q = _pad_queries(q, k_feat).contiguous()
+    q = _pad_queries(queries.float(), k_feat).contiguous()
     aux = _fold_aux(up.norms, up.scales, cosine).contiguous()
     m = _scan_k(k, up.n_items, up.resid)
     scan = topn_candidates if q.shape[0] > LOCAL_TOPK_BATCH else topn_scan

@@ -17,7 +17,7 @@ ROOT = Path(__file__).resolve().parent.parent
 # Runs in a fresh interpreter where importing jax or any oryx_tpu module
 # (other than oryx_tpu_torch) fails: every module of the port imports,
 # the serving path answers over HTTP on the CPU, the k-means batch path
-# trains one generation, and chip_smoke.py imports.
+# trains one generation, and chip_smoke.py and scan_bench.py import.
 _ISOLATED = textwrap.dedent(
     r"""
     import importlib.abc, json, pkgutil, sys, time, urllib.request
@@ -104,7 +104,8 @@ _ISOLATED = textwrap.dedent(
     batch.run_one_generation(timestamp_ms=5)
     batch.close()
     assert pmml.read_pmml(f"{tmp}/model/5/model.pmml") is not None
-    import chip_smoke  # the chip script imports nothing of JAX either
+    import chip_smoke  # the chip scripts import nothing of JAX either
+    import scan_bench
     leaked = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax.") or m == "oryx_tpu"
                     or m.startswith("oryx_tpu."))

@@ -13,6 +13,8 @@ order).
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -184,6 +186,125 @@ def test_configure_scan_oversample():
         assert stn._scan_k(10, 1000, None) == 10
     finally:
         stn.configure_scan(oversample=old)
+
+
+# -- the tensor-core scan's exact query split and argument rules ---------------
+
+
+def _split_bf16x3(q: torch.Tensor) -> torch.Tensor:
+    """[3, b, kf] bfloat16 pieces (hi, mid, lo) of float32 queries, the
+    split the tensor-core scan makes for an int8 plane (``split_query`` in
+    csrc/topn.cu): each piece rounds to nearest even what the earlier ones
+    left, and each remainder is exact in float32."""
+    hi = q.to(torch.bfloat16)
+    rest = q - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return torch.stack((hi, mid, lo))
+
+
+def _assert_exact_split(q: torch.Tensor) -> None:
+    pieces = _split_bf16x3(q)
+    assert pieces.dtype == torch.bfloat16 and tuple(pieces.shape) == (3, *q.shape)
+    hi, mid, lo = (p.float() for p in pieces)
+    # exact in f32 in either order of summation: each partial sum fits
+    assert torch.equal((hi + mid) + lo, q)
+    assert torch.equal(hi + (mid + lo), q)
+
+
+# finite f32 values of every significand, exponents kept where each
+# remainder stays above bfloat16's smallest subnormal (2^-133)
+_normal_f32 = st.builds(
+    lambda sign, mant, exp: float(np.ldexp(np.float32(sign * mant), exp)),
+    st.sampled_from([-1, 1]), st.integers(1 << 23, (1 << 24) - 1), st.integers(-100, 100),
+)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.one_of(st.just(0.0), _normal_f32), min_size=1, max_size=64))
+def test_split_bf16x3_is_exact(values):
+    _assert_exact_split(torch.tensor(values, dtype=torch.float32)[None])
+
+
+@pytest.mark.parametrize("b,kf,seed", [(8, 24, 0), (300, 24, 3), (1, 250, 7)])
+def test_split_bf16x3_is_exact_on_seeded_queries(b, kf, seed):
+    _, q = _make(kf=kf, b=b, seed=seed)
+    _assert_exact_split(torch.from_numpy(q))
+
+
+@pytest.mark.parametrize("kernel", ["topn_scan", "topn_candidates"])
+@pytest.mark.parametrize("cosine", [False, True])
+def test_bf16_plane_wrappers_score_rounded_queries(kernel, cosine):
+    """A bfloat16 plane scores the queries rounded to bfloat16, norm
+    included, as the tensor-core kernel does: the wrapper given raw
+    float32 queries answers exactly as given the rounded ones, and its
+    scores are the rounded queries' products in float32."""
+    y, q = _make(n=20000, kf=24, b=6, seed=9)
+    up = stn.upload_streaming(y, dtype=torch.bfloat16)
+    aux = stn._fold_aux(up.norms, None, cosine)
+    raw = torch.from_numpy(q)
+    rounded = raw.to(torch.bfloat16).float()
+    assert not torch.equal(raw, rounded)
+    scan = getattr(stn, kernel)
+    got = scan(raw, up.mat_t, aux, up.n_items, 10, cosine, False)
+    want = scan(rounded, up.mat_t, aux, up.n_items, 10, cosine, False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    v, i = stn.topn_merge(*got, 10)
+    ref = rounded @ up.mat_t.float()[:, : up.n_items]
+    if cosine:
+        ref = ref / torch.clamp_min(
+            up.norms[:, : up.n_items] * torch.linalg.vector_norm(rounded, dim=1, keepdim=True),
+            1e-12,
+        )
+    torch.testing.assert_close(v, torch.gather(ref, 1, i.long()), rtol=1e-6, atol=1e-6)
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+# (what, queries, plane, aux, m, message): each breaks one rule
+_REFUSED = [
+    ("f64 queries", _meta((2, 32), torch.float64), _meta((32, 16384)), _meta((1, 16384)), 8,
+     "float32"),
+    ("f16 plane", _meta((2, 32)), _meta((32, 16384), torch.float16), _meta((1, 16384)), 8,
+     "dtype"),
+    ("feature mismatch", _meta((2, 31)), _meta((32, 16384)), _meta((1, 16384)), 8,
+     "do not match"),
+    ("aux width", _meta((2, 32)), _meta((32, 16384)), _meta((1, 16000)), 8, "aux"),
+    ("ragged plane", _meta((2, 32)), _meta((32, 20000)), _meta((1, 20000)), 8, "multiple"),
+    ("int8 features", _meta((2, 48)), _meta((48, 16384), torch.int8), _meta((1, 16384)), 8,
+     "32 multiple"),
+    ("strided queries", _meta((32, 2)).t(), _meta((32, 16384)), _meta((1, 16384)), 8,
+     "contiguous"),
+    ("m = 0", _meta((2, 32)), _meta((32, 16384)), _meta((1, 16384)), 0, "outside"),
+    ("m = 129", _meta((2, 32)), _meta((32, 16384)), _meta((1, 16384)), 129, "outside"),
+    ("no queries", _meta((0, 32)), _meta((32, 16384)), _meta((1, 16384)), 8, "no queries"),
+    ("1056 features", _meta((2, 1056)), _meta((1056, 16384), torch.int8), _meta((1, 16384)), 8,
+     "1024"),
+    ("not CUDA", _meta((2, 32)), _meta((32, 16384), torch.bfloat16), _meta((1, 16384)), 8,
+     "CUDA"),
+]
+
+
+@pytest.mark.parametrize("what,q,mat_t,aux,m,message", _REFUSED, ids=[c[0] for c in _REFUSED])
+def test_check_scan_args_refuses(what, q, mat_t, aux, m, message):
+    with pytest.raises(ValueError, match=message):
+        stn._check_scan_args(q, mat_t, aux, m)
+
+
+def test_cpu_scans_count_no_launches():
+    """CPU tensors take the plain versions: no kernel path counts a
+    launch or a batch."""
+    stn.reset_launch_counts()
+    y, q = _make(n=3000, kf=16, b=5, seed=8)
+    stn.top_k_streaming(stn.upload_streaming(y, dtype=torch.int8), q, 10)
+    assert stn.launch_counts() == {
+        "topn_scan.tc": 0, "topn_scan.fma": 0, "topn_candidates.tc": 0,
+        "topn_candidates.fma": 0, "topn_merge": 0,
+    }
+    assert stn.scan_batch_histogram() == {}
 
 
 def test_cuda_wrappers_refuse_other_devices():

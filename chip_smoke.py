@@ -8,29 +8,31 @@ Phases, each printing one JSON line:
 1. card and build: the card, torch and CUDA versions, and the seconds
    ``nvcc`` took to build the kernels from ``oryx_tpu_torch/csrc``;
 2. kernels: every kernel of the serving path (``topn_scan`` and
-   ``topn_candidates`` on the tensor cores for bfloat16 and int8 planes
-   and on the CUDA cores for float32 ones, ``topn_merge``) against its
-   plain PyTorch version on the same inputs, at 1,000,000 items x 250
-   features, dot and cosine: float32 at b = 8 and 256, bfloat16 and int8
-   at every batcher bucket (b = 8 to 256), and the candidates kernel at
-   b = 512; planted exact ties (duplicated item columns) must come back
-   in lowest-id order; a 50-feature plane takes the widest query tile
-   (N = 128) at b = 128 and 256; with CUDA-event times of the kernel (on
-   the device alone, and calls back to back), the plain version and two PyTorch
-   library yardsticks that the port never calls (``torch.matmul`` with a
-   stable ``torch.sort``; ``torch.matmul`` in the plane's working type
-   with ``torch.topk``);
+   ``topn_candidates`` on the tensor cores for every plane type,
+   ``topn_merge``) against its plain PyTorch version on the same inputs,
+   at 1,000,000 items x 250 features, dot and cosine: float32, bfloat16
+   and int8 at every batcher bucket (b = 8 to 256), and the candidates
+   kernel at b = 512; planted exact ties (duplicated item columns) must
+   come back in lowest-id order; the widest query tile (N = 128) at
+   b = 128 and 256 on a 50-feature plane (bfloat16, int8) and a
+   10-feature one (float32); the merge bit for bit on synthetic lists
+   (S = 1 to 1221 lists, m = 1 to 128, b = 1 and 512, padding, equal
+   values across lists); with CUDA-event times of the kernel (on the
+   device alone, and calls back to back), the plain version and two
+   PyTorch library yardsticks that the port never calls
+   (``torch.matmul`` with a stable ``torch.sort``; ``torch.matmul`` in
+   the plane's working type with ``torch.topk``);
 3. serving, int8: the port's ServingLayer fed MODEL + UP messages over
    the update topic and bulk-loaded with 1,000,000 items and users,
    answering concurrent /recommend (index submit through the batcher),
    /recommendToAnonymous, /similarity and /estimate; /recommend recall@10
    against an exact float32 scan on the card must reach 0.99, and so
    must a 512-query batch through ``topn.top_k_scores_batch`` (the
-   candidates kernel); every scan takes the tensor-core path;
+   candidates kernel); every scan takes the ``tc`` path;
 4. serving, float32, on the same factors: /recommend ids must equal the
    exact top-10 (ties to the lowest id), and a 512-query batch through
    ``topn.top_k_scores_batch`` (the candidates kernel) must too; every
-   scan takes the CUDA-core path;
+   scan takes the ``tc_f32`` path (six bf16 passes);
 5. kmeans-kernels: ``kmeans_sweep`` + ``kmeans_reduce`` (the Lloyd sweep)
    against their plain versions on Gaussian blobs at 200,000 x 20 (k = 10,
    the repo's k-means shape), 10,000,000 x 20 (k = 10) and 1,000,000 x 256
@@ -61,6 +63,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -72,22 +75,26 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 989e12}  # see kernel_bound()
+# peak operations per second by the type of the function's product (see
+# kernel_bound()); float32 is the least time of an f32-accurate product
+# on this card: six bf16 tensor-core passes over three-piece splits of
+# both operands, the TPU's Precision.HIGHEST
+PEAK_OPS = {"float32": 989e12 / 6, "bfloat16": 989e12, "int8": 989e12}
 SOURCES = {
     "topn_scan.tc": "oryx_tpu_torch/csrc/topn.cu",
-    "topn_scan.fma": "oryx_tpu_torch/csrc/topn.cu",
+    "topn_scan.tc_f32": "oryx_tpu_torch/csrc/topn.cu",
     "topn_merge": "oryx_tpu_torch/csrc/topn.cu",
     "topn_candidates.tc": "oryx_tpu_torch/csrc/topn.cu",
-    "topn_candidates.fma": "oryx_tpu_torch/csrc/topn.cu",
+    "topn_candidates.tc_f32": "oryx_tpu_torch/csrc/topn.cu",
     "kmeans_sweep": "oryx_tpu_torch/csrc/kmeans.cu",
     "kmeans_reduce": "oryx_tpu_torch/csrc/kmeans.cu",
 }
 REPLACES = {
     "topn_scan.tc": "oryx_tpu/ops/pallas_topn.py:300",
-    "topn_scan.fma": "oryx_tpu/ops/pallas_topn.py:300",
+    "topn_scan.tc_f32": "oryx_tpu/ops/pallas_topn.py:300",
     "topn_merge": "oryx_tpu/ops/pallas_topn.py:300",
     "topn_candidates.tc": "oryx_tpu/ops/pallas_topn.py:364",
-    "topn_candidates.fma": "oryx_tpu/ops/pallas_topn.py:364",
+    "topn_candidates.tc_f32": "oryx_tpu/ops/pallas_topn.py:364",
     "kmeans_sweep": "oryx_tpu/ops/pallas_kmeans.py:59",
     "kmeans_reduce": "oryx_tpu/ops/pallas_kmeans.py:59",
 }
@@ -96,6 +103,11 @@ RTOL = 1e-5
 # _b_bucket, up to LOCAL_TOPK_BATCH), and one batch past them
 SCAN_BATCHES = (8, 16, 32, 64, 128, 256)
 CANDIDATES_BATCH = 512
+# the merge check's synthetic shapes: lists (1221 = the candidates kernel's
+# blocks at 20M items), list length and rows
+MERGE_LISTS = (1, 2, 7, 33, 1221)
+MERGE_M = (1, 16, 64, 128)
+MERGE_ROWS = (1, CANDIDATES_BATCH)
 # (points, features, clusters) of the k-means kernel phase; the first is
 # the repo's k-means training shape (tools/train_benchmark.py:161-170)
 KMEANS_SHAPES = ((200_000, 20, 10), (10_000_000, 20, 10), (1_000_000, 256, 256))
@@ -136,6 +148,24 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_kernels(log) -> list[str]:
+    """Each kernel of the build log (``-Xptxas -v``) with its registers,
+    stack frame and spills, as 'kernel<template args>: ...'."""
+    out, name, frame = [], None, ""
+    for _, line in log:
+        if "Compiling entry function" in line:
+            found = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", line)
+            args = re.findall(r"Li(\d+)E", found.group(2) or "")
+            name = found.group(1) + (f"<{','.join(args)}>" if args else "")
+        elif "stack frame" in line:
+            frame = line
+        elif line.startswith("ptxas info    : Used") and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers; {frame}")
+            name, frame = None, ""
+    return out
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -199,12 +229,13 @@ def kernel_bound(dtype: str, b: int, kf: int, n: int, out_bytes: int) -> tuple[f
     """Least time for a scan: the bytes it must move (item plane at its
     dtype, the aux row, the queries, the outputs) over 3.35 TB/s against
     2*b*kf*n operations over the peak for their type. float32 planes
-    score at full float32 (67 TFLOP/s outside the tensor cores).
-    bfloat16 and int8 planes score a bfloat16 product with float32
-    accumulation, as the TPU kernel does (int8 codes are exact in
-    bfloat16 and take bfloat16 MXU passes there), so both count at the
-    bfloat16 tensor-core rate (989 TFLOP/s), whatever units the port's
-    kernel uses."""
+    score at float32 accuracy, as the TPU kernel does at
+    Precision.HIGHEST; the fastest such product on this card is six
+    bfloat16 tensor-core passes (989/6 TFLOP/s). bfloat16 and int8
+    planes score a bfloat16 product with float32 accumulation, as the TPU
+    kernel does (int8 codes are exact in bfloat16 and take bfloat16 MXU
+    passes there), so both count at the bfloat16 tensor-core rate (989
+    TFLOP/s), whatever passes the port's kernel makes."""
     item_bytes = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
     moved = kf * n * item_bytes + 4 * n + 4 * b * kf + out_bytes
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
@@ -234,15 +265,26 @@ def scan_queries(torch, stn, gen, b: int, features: int, kf: int):
     return stn._pad_queries(q, kf).contiguous()
 
 
+def launched(stn, before: dict) -> str:
+    """The one launch key whose count grew since ``before`` (a
+    ``launch_counts()``): the kernel and path a scan took."""
+    grew = [name for name, count in stn.launch_counts().items() if count > before.get(name, 0)]
+    if len(grew) != 1:
+        raise AssertionError(f"one scan launched {grew}")
+    return grew[0]
+
+
 def phase_kernels(torch, stn, y: np.ndarray, seed: int) -> dict:
-    """Every kernel against its plain version on the card; returns the
-    per-kernel record of the representative cases (topn_scan at b = 256
-    and topn_candidates at b = 512, dot: int8 for the tensor-core path,
-    float32 for the CUDA-core one; topn_merge after the int8 scan) with
-    the largest error seen over all cases of that kernel."""
+    """Every kernel against its plain version on the card; returns, by
+    launch key, the record of the representative cases (topn_scan at
+    b = 256 and topn_candidates at b = 512, dot: int8 for the ``tc``
+    path, float32 for ``tc_f32``; topn_merge after the int8 scan at
+    b = 256) with the largest error seen over all cases of that kernel.
+    The path of each case is read from the launch counts, so the same
+    cases run on another checkout's package (``scan_bench.py --root``)."""
     gen = np.random.default_rng(seed + 1)
     rec: dict[str, dict] = {}
-    worst = {name: 0.0 for name in SOURCES if name.startswith("topn")}
+    worst: dict[str, float] = {"topn_merge": 0.0}
     n = y.shape[0]
     k = 16  # the batcher's smallest k bucket
     for dtype in ("float32", "bfloat16", "int8"):
@@ -250,25 +292,24 @@ def phase_kernels(torch, stn, y: np.ndarray, seed: int) -> dict:
         quantized = up.scales is not None
         kf = up.mat_t.shape[0]
         m = stn._scan_k(k, n, up.resid)
-        path = "fma" if dtype == "float32" else "tc"
         sort_plane = up.mat_t.float() if dtype != "bfloat16" else up.mat_t
         work_plane = up.mat_t if dtype != "int8" else up.mat_t.to(torch.bfloat16)
-        batches = (8, 256) if dtype == "float32" else SCAN_BATCHES
-        runs = [(b, "topn_scan") for b in batches] + [(CANDIDATES_BATCH, "topn_candidates")]
+        runs = [(b, "topn_scan") for b in SCAN_BATCHES] + [(CANDIDATES_BATCH, "topn_candidates")]
         for cosine in (False, True):
             aux = stn._fold_aux(up.norms, up.scales, cosine).contiguous()
             for b, kernel in runs:
                 q = scan_queries(torch, stn, gen, b, y.shape[1], kf)
                 scan = getattr(stn, kernel)
                 plain = getattr(stn, kernel + "_plain")
-                name = f"{kernel}.{path}"
+                before = stn.launch_counts()
                 cv, ci = scan(q, up.mat_t, aux, n, m, cosine, quantized)
+                name = launched(stn, before)
                 kv, ki = stn.topn_merge(cv, ci, m)
                 pv, pi = stn.topn_merge_plain(*plain(q, up.mat_t, aux, n, m, cosine, quantized), m)
                 torch.cuda.synchronize()
                 case = f"{kernel} {dtype} {'cosine' if cosine else 'dot'} b={b} m={m}"
                 err = check_topk(case, kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
-                worst[name] = max(worst[name], err)
+                worst[name] = max(worst.get(name, 0.0), err)
                 # the merge kernel against its plain version on the same lists
                 mv, mi = stn.topn_merge_plain(cv, ci, m)
                 if not (torch.equal(mv, kv) and torch.equal(mi, ki)):
@@ -295,13 +336,13 @@ def phase_kernels(torch, stn, y: np.ndarray, seed: int) -> dict:
                 bound_ms, bound_by = kernel_bound(dtype, b, y.shape[1], n, cand_bytes)
                 merge_bound = (cand_bytes + b * m * 8) / HBM_BYTES_PER_S * 1e3
                 emit({
-                    "phase": "kernels", "case": case, "path": path, "lists": int(cv.shape[0]),
+                    "phase": "kernels", "case": case, "path": name, "lists": int(cv.shape[0]),
                     "max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "library_topk_ms": library_topk_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
                     "merge_max_abs_err": merge_err, "merge_ms": merge_ms,
                     "merge_plain_ms": merge_plain_ms, "merge_library_ms": merge_lib_ms,
-                    "merge_bound_ms": merge_bound,
+                    "merge_library_topk_ms": merge_topk_ms, "merge_bound_ms": merge_bound,
                 })
                 if not cosine and dtype in ("float32", "int8") and b in (256, CANDIDATES_BATCH):
                     rec[name] = dict(
@@ -318,13 +359,14 @@ def phase_kernels(torch, stn, y: np.ndarray, seed: int) -> dict:
         del up, sort_plane, work_plane
         torch.cuda.empty_cache()
     check_planted_ties(torch, stn, y, seed)
+    check_merge(torch, stn, seed)
     for name in rec:
         rec[name]["max_abs_err"] = worst[name]
     return rec
 
 
 def check_planted_ties(torch, stn, y: np.ndarray, seed: int) -> None:
-    """Exact ties through the tensor-core path: item 1234 scaled by 3 and
+    """Exact ties through the scan, every plane type: item 1234 scaled by 3 and
     copied into items 60,000-60,299 of a 131,067-item plane (bit-identical
     columns, so every summation order ties them exactly), and row 0 of
     each query batch is that item, so its whole top-m is the tie run. The
@@ -336,7 +378,7 @@ def check_planted_ties(torch, stn, y: np.ndarray, seed: int) -> None:
     yt = y[:n].copy()
     yt[dup] *= 3.0
     yt[60_000:60_300] = yt[dup]
-    for dtype in ("bfloat16", "int8"):
+    for dtype in ("float32", "bfloat16", "int8"):
         up = stn.upload_streaming(yt, dtype=stn.torch_dtype(dtype), device="cuda")
         quantized = up.scales is not None
         kf = up.mat_t.shape[0]
@@ -370,25 +412,26 @@ def check_planted_ties(torch, stn, y: np.ndarray, seed: int) -> None:
 
 
 def check_widest_query_tile(torch, stn, n: int, seed: int) -> None:
-    """The tensor-core scan's widest query tile, N = 128, which the
-    250-feature plane never gets (its staged products and candidate
-    buffers leave no room): at the reference's narrower published shape,
-    50 features, a bfloat16 plane at k = 16 (m = 16) and an int8 plane
-    at k = 8 (m = 32, a direct call: the batcher asks for k >= 16) take
-    it at b = 128 and 256, as ``tc_plan`` must confirm. Each case, dot
-    and cosine, against its plain version under check_topk."""
+    """The scan's widest query tile, N = 128, which the 250-feature plane
+    never gets (its staged products and candidate buffers leave no room):
+    at the reference's narrower published shape, 50 features, a bfloat16
+    plane at k = 16 (m = 16) and an int8 plane at k = 8 (m = 32, a direct
+    call: the batcher asks for k >= 16); a float32 plane, whose three
+    resident query pieces leave room for N = 128 only up to 32 features,
+    at the ALS default of 10 features, k = 16. Each takes it at b = 128
+    and 256, as ``tc_plan`` must confirm; each case, dot and cosine,
+    against its plain version under check_topk."""
     gen = np.random.default_rng(seed + 3)
-    d = 50
-    y = factors(gen, n, d)
-    for dtype, k in (("bfloat16", 16), ("int8", 8)):
-        up = stn.upload_streaming(y, dtype=stn.torch_dtype(dtype), device="cuda")
+    planes = {d: factors(gen, n, d) for d in (50, 10)}
+    for dtype, k, d in (("bfloat16", 16, 50), ("int8", 8, 50), ("float32", 16, 10)):
+        up = stn.upload_streaming(planes[d], dtype=stn.torch_dtype(dtype), device="cuda")
         quantized = up.scales is not None
         kf = up.mat_t.shape[0]
         m = stn._scan_k(k, n, up.resid)
         for b in (128, 256):
             tile = stn.tc_plan(b, kf, m, up.mat_t.dtype)[0]
             if tile != 128:
-                raise AssertionError(f"{dtype} b={b} m={m} took query tile {tile}, not 128")
+                raise AssertionError(f"{dtype} b={b} m={m} kf={d} took query tile {tile}, not 128")
             q = scan_queries(torch, stn, gen, b, d, kf)
             for cosine in (False, True):
                 aux = stn._fold_aux(up.norms, up.scales, cosine).contiguous()
@@ -407,6 +450,68 @@ def check_widest_query_tile(torch, stn, n: int, seed: int) -> None:
                       "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by})
         del up
         torch.cuda.empty_cache()
+
+
+def merge_lists(torch, gen, s: int, b: int, m: int):
+    """[S, b, m] lists as the scans leave them: each best first, values on
+    a coarse grid (so equal values meet within and across lists), ids of
+    list s below list s + 1's and ascending among equal values, each list
+    ending in a random run of (-inf, INT_MAX) padding (whole lists
+    included); at b > 1, row 1 holds a single value in every list and
+    row 0 is padding but for the first half of list 0, so that padding
+    reaches the merged list."""
+    dev = "cuda"
+    # + 0.0 leaves no -0.0, which the ordering of one sort or another may
+    # set apart from 0.0
+    v = torch.round(torch.randn((s, b, m), generator=gen, device=dev) * 2) / 4 + 0.0
+    v = torch.sort(v, dim=2, descending=True).values
+    rank = torch.arange(m, device=dev)
+    ids = (torch.arange(s, device=dev)[:, None, None] * m + rank).expand(s, b, m)
+    kept = m - torch.randint(0, m + 1, (s, b, 1), generator=gen, device=dev)
+    if b > 1:
+        v[:, 1] = 0.5
+        kept[:, 0] = 0
+        kept[0, 0] = m // 2
+    v = torch.where(rank >= kept, -math.inf, v)
+    ids = torch.where(rank >= kept, 2**31 - 1, ids)
+    return v.contiguous(), ids.to(torch.int32).contiguous()
+
+
+def check_merge(torch, stn, seed: int) -> None:
+    """topn_merge bit for bit against topn_merge_plain on synthetic lists
+    (merge_lists) at every S of MERGE_LISTS, m of MERGE_M and b of
+    MERGE_ROWS; at b = 512 with its time beside both yardsticks (a stable
+    torch.sort and torch.topk over the flattened lists, which the port
+    never calls) and its byte bound."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 4)
+    for s in MERGE_LISTS:
+        for m in MERGE_M:
+            for b in MERGE_ROWS:
+                cv, ci = merge_lists(torch, gen, s, b, m)
+                kv, ki = stn.topn_merge(cv, ci, m)
+                pv, pi = stn.topn_merge_plain(cv, ci, m)
+                case = f"topn_merge S={s} b={b} m={m}"
+                if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+                    raise AssertionError(f"{case}: disagrees with its plain version")
+                out = {"phase": "kernels", "case": case, "bit_identical": True}
+                if b > 1:
+                    flat = cv.permute(1, 0, 2).reshape(b, -1).contiguous()
+                    out.update(
+                        ms=device_ms(torch, lambda: stn.topn_merge(cv, ci, m), 10),
+                        plain_ms=time_ms(torch, lambda: stn.topn_merge_plain(cv, ci, m), 3),
+                        library_ms=time_ms(
+                            torch, lambda: torch.sort(flat, dim=1, descending=True, stable=True),
+                            3,
+                        ),
+                        library_topk_ms=time_ms(torch, lambda: torch.topk(flat, m, dim=1), 3),
+                        bound_ms=(cv.numel() + b * m) * 8 / HBM_BYTES_PER_S * 1e3,
+                        bound_by="bytes",
+                    )
+                    del flat
+                emit(out)
+                del cv, ci, kv, ki, pv, pi
+    torch.cuda.empty_cache()
 
 
 # -- phases 3 and 4 ---------------------------------------------------------------
@@ -531,8 +636,8 @@ def gaussian_blobs(n: int, d: int, k: int, seed: int):
 def sweep_bound(n: int, d: int, kp: int) -> tuple[float, str]:
     """Least time for one Lloyd sweep: the bytes it must move (points,
     centers in, sums, counts and cost out) over 3.35 TB/s against
-    2*n*kp*d + n*d float32 operations (the TPU kernel's HIGHEST) over
-    67 TFLOP/s."""
+    2*n*kp*d + n*d float32 operations (the TPU kernel's HIGHEST) at the
+    card's f32-accurate rate, six bf16 tensor-core passes (PEAK_OPS)."""
     t_bytes = (n * d + 2 * kp * d + kp + 1) * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = (2.0 * n * kp * d + n * d) / PEAK_OPS["float32"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -861,17 +966,23 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
-    spills = {
-        f"{name}: {line.strip()}"
+    # the build log: spills, and ptxas warnings (a serialised wgmma is
+    # C7510-C7520)
+    log = [
+        (name, line.strip())
         for name in _build.SOURCES
         for line in _build.log_path(name).read_text().splitlines()
-        if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
-    }
+    ]
     emit({
         "phase": "card", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "build_s": build_s,
-        "ptxas_spills": sorted(spills),
+        "ptxas_spills": sorted({
+            f"{name}: {line}" for name, line in log
+            if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
+        }),
+        "ptxas_warnings": sorted({f"{name}: {line}" for name, line in log if "warning" in line}),
+        "ptxas_kernels": ptxas_kernels(log),
     })
 
     gen = np.random.default_rng(args.seed)
@@ -879,6 +990,9 @@ def main() -> int:
     x = factors(gen, args.users, args.features)
 
     kernels = phase_kernels(torch, stn, y, args.seed)
+    missing = [name for name in SOURCES if name.startswith("topn") and name not in kernels]
+    if missing:
+        raise AssertionError(f"no phase-2 case took {missing}")
     check_widest_query_tile(torch, stn, args.items, args.seed)
 
     probe = sorted(gen.choice(np.arange(256, args.users), size=args.concurrency, replace=False))
@@ -918,8 +1032,8 @@ def main() -> int:
             raise AssertionError("int8 serving never reached index submit / topn_scan.tc")
         if launches_int8["topn_candidates.tc"] <= 0:
             raise AssertionError("the int8 bulk batch never reached topn_candidates.tc")
-        if launches_int8["topn_scan.fma"] or launches_int8["topn_candidates.fma"]:
-            raise AssertionError(f"an int8 scan took the CUDA-core path: {launches_int8}")
+        if launches_int8["topn_scan.tc_f32"] or launches_int8["topn_candidates.tc_f32"]:
+            raise AssertionError(f"an int8 scan took the float32 path: {launches_int8}")
     finally:
         layer.close()
     del model, layer
@@ -938,10 +1052,10 @@ def main() -> int:
         rv, ri = exact_top(torch, stn, y_exact, x[bulk], 10)
         bulk_err = check_topk("float32 top_k_scores_batch b=512", bv, bi, rv, ri)
         launches = stn.launch_counts()
-        # phase 3 counted only the tensor-core keys (checked there)
+        # phase 3 counted only the tc keys (checked there)
         batches_f32 = {
             name: hist for name, hist in stn.scan_batch_histogram().items()
-            if name.endswith(".fma")
+            if name.endswith(".tc_f32")
         }
         emit({
             "phase": "serving-float32", "requests": len(lat),
@@ -951,9 +1065,9 @@ def main() -> int:
         })
         for name in ("topn_scan.tc", "topn_candidates.tc"):
             if launches[name] != launches_int8[name]:
-                raise AssertionError(f"a float32 scan took the tensor-core path ({name})")
-        if launches["topn_scan.fma"] <= 0 or launches["topn_candidates.fma"] <= 0:
-            raise AssertionError(f"float32 serving never reached the CUDA-core scans: {launches}")
+                raise AssertionError(f"a float32 scan took the bf16/int8 path ({name})")
+        if launches["topn_scan.tc_f32"] <= 0 or launches["topn_candidates.tc_f32"] <= 0:
+            raise AssertionError(f"float32 serving never reached the float32 scans: {launches}")
     finally:
         layer.close()
     # the main path ends here

@@ -19,68 +19,69 @@
 // work splits two ways:
 //   - topn_scan (B1): grid = query tiles x item splits, the split count
 //     chosen to fill the card. Each CTA walks its contiguous 1/splits of
-//     the plane and keeps a sorted per-query top-m list in shared memory
-//     across the whole walk. Each CTA writes its list to [splits, b, m].
+//     the plane and keeps a per-query top-m across the whole walk. Each
+//     CTA writes its list to [splits, b, m].
 //   - topn_candidates (B2): grid = query tiles x fixed 16384-item blocks;
 //     no state crosses blocks. Each CTA writes its block's top-m to
-//     [blocks, b, m]. Both entry points launch the same range kernel and
+//     [blocks, b, m]. Both entry points launch the same scan kernel and
 //     differ only in the span and grid they pass.
 //   - topn_merge: one CTA per query merges the sorted [S, b, m] lists into
 //     [b, m] with the same tie rule (the TPU B1 merges in its own body,
-//     B2 with one stable lax.top_k outside it).
+//     B2 with one stable lax.top_k outside it); see topn_merge_kernel.
 //
-// Two range kernels, chosen by the plane's type (dispatch_scan):
-//
-// float32 planes: the CUDA-core scan (topn_range_kernel). Each item
-// column is one thread, a warp reads 32 consecutive items of one feature
-// row, and the query tile (8 or 32 queries) sits in shared memory as
-// float4 broadcasts. At b <= 32 it is bound by the plane's bytes
-// (3.35 TB/s); at b = 256 by its 2*b*kf*n f32 operations (67 TFLOP/s
-// outside the tensor cores). float32 has no exact one-pass tensor-core
-// form, so these planes stay on the CUDA cores.
-//
-// bfloat16 and int8 planes: the tensor-core scan (topn_tc_kernel). The
-// function is a bf16 product with f32 accumulation (int8 codes are exact
-// in bf16; the TPU kernel runs both as bf16 MXU passes), bound by the
-// bf16 tensor-core rate, 989 TFLOP/s. What bounds it on this card, and
-// what the design does about it:
+// The scan (topn_tc_kernel) runs on the tensor cores for every plane
+// type. What bounds it on this card, and what the design does about it:
+//   - the function. bfloat16 and int8 planes take a bf16 product with f32
+//     accumulation (int8 codes are exact in bf16; the TPU kernel runs both
+//     as bf16 MXU passes), bound by the bf16 tensor-core rate, 989
+//     TFLOP/s. float32 planes take an f32-accurate product, as the TPU
+//     kernel's Precision.HIGHEST does with six bf16 MXU passes over
+//     three-piece splits of both operands. The same six passes run here:
+//     each f32 value is exactly hi + mid + lo in bf16 (split_query for
+//     the queries, split_pair for the items), each bf16 x bf16 product is
+//     exact in f32, and the six wgmmas of a k16 step (hi.hi, hi.mid,
+//     mid.hi, hi.lo, lo.hi, mid.mid) drop only the cross terms mid.lo,
+//     lo.mid and lo.lo, about 2^-24 of a product, the size of f32
+//     rounding. So the least time of a float32 plane's product is six
+//     passes at 989 TFLOP/s.
 //   - at b = 8 the plane's bytes: 250 features x 1M items of int8 take
 //     0.077 ms at 3.35 TB/s against 0.004 ms of tensor-core work. The
 //     plane streams through a ring of shared-memory stages fed by TMA
-//     (cp.async.bulk.tensor, 64 features x 128 bytes of items per box,
-//     128-byte swizzle), one producer warp keeping loads in flight; the
-//     CTAs of one query tile read disjoint ranges, so every byte of the
-//     plane is read once per query tile.
-//   - at b = 256 the operations: 2*b*kf*n on the tensor cores. wgmma
-//     takes a fixed M of 64 and the main path's batches are small, so A
-//     and B are swapped: the item axis is M (S^T = mat^T q^T), N is the
-//     query tile (8, 16, 32, 64 or 128, one template each) and K
+//     (cp.async.bulk.tensor, boxes of 128 bytes of items, 128-byte
+//     swizzle), one producer warp keeping loads in flight; the CTAs of one
+//     query tile read disjoint ranges, so every byte of the plane is read
+//     once per query tile. A bf16 or int8 stage is 64 features, a float32
+//     one 32 (16 KB, like bf16), so that the three resident query pieces
+//     of a float32 plane leave room for three stages at N = 64.
+//   - at b = 256 the operations: 2*b*kf*n per pass on the tensor cores.
+//     wgmma takes a fixed M of 64 and the main path's batches are small,
+//     so A and B are swapped: the item axis is M (S^T = mat^T q^T), N is
+//     the query tile (8, 16, 32, 64 or 128, one template each) and K
 //     steps by 16 features. Two consumer warpgroups each own 64 items of
-//     a 128-item CTA tile. There is no N = 256: its staged products and
-//     candidate buffers alone pass an SM's shared memory.
+//     a 128-item CTA tile.
 //   - A (items x features) is built in registers (wgmma with A from
 //     registers), not handed to wgmma as a shared-memory descriptor.
-//     The plane arrives item-major per feature row, and ldmatrix.trans
-//     turns it into the A fragment directly. For int8 this is the point:
-//     the codes convert to bf16 in registers (exact, by a float
-//     magic-number trick with no conversion instruction), so no bf16
-//     copy of the stage is ever written to shared memory, and each code
-//     is read from shared memory once. ldmatrix.trans moves 16-bit
-//     units, so an int8 warp tile maps accumulator row g to item 2g and
-//     row g + 8 to item 2g + 1; bf16 keeps rows and items in order. One
-//     path serves both types and the epilogue owns the item mapping.
+//     bf16: ldmatrix.trans turns the item-major stage into the A fragment
+//     directly. int8: the same, and the codes convert to bf16 in registers
+//     (exact, by a float magic-number trick with no conversion
+//     instruction), so no bf16 copy of the stage is written to shared
+//     memory. ldmatrix.trans moves 16-bit units, so an int8 warp tile maps
+//     accumulator row g to item 2g and row g + 8 to item 2g + 1. float32:
+//     ldmatrix cannot build a bf16 fragment from f32 units, so each thread
+//     reads its values with plain 8-byte shared loads that follow the
+//     swizzle; with the int8 row mapping its two items 2g, 2g + 1 sit side
+//     by side in a feature row, and split_pair turns each pair of features
+//     into three bf16 fragments in registers. The epilogue owns the item
+//     mapping.
 //   - B (queries x features) is resident in shared memory for the whole
 //     walk, K-major in 8 x 16-byte core matrices, zero-padded to N rows
-//     and to a 64-feature multiple (the TMA box past the plane's last
-//     feature reads zeros), so that every stage runs four k16 steps with
-//     no branch around a wgmma. An int8 plane scores the f32 query
-//     exactly: the CTA splits it into three bf16 pieces (hi + mid + lo
-//     == q, split_query) as it stages B, and each K step issues three
-//     wgmmas on the same A fragment, one per piece, into one accumulator.
-//     So int8 does three times the tensor-core work of its bound (which
-//     counts one bf16 pass) and reaches at most a third of it when bound
-//     by operations. A bf16 plane scores the query rounded to bf16 (hi,
-//     and the cosine norm of hi): one wgmma.
+//     and to a whole number of stages (the TMA box past the plane's last
+//     feature reads zeros), so that every stage runs its k16 steps with no
+//     branch around a wgmma. int8 and float32 planes score the f32 query
+//     exactly: the CTA splits it into three bf16 pieces (split_query) as
+//     it stages B. int8 issues three wgmmas per k16 step on the same A
+//     fragment, one per query piece; float32 the six above; bf16 one, on
+//     the query rounded to bf16 (hi, and the cosine norm of hi).
 //   - Selection. The tile's products are staged in shared memory; warp w
 //     takes queries w, w + 8, ..., applies aux and the mask, and appends
 //     the scores that beat the query's threshold to its candidate buffer
@@ -88,12 +89,12 @@
 //     bitonic network and cut to its best m, and the m-th becomes the
 //     threshold, which only rises: the result does not depend on the
 //     order of arrival, and ties go to the lowest id as everywhere else.
-//     This, not the tensor cores, is what holds the kernel back at
-//     b >= 16: with one or two CTAs of nine warps per SM the per-query chains of
-//     shared-memory loads, ballots and compactions stay exposed. The
-//     per-tile code is kept short (the sort is one out-of-line copy, the
-//     MMA warps only stage raw products), since it runs from the
-//     instruction cache on every tile.
+//     This, not the tensor cores, is what holds the bf16 and int8 scans
+//     back at b >= 16: with one or two CTAs of nine warps per SM the
+//     per-query chains of shared-memory loads, ballots and compactions
+//     stay exposed. The per-tile code is kept short (the sort is one
+//     out-of-line copy, the MMA warps only stage raw products), since it
+//     runs from the instruction cache on every tile.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
@@ -102,11 +103,12 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;  // CUDA-core scan: threads per CTA = items per tile
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxM = 128;  // longest list: pallas_topn.MAX_KERNEL_K
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -114,173 +116,16 @@ constexpr unsigned kFull = 0xffffffffu;
 // the folded per-item scale, unquantized cosine divides by norm * |q|
 enum Mode { kDot = 0, kCosine = 1, kDotQuant = 2, kCosineQuant = 3 };
 
+// plane types, numbered as the C interface's dtype
+enum Plane { kF32 = 0, kBf16 = 1, kInt8 = 2 };
+
 __device__ __forceinline__ bool better(float v, int i, float w, int j) {
   return v > w || (v == w && i < j);
 }
 
-// Insert (v, id) into a warp's sorted list lv/li of length m (best
-// first). Every lane holds the same (v, id). The insertion position is
-// the number of entries better than the candidate; a candidate that no
-// longer beats the m-th entry is dropped.
-__device__ __forceinline__ void warp_insert(float* lv, int* li, int m, float v, int id,
-                                            int lane) {
-  int pos = 0;
-#pragma unroll
-  for (int r = 0; r < kMaxM / 32; ++r) {
-    const int j = lane + 32 * r;
-    if (j < m && better(lv[j], li[j], v, id)) ++pos;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) pos += __shfl_xor_sync(kFull, pos, o);
-  if (pos >= m) return;  // warp-uniform
-  float ov[kMaxM / 32];
-  int oi[kMaxM / 32];
-#pragma unroll
-  for (int r = 0; r < kMaxM / 32; ++r) {
-    const int j = lane + 32 * r;
-    if (j < m && j > pos) {
-      ov[r] = lv[j - 1];
-      oi[r] = li[j - 1];
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int r = 0; r < kMaxM / 32; ++r) {
-    const int j = lane + 32 * r;
-    if (j < m && j > pos) {
-      lv[j] = ov[r];
-      li[j] = oi[r];
-    } else if (j == pos) {
-      lv[j] = v;
-      li[j] = id;
-    }
-  }
-  __syncwarp();
-}
-
-// -- float32 planes: the CUDA-core scan ----------------------------------------
-
-// Score items [begin, end) against queries [q0, q0 + QB) and leave each
-// query's top-m in out_v/out_i ([b, m] slab of this CTA's range).
-template <int QB>
-__device__ __forceinline__ void scan_range(const float* __restrict__ q, int b, int kf,
-                                           const float* __restrict__ mat, long long n_pad,
-                                           const float* __restrict__ aux, int n_items, int m,
-                                           int mode, int q0, long long begin, long long end,
-                                           float* __restrict__ out_v, int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);  // [kf][QB]
-  float* qn_s = q_s + kf * QB;                      // [QB]
-  float* sc_s = qn_s + QB;                          // [QB][kThreads]
-  float* lv = sc_s + QB * kThreads;                 // [QB][m]
-  int* li = reinterpret_cast<int*>(lv + QB * m);    // [QB][m]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nq = min(QB, b - q0);
-  for (int e = tid; e < kf * QB; e += kThreads) {
-    const int f = e / QB, r = e % QB;
-    q_s[e] = r < nq ? q[(long long)(q0 + r) * kf + f] : 0.f;
-  }
-  for (int e = tid; e < QB * m; e += kThreads) {
-    lv[e] = -INFINITY;
-    li[e] = INT_MAX;
-  }
-  __syncthreads();
-  if (tid < QB) {
-    float s = 0.f;
-    for (int f = 0; f < kf; ++f) {
-      const float x = q_s[f * QB + tid];
-      s = fmaf(x, x, s);
-    }
-    qn_s[tid] = sqrtf(s);
-  }
-  __syncthreads();
-
-  const bool quant = mode >= kDotQuant;
-  const bool cosine = mode == kCosine || mode == kCosineQuant;
-  for (long long base = begin; base < end; base += kThreads) {
-    const long long col = base + tid;
-    float acc[QB];
-#pragma unroll
-    for (int r = 0; r < QB; ++r) acc[r] = 0.f;
-    if (col < end && col < n_items) {
-      const float* p = mat + col;
-#pragma unroll 4
-      for (int f = 0; f < kf; ++f) {
-        const float x = __ldg(p + (long long)f * n_pad);
-        const float4* w4 = reinterpret_cast<const float4*>(q_s + f * QB);
-#pragma unroll
-        for (int r4 = 0; r4 < QB / 4; ++r4) {
-          const float4 w = w4[r4];
-          acc[4 * r4 + 0] = fmaf(w.x, x, acc[4 * r4 + 0]);
-          acc[4 * r4 + 1] = fmaf(w.y, x, acc[4 * r4 + 1]);
-          acc[4 * r4 + 2] = fmaf(w.z, x, acc[4 * r4 + 2]);
-          acc[4 * r4 + 3] = fmaf(w.w, x, acc[4 * r4 + 3]);
-        }
-      }
-      const float a = aux[col];
-#pragma unroll
-      for (int r = 0; r < QB; ++r) {
-        float s = acc[r];
-        if (quant) {
-          s = s * a;
-          if (cosine) s = s / fmaxf(qn_s[r], 1e-12f);
-        } else if (cosine) {
-          s = s / fmaxf(a * qn_s[r], 1e-12f);
-        }
-        acc[r] = s;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < QB; ++r) sc_s[r * kThreads + tid] = acc[r];
-    __syncthreads();
-    // selection: warp w owns queries w, w + kWarps, ...; the ballot is the
-    // gate — only scores that beat the list's current m-th entry insert
-    for (int r = warp; r < nq; r += kWarps) {
-      float* rv = lv + r * m;
-      int* ri = li + r * m;
-      for (int c = 0; c < kThreads; c += 32) {
-        const long long cc = base + c + lane;
-        const float v = sc_s[r * kThreads + c + lane];
-        const bool hit = cc < end && cc < n_items && better(v, (int)cc, rv[m - 1], ri[m - 1]);
-        unsigned pending = __ballot_sync(kFull, hit);
-        while (pending) {
-          const int src = __ffs(pending) - 1;
-          pending &= pending - 1;
-          warp_insert(rv, ri, m, __shfl_sync(kFull, v, src), __shfl_sync(kFull, (int)cc, src),
-                      lane);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < nq * m; e += kThreads) {
-    const int r = e / m, j = e % m;
-    out_v[(long long)(q0 + r) * m + j] = lv[r * m + j];
-    out_i[(long long)(q0 + r) * m + j] = li[r * m + j];
-  }
-}
-
-// CTA (x, y) scans query tile x over items [y * span, (y + 1) * span) and
-// writes list slab y of [grid_y, b, m]. topn_scan (B1) launches it with
-// span = n_pad / splits, topn_candidates (B2) with span = one item block.
-template <int QB>
-__global__ void __launch_bounds__(kThreads)
-    topn_range_kernel(const float* __restrict__ q, int b, int kf, const float* __restrict__ mat,
-                      long long n_pad, const float* __restrict__ aux, int n_items, int m,
-                      int mode, long long span, float* __restrict__ out_v,
-                      int* __restrict__ out_i) {
-  const long long begin = (long long)blockIdx.y * span;
-  const long long end = min(begin + span, n_pad);
-  const long long slab = (long long)blockIdx.y * b * m;
-  scan_range<QB>(q, b, kf, mat, n_pad, aux, n_items, m, mode, blockIdx.x * QB, begin, end,
-                 out_v + slab, out_i + slab);
-}
-
-// -- bfloat16 and int8 planes: the tensor-core scan ----------------------------
+// -- the scan --------------------------------------------------------------------
 
 constexpr int kTcItems = 128;                  // items per CTA tile (2 warpgroups x wgmma M)
-constexpr int kTcChunk = 64;                   // features per ring stage (4 k16 steps)
 constexpr int kTcConsumers = 256;              // two consumer warpgroups
 constexpr int kTcThreads = kTcConsumers + 32;  // and one producer warp
 constexpr int kTcMaxStages = 6;
@@ -289,8 +134,27 @@ constexpr int kSmemLimit = 232448;  // dynamic shared memory a block can use
 constexpr int kBarSelect = 1;       // named barrier of the consumer threads
 constexpr int kScStride = kTcItems + 8;  // staged products per query row, padded
 
-// Byte offsets of the tensor-core kernel's shared memory, from a
-// 1024-aligned base (the 128-byte swizzle repeats every 1024 bytes).
+// features per ring stage: four k16 steps of bf16 or int8 items, two of
+// float32 ones (16 KB either way for bf16 and f32)
+__host__ __device__ constexpr int tc_chunk(int pt) { return pt == kF32 ? 32 : 64; }
+__host__ __device__ constexpr int tc_item_bytes(int pt) {
+  return pt == kF32 ? 4 : (pt == kBf16 ? 2 : 1);
+}
+// resident query pieces: a bf16 plane scores hi alone, the others all three
+__host__ __device__ constexpr int tc_query_pieces(int pt) { return pt == kBf16 ? 1 : 3; }
+// wgmmas per k16 step, and the (item piece, query piece) of pass p:
+// float32 hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid; int8 the codes
+// times each query piece; bf16 one pass
+__host__ __device__ constexpr int tc_passes(int pt) { return pt == kF32 ? 6 : tc_query_pieces(pt); }
+__host__ __device__ constexpr int pass_item_piece(int pt, int p) {
+  return pt != kF32 ? 0 : (p == 2 || p == 5 ? 1 : (p == 4 ? 2 : 0));
+}
+__host__ __device__ constexpr int pass_query_piece(int pt, int p) {
+  return pt != kF32 ? p : (p == 1 || p == 5 ? 1 : (p == 3 ? 2 : 0));
+}
+
+// Byte offsets of the scan's shared memory, from a 1024-aligned base
+// (the 128-byte swizzle repeats every 1024 bytes).
 struct TcLayout {
   int stages;
   int stage_bytes;
@@ -308,13 +172,13 @@ __host__ __device__ inline int tc_slots(int m) {
   return slots;
 }
 
-__host__ __device__ inline TcLayout tc_layout(int n, int kfp, bool int8, int m, int stages) {
+__host__ __device__ inline TcLayout tc_layout(int n, int kfp, int pt, int m, int stages) {
   TcLayout L;
   L.stages = stages;
-  L.stage_bytes = kTcChunk * kTcItems * (int8 ? 1 : 2);
+  L.stage_bytes = tc_chunk(pt) * kTcItems * tc_item_bytes(pt);
   L.a = 0;
   L.bq = stages * L.stage_bytes;
-  L.sc = L.bq + (int8 ? 3 : 1) * n * kfp * 2;
+  L.sc = L.bq + tc_query_pieces(pt) * n * kfp * 2;
   L.aux = L.sc + n * kScStride * 4;
   L.bv = L.aux + kTcItems * 4;
   L.bi = L.bv + n * tc_slots(m) * 4;
@@ -336,18 +200,18 @@ struct TcPlan {
   TcLayout layout;
 };
 
-inline TcPlan tc_plan(int b, int kf, int m, bool int8) {
-  const int kfp = align_up(kf, kTcChunk);
+inline TcPlan tc_plan(int b, int kf, int m, int pt) {
+  const int kfp = align_up(kf, tc_chunk(pt));
   int n = 8;
   while (n < b && n < 128) n <<= 1;
   for (; n >= 8; n >>= 1) {
-    const TcLayout fixed = tc_layout(n, kfp, int8, m, 0);
+    const TcLayout fixed = tc_layout(n, kfp, pt, m, 0);
     const int stages = min(kTcMaxStages, (kSmemLimit - fixed.total) /
                                              (fixed.stage_bytes + 16));
     if (stages >= kTcMinStages || (n == 8 && stages >= 2))
-      return {n, tc_layout(n, kfp, int8, m, stages)};
+      return {n, tc_layout(n, kfp, pt, m, stages)};
   }
-  return {0, tc_layout(8, kfp, int8, m, 0)};
+  return {0, tc_layout(8, kfp, pt, m, 0)};
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -379,7 +243,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       : "memory");
 }
 
-// one TMA box of the plane: items [x, x + box) of feature rows [f, f + 64)
+// one TMA box of the plane: 128 bytes of items from x, feature rows from f
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
                                          int f) {
   asm volatile(
@@ -523,6 +387,27 @@ __device__ __forceinline__ void split_query(float x, __nv_bfloat16* piece) {
   const float rest = x - __bfloat162float(piece[0]);
   piece[1] = __float2bfloat16_rn(rest);
   piece[2] = __float2bfloat16_rn(rest - __bfloat162float(piece[1]));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  uint32_t u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+// Two f32 item values (features k, k + 1 of one item: the low and high
+// halves of an A fragment register) as three bf16x2 pieces, rounded as
+// split_query rounds, so hi + mid + lo == x exactly for each.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 md = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(md);
+  hi = bf16x2_bits(h);
+  mid = bf16x2_bits(md);
+  lo = bf16x2_bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
 }
 
 // Sort a query's candidate slots bv/bi[0, count) best first with a
@@ -682,27 +567,32 @@ struct TileGate {
 // CTAs per SM the register budget is sized for: the narrow query tiles
 // need little shared memory, so several CTAs (and their warps) can share
 // an SM and hide each other's latency
-template <int N, bool INT8>
+template <int N, int PT>
 constexpr int tc_min_blocks() {
-  return N == 8 && INT8 ? 3 : (N <= 16 ? 2 : 1);
+  return N == 8 && PT == kInt8 ? 3 : (N <= 16 ? 2 : 1);
 }
 
 // CTA (x, y) scores query tile x (N queries) against items
-// [y * span, (y + 1) * span) of a bf16 (INT8 = false) or int8 plane and
-// writes list slab y of [grid_y, b, m]; the same grid contract as
-// topn_range_kernel, on the same f32 queries q [b, kf]. The CTA splits
-// its query tile into bf16 pieces as it stages B (see split_query).
-template <int N, bool INT8>
-__global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, INT8>())
+// [y * span, (y + 1) * span) of a plane of type PT and writes list slab y
+// of [grid_y, b, m], on the f32 queries q [b, kf]. topn_scan (B1)
+// launches it with span = n_pad / splits, topn_candidates (B2) with span
+// = one item block. The CTA splits its query tile into bf16 pieces as it
+// stages B (see split_query).
+template <int N, int PT>
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, PT>())
     topn_tc_kernel(const __grid_constant__ CUtensorMap plane,
                    const float* __restrict__ q, int b, int kf,
                    const float* __restrict__ aux, int n_items, int m, int mode, long long span,
                    long long n_pad, int stages, float* __restrict__ out_v,
                    int* __restrict__ out_i) {
-  constexpr int P = INT8 ? 3 : 1;
-  constexpr int kAcc = N / 2;  // accumulator registers per thread
-  const int kfp = align_up(kf, kTcChunk);
-  const TcLayout L = tc_layout(N, kfp, INT8, m, stages);
+  constexpr int P = tc_query_pieces(PT);
+  constexpr int kChunk = tc_chunk(PT);
+  constexpr int kSteps = kChunk / 16;  // k16 steps per stage
+  constexpr int kAcc = N / 2;          // accumulator registers per thread
+  constexpr int kBoxes = kTcItems * tc_item_bytes(PT) / 128;  // TMA boxes per stage
+  constexpr bool kPairedRows = PT != kBf16;  // accumulator row g = item 2g
+  const int kfp = align_up(kf, kChunk);
+  const TcLayout L = tc_layout(N, kfp, PT, m, stages);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* ring = base + L.a;
@@ -727,7 +617,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, INT8>())
   const long long begin = (long long)blockIdx.y * span;
   const long long end = min(begin + span, n_pad);
   const int ntiles = (int)((end - begin) / kTcItems);  // span and n_pad are tile multiples
-  const int nchunks = (kfp + kTcChunk - 1) / kTcChunk;
+  const int nchunks = kfp / kChunk;
   const bool quant = mode >= kDotQuant;
   const bool cosine = mode == kCosine || mode == kCosineQuant;
 
@@ -756,7 +646,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, INT8>())
     if (cosine && tid < nq) {
       for (int k = 0; k < kf; ++k) {
         float x = q[(long long)(q0 + tid) * kf + k];
-        if (!INT8) x = __bfloat162float(__float2bfloat16_rn(x));  // the norm of hi
+        if (PT == kBf16) x = __bfloat162float(__float2bfloat16_rn(x));  // the norm of hi
         s = fmaf(x, x, s);
       }
     }
@@ -767,18 +657,20 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, INT8>())
 
   const int iters = ntiles * nchunks;
   if (warp == kTcConsumers / 32) {
-    // producer: one lane keeps the ring full
+    // producer: one lane keeps the ring full, each stage kChunk feature
+    // rows of the tile's items as kBoxes boxes of 128 bytes of items
     if (lane == 0) {
       for (int it = 0; it < iters; ++it) {
         const int s = it % stages;
         mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
         mbar_arrive_tx(&full[s], L.stage_bytes);
         const int x = (int)(begin + (long long)(it / nchunks) * kTcItems);
-        const int f = (it % nchunks) * kTcChunk;
-        // int8: one 64 x 128-item box; bf16: two 64 x 64-item boxes
+        const int f = (it % nchunks) * kChunk;
         unsigned char* dst = ring + s * L.stage_bytes;
-        tma_load(dst, &plane, &full[s], x, f);
-        if (!INT8) tma_load(dst + L.stage_bytes / 2, &plane, &full[s], x + 64, f);
+#pragma unroll
+        for (int j = 0; j < kBoxes; ++j)
+          tma_load(dst + j * (L.stage_bytes / kBoxes), &plane, &full[s],
+                   x + j * (kTcItems / kBoxes), f);
       }
     }
     return;
@@ -787,18 +679,20 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, INT8>())
   // consumers: warpgroup wg owns items [64 wg, 64 wg + 64) of each tile,
   // its warp wq the 16 items from 64 wg + 16 wq
   const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, tq = lane & 3;
+  const uint32_t bq_addr = smem_addr(bq);
+  const uint32_t piece_bytes = N * kfp * 2;
   float acc[kAcc];
   int it = 0;
   for (int t = 0; t < ntiles; ++t) {
     // accumulator d[4j + 2h + e] scores query 8j + 2tq + e against tile
-    // item local[h] (warp row g + 8h; for int8 item 2g + h, see
-    // codes_to_bf16); the items' aux loads here, behind the K loop
+    // item local[h] (warp row g + 8h: item g + 8h for bf16, 2g + h for
+    // int8 and float32); the items' aux loads here, behind the K loop
     const long long tile = begin + (long long)t * kTcItems;
     int local[2];
     float av[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      local[h] = 64 * wg + 16 * wq + (INT8 ? 2 * g + h : g + 8 * h);
+      local[h] = 64 * wg + 16 * wq + (kPairedRows ? 2 * g + h : g + 8 * h);
       av[h] = aux[tile + local[h]];  // aux spans the padded plane
     }
 #pragma unroll
@@ -807,8 +701,8 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, INT8>())
       const int s = it % stages;
       mbar_wait(&full[s], (it / stages) & 1);
       const unsigned char* st = ring + s * L.stage_bytes;
-      uint32_t a[4][4];
-      if (INT8) {
+      uint32_t a[kSteps][3][4];  // [k16 step][item piece][fragment register]
+      if (PT == kInt8) {
         // stage = [64 features][128 items], one 16-byte column per warp;
         // each ldmatrix.x4 covers 32 features (two k16 steps)
         const int col = 4 * wg + wq;
@@ -817,34 +711,55 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, INT8>())
           const int f = pp * 32 + (lane >> 3) * 8 + (lane & 7);
           uint32_t r[4];
           ldsm_x4_trans(r, st + f * 128 + ((col ^ (f & 7)) << 4));
-          codes_to_bf16(r[0], a[2 * pp][0], a[2 * pp][1]);
-          codes_to_bf16(r[1], a[2 * pp][2], a[2 * pp][3]);
-          codes_to_bf16(r[2], a[2 * pp + 1][0], a[2 * pp + 1][1]);
-          codes_to_bf16(r[3], a[2 * pp + 1][2], a[2 * pp + 1][3]);
+          codes_to_bf16(r[0], a[2 * pp][0][0], a[2 * pp][0][1]);
+          codes_to_bf16(r[1], a[2 * pp][0][2], a[2 * pp][0][3]);
+          codes_to_bf16(r[2], a[2 * pp + 1][0][0], a[2 * pp + 1][0][1]);
+          codes_to_bf16(r[3], a[2 * pp + 1][0][2], a[2 * pp + 1][0][3]);
         }
-      } else {
+      } else if (PT == kBf16) {
         // stage = two [64 features][64 items] boxes, one per warpgroup;
         // the warp's 16 items are 16-byte columns 2 wq and 2 wq + 1
         const unsigned char* box = st + wg * (L.stage_bytes / 2);
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
+        for (int ks = 0; ks < kSteps; ++ks) {
           const int mat = lane >> 3;
           const int f = ks * 16 + (mat >> 1) * 8 + (lane & 7);
           const int col = 2 * wq + (mat & 1);
-          ldsm_x4_trans(a[ks], box + f * 128 + ((col ^ (f & 7)) << 4));
+          ldsm_x4_trans(a[ks][0], box + f * 128 + ((col ^ (f & 7)) << 4));
+        }
+      } else {
+        // stage = four [32 features][32 items] boxes, two per warpgroup;
+        // the warp's 16 items are half of box 2 wg + wq / 2, and this
+        // thread's items 2g, 2g + 1 one 8-byte word of each feature row
+        const unsigned char* box = st + (2 * wg + (wq >> 1)) * (L.stage_bytes / 4);
+        const int item = 16 * (wq & 1) + 2 * g;
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) {
+          float2 x[4];  // features 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of the step
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int f = ks * 16 + 2 * tq + (u & 1) + 8 * (u >> 1);
+            x[u] = *reinterpret_cast<const float2*>(
+                box + f * 128 + (((item >> 2) ^ (f & 7)) << 4) + (item & 3) * 4);
+          }
+          // registers 0-3: (row g, k 2tq..), (row g + 8, k 2tq..),
+          // (row g, k 2tq + 8..), (row g + 8, k 2tq + 8..)
+          split_pair(x[0].x, x[1].x, a[ks][0][0], a[ks][1][0], a[ks][2][0]);
+          split_pair(x[0].y, x[1].y, a[ks][0][1], a[ks][1][1], a[ks][2][1]);
+          split_pair(x[2].x, x[3].x, a[ks][0][2], a[ks][1][2], a[ks][2][2]);
+          split_pair(x[2].y, x[3].y, a[ks][0][3], a[ks][1][3], a[ks][2][3]);
         }
       }
       mbar_arrive(&empty[s]);  // the stage is in registers now
       fence_regs<kAcc>(acc);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const int kb = c * 4 + ks;
+      for (int ks = 0; ks < kSteps; ++ks) {
+        const uint32_t at = bq_addr + ((c * kSteps + ks) * (N / 8) * 2) * 128;
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const uint32_t at = smem_addr(bq + p * N * kfp) + (kb * (N / 8) * 2) * 128;
-          wgmma_rs<N>(acc, a[ks], b_desc(at));
-        }
+        for (int p = 0; p < tc_passes(PT); ++p)
+          wgmma_rs<N>(acc, a[ks][pass_item_piece(PT, p)],
+                      b_desc(at + pass_query_piece(PT, p) * piece_bytes));
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -896,111 +811,263 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, INT8>())
   }
 }
 
-// the better of two (value, id, list) triples; an empty slot (s < 0)
-// always loses and equal entries fall to the lower list index, so every
-// lane of a reduction agrees
-__device__ __forceinline__ void take_better(float& v, int& i, int& s, float v2, int i2, int s2) {
-  if (s2 < 0) return;
-  if (s < 0 || better(v2, i2, v, i) || (!better(v, i, v2, i2) && s2 < s)) {
-    v = v2;
-    i = i2;
-    s = s2;
+// -- the merge ---------------------------------------------------------------------
+//
+// topn_merge: [S, b, m] lists (each best first, list s holding ids below
+// list s + 1's, padding (-inf, INT_MAX)) to the best m per row, exactly
+// as a stable sort of the row's S * m entries in (list, rank) order:
+// value descending, equal values to the lower list, then the lower rank.
+// It moves 8 bytes per entry and computes nothing, so its bound is bytes;
+// what holds a merge back is the chain of dependent steps. Here the
+// chain is log2(S) levels long: one CTA per row copies a chunk of lists
+// into shared memory (cp.async, so the copy runs on while the CTA works)
+// and reduces it by pairwise merges, level by level, each keeping the
+// best m. A pair merge is cut into runs of kMergeRun outputs, one thread
+// each: the thread finds how many of its run's predecessors come from the
+// left list by a binary search along the merge path (O(log m)), then
+// merges its run sequentially, so all threads work at once. Lists that
+// do not fit one chunk (20M items give S = 1221) are taken chunk after
+// chunk, the running result riding as the chunk's first list; the tree
+// reads the chunk buffer only at its first level, so the next chunk's
+// copy overlaps the later levels, where few threads are busy. The running
+// result prunes what follows: an entry of a later list that does not beat
+// its m-th value can never enter (the result's m entries come first and
+// win ties), so in a row of several chunks each later list counts only
+// its entries above that value, and a merge skips the runs past its
+// lists' counts: where a chunk's best entries are a small share of a
+// row's, as in the scans' lists, most runs after the first chunk skip. A
+// row of one chunk keeps no counts. m = 1 is an argmax and takes its own
+// kernel. The scans never keep a NaN, and the merge assumes none.
+
+constexpr int kMergeThreads = 256;
+constexpr int kMergeEntries = 4096;  // entries of a chunk of lists: 32 KB with their ids
+constexpr int kMergeRun = 8;         // outputs a thread merges in a row
+constexpr int kMergeCtas = 4;        // CTAs per SM the shared memory is sized for
+constexpr int kMergeSmem = 233472 / kMergeCtas - 1024;  // an SM's 228 KB less 1 KB a CTA
+
+// shared memory of a chunk of `chunk` lists: the entries of A, B (half
+// as many lists) and C (a quarter), and their counts when kept
+__host__ __device__ inline int merge_smem(int chunk, int m, bool counts) {
+  const int nb = (chunk + 1) / 2;
+  return (chunk + nb + (nb + 1) / 2) * (m * 8 + (counts ? 4 : 0));
+}
+
+// One level of the tree: n lists of m entries in sv/si, list l valid up
+// to sc[l] (m for every list without sc), to (n + 1) / 2 lists in dv/di
+// with counts dc (kept with sc). Pair p merges
+// lists 2p and 2p + 1 into its best m (or as many as both hold), equal
+// values to the left list; an odd last list moves up as it is.
+__device__ __forceinline__ void merge_level(const float* sv, const int* si, const int* sc,
+                                            int n, int m, float* dv, int* di, int* dc) {
+  const int runs = (m + kMergeRun - 1) / kMergeRun;  // runs per output list
+  for (int w = threadIdx.x; w < (n + 1) / 2 * runs; w += kMergeThreads) {
+    const int p = w / runs, j0 = (w - p * runs) * kMergeRun;
+    const float* lv = sv + 2 * p * m;
+    const int* li = si + 2 * p * m;
+    float* ov = dv + p * m;
+    int* oi = di + p * m;
+    const int ca = sc ? sc[2 * p] : m;
+    if (2 * p + 1 == n) {
+      if (sc && j0 == 0) dc[p] = ca;
+      for (int j = j0; j < min(j0 + kMergeRun, ca); ++j) {
+        ov[j] = lv[j];
+        oi[j] = li[j];
+      }
+      continue;
+    }
+    const float* rv = lv + m;
+    const int* ri = li + m;
+    const int cb = sc ? sc[2 * p + 1] : m, c = min(m, ca + cb);
+    if (sc && j0 == 0) dc[p] = c;
+    if (j0 >= c) continue;
+    // i = left entries among the first j0 outputs: the first i for which
+    // left[i] does not go before right[j0 - 1 - i]
+    int lo = max(0, j0 - cb), hi = min(j0, ca);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (lv[mid] >= rv[j0 - 1 - mid]) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    // i + k = j < m: both heads load at once, in the lists' slots even
+    // past a count, which the test then ignores
+    for (int j = j0, j1 = min(j0 + kMergeRun, c), i = lo, k = j0 - lo; j < j1; ++j) {
+      const float x = lv[i], y = rv[k];
+      if (k >= cb || (i < ca && x >= y)) {
+        ov[j] = x;
+        oi[j] = li[i++];
+      } else {
+        ov[j] = y;
+        oi[j] = ri[k++];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
   }
 }
 
-// One CTA per query row: m rounds, each taking the best head among the
-// S sorted lists of [S, b, m] and advancing that list.
-__global__ void __launch_bounds__(kThreads)
-    topn_merge_kernel(const float* __restrict__ cv, const int* __restrict__ ci, int S, int b,
-                      int m, float* __restrict__ ov, int* __restrict__ oi) {
-  extern __shared__ int head[];  // [S] next unread entry of each list
-  __shared__ float wv[kWarps];
-  __shared__ int wi[kWarps];
-  __shared__ int ws[kWarps];
-  __shared__ int win;
-  const int row = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int s = tid; s < S; s += kThreads) head[s] = 0;
-  __syncthreads();
+// Start copying lists [first, first + lists) of the row, list-major, to
+// sv/si, VEC entries at a time (4 when m and the tensors' alignment allow
+// 16-byte copies, else 1); cp.async.wait_all and a barrier complete it.
+template <int VEC>
+__device__ __forceinline__ void copy_lists(float* sv, int* si, const float* cv, const int* ci,
+                                           int first, int lists, int b, int row, int m) {
+  for (int e = threadIdx.x * VEC; e < lists * m; e += kMergeThreads * VEC) {
+    const int l = e / m;
+    const long long at = ((long long)(first + l) * b + row) * m + (e - l * m);
+    cp_async<VEC * 4>(sv + e, cv + at);
+    cp_async<VEC * 4>(si + e, ci + at);
+  }
+}
 
-  float bv = -INFINITY;
-  int bi = INT_MAX, bs = -1;
-  auto rescan = [&]() {
-    bv = -INFINITY;
-    bi = INT_MAX;
-    bs = -1;
-    for (int s = tid; s < S; s += kThreads) {
-      const int h = head[s];
-      if (h < m) {
-        const long long at = ((long long)s * b + row) * m + h;
-        take_better(bv, bi, bs, cv[at], ci[at], s);
+// One CTA per row. Shared memory: A holds `chunk` lists, B half as many
+// and C a quarter (rounded up), then, for a row of several chunks, each
+// list's count; the tree goes A -> B, then B <-> C.
+template <int VEC>
+__global__ void __launch_bounds__(kMergeThreads, kMergeCtas)
+    topn_merge_kernel(const float* __restrict__ cv, const int* __restrict__ ci, int S, int b,
+                      int m, int chunk, float* __restrict__ ov, int* __restrict__ oi) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = (chunk + 1) / 2, nc = (nb + 1) / 2;
+  float* av = reinterpret_cast<float*>(smem_raw);
+  int* ai = reinterpret_cast<int*>(av + chunk * m);
+  float* bv = reinterpret_cast<float*>(ai + chunk * m);
+  int* bi = reinterpret_cast<int*>(bv + nb * m);
+  float* xv = reinterpret_cast<float*>(bi + nb * m);
+  int* xi = reinterpret_cast<int*>(xv + nc * m);
+  const bool prune = S > chunk;
+  int* ac = prune ? xi + nc * m : nullptr;
+  int* bc = prune ? ac + chunk : nullptr;
+  int* xc = prune ? bc + nb : nullptr;
+  const int row = blockIdx.x;
+  // the first chunk fills A, every list whole; each later one fills A
+  // from slot 1, behind the running result in slot 0
+  int lists = min(chunk, S), slot0 = 0;
+  copy_lists<VEC>(av, ai, cv, ci, 0, lists, b, row, m);
+  for (int l = threadIdx.x; prune && l < lists; l += kMergeThreads) ac[l] = m;
+  for (int done = 0;;) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (slot0) {
+      // each new list's entries above the result's m-th value
+      const float t = av[m - 1];
+      for (int l = threadIdx.x; l < lists; l += kMergeThreads) {
+        const float* lv = av + (1 + l) * m;
+        int lo = 0, hi = m;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (lv[mid] > t) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        ac[1 + l] = lo;
+      }
+      __syncthreads();
+    }
+    const int n = slot0 + lists;
+    done += lists;
+    lists = min(chunk - 1, S - done);  // the next chunk's
+    const float* sv = av;
+    const int* si = ai;
+    if (n > 1) {
+      merge_level(av, ai, ac, n, m, bv, bi, bc);
+      if (lists > 0) copy_lists<VEC>(av + m, ai + m, cv, ci, done, lists, b, row, m);
+      sv = bv;
+      si = bi;
+      const int* sc = bc;
+      for (int k = (n + 1) / 2; k > 1; k = (k + 1) / 2) {
+        float* dv = sv == bv ? xv : bv;
+        int* di = sv == bv ? xi : bi;
+        int* dc = sv == bv ? xc : bc;
+        merge_level(sv, si, sc, k, m, dv, di, dc);
+        sv = dv;
+        si = di;
+        sc = dc;
       }
     }
-  };
-  rescan();
-  for (int j = 0; j < m; ++j) {
-    float v = bv;
-    int i = bi, s = bs;
+    // the result holds m entries: the first chunk's lists are whole
+    if (lists <= 0) {
+      for (int j = threadIdx.x; j < m; j += kMergeThreads) {
+        ov[(long long)row * m + j] = sv[j];
+        oi[(long long)row * m + j] = si[j];
+      }
+      return;
+    }
+    for (int j = threadIdx.x; j < m; j += kMergeThreads) {  // the result to slot 0 of A
+      av[j] = sv[j];
+      ai[j] = si[j];
+    }
+    if (threadIdx.x == 0) ac[0] = m;
+    slot0 = 1;
+  }
+}
+
+// m = 1: the merge of one-entry lists is an argmax, taken in registers
+// by one CTA per row: the best head, equal values to the lower list.
+__global__ void __launch_bounds__(kMergeThreads)
+    topn_merge_heads_kernel(const float* __restrict__ cv, const int* __restrict__ ci, int S,
+                            int b, float* __restrict__ ov, int* __restrict__ oi) {
+  __shared__ float wv[kMergeThreads / 32];
+  __shared__ int ws[kMergeThreads / 32], wi[kMergeThreads / 32];
+  const int row = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float v = -INFINITY;
+  int s = INT_MAX, id = INT_MAX;  // s = INT_MAX: nothing taken yet
+#pragma unroll 4
+  for (int l = threadIdx.x; l < S; l += kMergeThreads) {
+    const float w = cv[(long long)l * b + row];
+    const int wid = ci[(long long)l * b + row];
+    if (s == INT_MAX || w > v) {  // l rises, so an equal value keeps the first
+      v = w;
+      s = l;
+      id = wid;
+    }
+  }
+  // the warp's best, then warp 0 over the warps' best
+  for (int round = 0;; ++round) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       const float v2 = __shfl_xor_sync(kFull, v, o);
-      const int i2 = __shfl_xor_sync(kFull, i, o);
-      const int s2 = __shfl_xor_sync(kFull, s, o);
-      take_better(v, i, s, v2, i2, s2);
+      const int s2 = __shfl_xor_sync(kFull, s, o), id2 = __shfl_xor_sync(kFull, id, o);
+      if (s2 != INT_MAX && (s == INT_MAX || v2 > v || (v2 == v && s2 < s))) {
+        v = v2;
+        s = s2;
+        id = id2;
+      }
     }
+    if (round == 1) break;
     if (lane == 0) {
       wv[warp] = v;
-      wi[warp] = i;
       ws[warp] = s;
+      wi[warp] = id;
     }
     __syncthreads();
-    if (warp == 0) {
-      v = lane < kWarps ? wv[lane] : -INFINITY;
-      i = lane < kWarps ? wi[lane] : INT_MAX;
-      s = lane < kWarps ? ws[lane] : -1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float v2 = __shfl_xor_sync(kFull, v, o);
-        const int i2 = __shfl_xor_sync(kFull, i, o);
-        const int s2 = __shfl_xor_sync(kFull, s, o);
-        take_better(v, i, s, v2, i2, s2);
-      }
-      if (lane == 0) {
-        ov[(long long)row * m + j] = v;
-        oi[(long long)row * m + j] = i;
-        win = s;
-      }
-    }
-    __syncthreads();
-    const int w = win;
-    if (w >= 0 && w % kThreads == tid) {
-      head[w] += 1;
-      rescan();
-    }
-    __syncthreads();
+    if (warp != 0) return;
+    const bool have = lane < kMergeThreads / 32;
+    v = have ? wv[lane] : -INFINITY;
+    s = have ? ws[lane] : INT_MAX;
+    id = have ? wi[lane] : INT_MAX;
+  }
+  if (lane == 0) {
+    ov[row] = v;
+    oi[row] = id;
   }
 }
 
 // -- launches ------------------------------------------------------------------
-
-size_t fma_smem_bytes(int qb, int kf, int m) {
-  return sizeof(float) * ((size_t)kf * qb + qb + (size_t)qb * kThreads + (size_t)qb * m) +
-         sizeof(int) * (size_t)qb * m;
-}
-
-template <int QB>
-int launch_fma(const float* q, int b, int kf, const float* mat, long long n_pad,
-               const float* aux, int n_items, int m, int mode, long long span, int grid_y,
-               float* out_v, int* out_i, cudaStream_t stream) {
-  auto kernel = topn_range_kernel<QB>;
-  const size_t smem = fma_smem_bytes(QB, kf, m);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((b + QB - 1) / QB, grid_y);
-  kernel<<<grid, kThreads, smem, stream>>>(q, b, kf, mat, n_pad, aux, n_items, m, mode, span,
-                                           out_v, out_i);
-  return (int)cudaGetLastError();
-}
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1018,28 +1085,31 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The plane [rows, n_pad] as TMA boxes of kTcChunk feature rows x 128
+// The plane [rows, n_pad] as TMA boxes of one stage's feature rows x 128
 // bytes of items, 128-byte swizzle. Rows past the plane (the K tail of a
 // last stage) read as zero.
-bool plane_map(CUtensorMap* map, const void* mat, bool int8, int rows, long long n_pad) {
+bool plane_map(CUtensorMap* map, const void* mat, int pt, int rows, long long n_pad) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
-  const int esize = int8 ? 1 : 2;
+  const int esize = tc_item_bytes(pt);
   const cuuint64_t dims[2] = {(cuuint64_t)n_pad, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)n_pad * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)kTcChunk};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)tc_chunk(pt)};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(mat), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUtensorMapDataType type = pt == kF32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : pt == kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return encode(map, type, 2, const_cast<void*>(mat), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // the kernel's dynamic shared memory, and all of the SM's 228 KB as
 // shared memory so that as many CTAs fit as tc_ctas_per_sm reports
-template <int N, bool INT8>
+template <int N, int PT>
 cudaError_t tc_attributes(const TcLayout& L) {
-  auto kernel = topn_tc_kernel<N, INT8>;
+  auto kernel = topn_tc_kernel<N, PT>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return err;
@@ -1047,79 +1117,81 @@ cudaError_t tc_attributes(const TcLayout& L) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int N, bool INT8>
+template <int N, int PT>
 int tc_ctas_per_sm(const TcLayout& L) {
   int blocks = 0;
-  if (tc_attributes<N, INT8>(L) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topn_tc_kernel<N, INT8>,
-                                                    kTcThreads, L.total) != cudaSuccess)
+  if (tc_attributes<N, PT>(L) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topn_tc_kernel<N, PT>, kTcThreads,
+                                                    L.total) != cudaSuccess)
     return 0;
   return blocks;
 }
 
-template <int N, bool INT8>
-int launch_tc(const CUtensorMap& map, const TcLayout& L, const float* q, int b, int kf,
-              const float* aux, int n_items, int m, int mode, long long span, long long n_pad,
-              int grid_y, float* out_v, int* out_i, cudaStream_t stream) {
-  auto kernel = topn_tc_kernel<N, INT8>;
-  const cudaError_t err = tc_attributes<N, INT8>(L);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((b + N - 1) / N, grid_y);
-  kernel<<<grid, kTcThreads, L.total, stream>>>(map, q, b, kf, aux, n_items, m, mode, span,
-                                                n_pad, L.stages, out_v, out_i);
-  return (int)cudaGetLastError();
+// f(std::integral_constant<int, PT>) for a plane type, f(...<int, N>) for
+// a query tile; cudaErrorInvalidValue for anything else
+template <typename F>
+int with_plane(int pt, F f) {
+  switch (pt) {
+    case kF32:
+      return f(std::integral_constant<int, kF32>{});
+    case kBf16:
+      return f(std::integral_constant<int, kBf16>{});
+    case kInt8:
+      return f(std::integral_constant<int, kInt8>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-template <bool INT8>
+template <typename F>
+int with_tile(int n, F f) {
+  switch (n) {
+    case 8:
+      return f(std::integral_constant<int, 8>{});
+    case 16:
+      return f(std::integral_constant<int, 16>{});
+    case 32:
+      return f(std::integral_constant<int, 32>{});
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int PT>
 int dispatch_tc(const float* q, int b, int kf, const void* mat, long long n_pad, const float* aux,
                 int n_items, int m, int mode, long long span, int grid_y, float* out_v,
                 int* out_i, cudaStream_t st) {
   // int8 planes pad features to 32 (two k16 steps per ldmatrix); spans
   // are whole tiles
-  if ((INT8 && kf % 32) || span % kTcItems || n_pad % kTcItems)
+  if ((PT == kInt8 && kf % 32) || span % kTcItems || n_pad % kTcItems)
     return (int)cudaErrorInvalidValue;
-  const TcPlan plan = tc_plan(b, kf, m, INT8);
-  if (plan.n == 0) return (int)cudaErrorInvalidValue;
+  const TcPlan plan = tc_plan(b, kf, m, PT);
   CUtensorMap map;
-  if (!plane_map(&map, mat, INT8, kf, n_pad)) return (int)cudaErrorInvalidValue;
-#define ORYX_TC(N)                                                                           \
-  case N:                                                                                    \
-    return launch_tc<N, INT8>(map, plan.layout, q, b, kf, aux, n_items, m, mode, span, n_pad, \
-                              grid_y, out_v, out_i, st)
-  switch (plan.n) {
-    ORYX_TC(8);
-    ORYX_TC(16);
-    ORYX_TC(32);
-    ORYX_TC(64);
-    ORYX_TC(128);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef ORYX_TC
+  if (plan.n == 0 || !plane_map(&map, mat, PT, kf, n_pad)) return (int)cudaErrorInvalidValue;
+  return with_tile(plan.n, [&](auto tile) {
+    constexpr int N = decltype(tile)::value;
+    const cudaError_t err = tc_attributes<N, PT>(plan.layout);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((b + N - 1) / N, grid_y);
+    topn_tc_kernel<N, PT><<<grid, kTcThreads, plan.layout.total, st>>>(
+        map, q, b, kf, aux, n_items, m, mode, span, n_pad, plan.layout.stages, out_v, out_i);
+    return (int)cudaGetLastError();
+  });
 }
 
-// float32 planes take the CUDA-core scan, bfloat16 and int8 planes the
-// tensor-core scan
 int dispatch_scan(const float* q, int b, int kf, const void* mat, int dtype,
                   long long n_pad, const float* aux, int n_items, int m, int mode,
                   long long span, int grid_y, float* out_v, int* out_i, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m < 1 || m > kMaxM || b < 1 || kf < 1 || grid_y < 1) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0:
-      return b <= 8 ? launch_fma<8>(q, b, kf, static_cast<const float*>(mat), n_pad, aux, n_items,
-                                    m, mode, span, grid_y, out_v, out_i, st)
-                    : launch_fma<32>(q, b, kf, static_cast<const float*>(mat), n_pad, aux,
-                                     n_items, m, mode, span, grid_y, out_v, out_i, st);
-    case 1:
-      return dispatch_tc<false>(q, b, kf, mat, n_pad, aux, n_items, m, mode, span, grid_y, out_v,
-                                out_i, st);
-    case 2:
-      return dispatch_tc<true>(q, b, kf, mat, n_pad, aux, n_items, m, mode, span, grid_y, out_v,
-                               out_i, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_plane(dtype, [&](auto pt) {
+    return dispatch_tc<decltype(pt)::value>(q, b, kf, mat, n_pad, aux, n_items, m, mode, span,
+                                            grid_y, out_v, out_i,
+                                            static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // namespace
@@ -1128,32 +1200,24 @@ int dispatch_scan(const float* q, int b, int kf, const void* mat, int dtype,
 // 2 int8. Each launch returns cudaGetLastError() (0 = success).
 extern "C" {
 
-// The tensor-core scan's plan for b queries over kf features keeping m:
-// out = {query tile N, ring stages, dynamic shared memory bytes, CTAs that
-// fit on one SM}; returns N, 0 when no tile fits.
+// The scan's plan for b queries over kf features keeping m: out = {query
+// tile N, ring stages, dynamic shared memory bytes, CTAs that fit on one
+// SM}; returns N, 0 when no tile fits.
 int topn_tc_plan(int b, int kf, int m, int dtype, int* out) {
-  const bool int8 = dtype == 2;
-  const TcPlan plan = tc_plan(b, kf, m, int8);
-  out[0] = plan.n;
-  out[1] = plan.layout.stages;
-  out[2] = plan.layout.total;
-  out[3] = 0;
-#define ORYX_TC(N)                                                              \
-  case N:                                                                       \
-    out[3] = int8 ? tc_ctas_per_sm<N, true>(plan.layout)                        \
-                  : tc_ctas_per_sm<N, false>(plan.layout);                      \
-    break
-  switch (plan.n) {
-    ORYX_TC(8);
-    ORYX_TC(16);
-    ORYX_TC(32);
-    ORYX_TC(64);
-    ORYX_TC(128);
-    default:
-      break;
-  }
-#undef ORYX_TC
-  return plan.n;
+  out[0] = out[1] = out[2] = out[3] = 0;
+  with_plane(dtype, [&](auto pt) {
+    constexpr int PT = decltype(pt)::value;
+    const TcPlan plan = tc_plan(b, kf, m, PT);
+    out[0] = plan.n;
+    out[1] = plan.layout.stages;
+    out[2] = plan.layout.total;
+    if (plan.n > 0)
+      out[3] = with_tile(plan.n, [&](auto tile) {
+        return tc_ctas_per_sm<decltype(tile)::value, PT>(plan.layout);
+      });
+    return 0;
+  });
+  return out[0];
 }
 
 int topn_scan(const float* q, int b, int kf, const void* mat, int dtype,
@@ -1172,15 +1236,28 @@ int topn_candidates(const float* q, int b, int kf, const void* mat, int dtype,
 
 int topn_merge(const float* cv, const int* ci, int lists, int b, int m, float* out_v,
                int* out_i, void* stream) {
-  if (m < 1 || lists < 1 || b < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(int) * (size_t)lists;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        topn_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  if (m < 1 || m > kMaxM || lists < 1 || b < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m == 1) {
+    topn_merge_heads_kernel<<<b, kMergeThreads, 0, st>>>(cv, ci, lists, b, out_v, out_i);
+    return (int)cudaGetLastError();
   }
-  topn_merge_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(cv, ci, lists, b,
-                                                                             m, out_v, out_i);
+  // lists per chunk: kMergeEntries entries, fewer where a row of several
+  // chunks needs room for counts in kMergeSmem bytes
+  const bool counts = lists > kMergeEntries / m;
+  int chunk = min(lists, kMergeEntries / m);
+  while (merge_smem(chunk, m, counts) > kMergeSmem) --chunk;
+  const int smem = merge_smem(chunk, m, counts);
+  const bool vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(cv) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(ci) % 16 == 0;
+  auto kernel = vec ? topn_merge_kernel<4> : topn_merge_kernel<1>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<b, kMergeThreads, smem, st>>>(cv, ci, lists, b, m, chunk, out_v, out_i);
   return (int)cudaGetLastError();
 }
 

@@ -16,12 +16,14 @@ The scan itself runs in hand-written CUDA kernels (``csrc/topn.cu``):
 - ``topn_candidates`` (replaces ``pallas_topn._topn_candidates_kernel``,
   B2) for larger batches, followed by the same ``topn_merge``.
 
-Both scan on the tensor cores (wgmma) for bfloat16 and int8 planes and
-on the CUDA cores for float32 planes; the launch counts name the path
-(``topn_scan.tc``, ``topn_scan.fma``, ...). An int8 plane scores the
-float32 query exactly, as three bfloat16 pieces; a bfloat16 plane
-scores the query rounded to bfloat16, in the kernel and in its plain
-version alike.
+Both scan on the tensor cores (wgmma) for every plane type; the launch
+counts name the path (``topn_scan.tc`` for bfloat16 and int8 planes,
+``topn_scan.tc_f32`` for float32 ones, ...). An int8 plane scores the
+float32 query exactly, as three bfloat16 pieces; a float32 plane splits
+its items alike and scores at float32 accuracy (six bfloat16 passes, as
+the JAX package's ``Precision.HIGHEST``); a bfloat16 plane scores the
+query rounded to bfloat16, in the kernel and in its plain version
+alike.
 
 Each kernel has a plain PyTorch version of the same function here
 (``*_plain``). A wrapper runs the plain version only for tensors on the
@@ -69,9 +71,7 @@ CANDIDATE_BLOCK = BLOCK_N
 # queries pad alike) so codes match the JAX package's layout
 _INT8_FEAT_MULTIPLE = 32
 
-# items per CTA tile in csrc/topn.cu: the CUDA-core scan (float32 planes)
-# and the tensor-core scan (bfloat16 and int8 planes)
-_FMA_TILE_ITEMS = 256
+# items per CTA tile of the scan in csrc/topn.cu
 _TC_TILE_ITEMS = 128
 
 
@@ -311,11 +311,12 @@ def _materialized_topk(up: StreamingItemMatrix, queries: torch.Tensor, k: int, c
 # -- the kernels and their plain versions -------------------------------------
 
 _launch_lock = threading.Lock()
-# one count per kernel and path: "tc" the tensor-core scan (bfloat16 and
-# int8 planes), "fma" the CUDA-core scan (float32 planes)
+# one count per kernel and path: "tc" the tensor-core scan on bfloat16
+# and int8 planes (one or three bf16 passes), "tc_f32" on float32 planes
+# (six)
 LAUNCHES = {
-    "topn_scan.tc": 0, "topn_scan.fma": 0, "topn_candidates.tc": 0,
-    "topn_candidates.fma": 0, "topn_merge": 0,
+    "topn_scan.tc": 0, "topn_scan.tc_f32": 0, "topn_candidates.tc": 0,
+    "topn_candidates.tc_f32": 0, "topn_merge": 0,
 }
 # the scan batches' row counts per kernel and path: {key: {b: launches}}
 SCAN_BATCHES: dict[str, dict[int, int]] = {}
@@ -376,8 +377,8 @@ def _kernels():
 
 def tc_plan(b: int, kf: int, m: int, dtype: torch.dtype) -> tuple[int, int, int, int]:
     """(query tile N, ring stages, shared-memory bytes, CTAs per SM) of the
-    tensor-core scan for b queries over kf features keeping m; N = 0 if
-    none fits. Asks the card, so the CUDA context must exist."""
+    scan for b queries over kf features keeping m on a plane of ``dtype``;
+    N = 0 if none fits. Asks the card, so the CUDA context must exist."""
     out = (_I * 4)()
     _kernels().topn_tc_plan(int(b), int(kf), int(m), _KERNEL_DTYPES[dtype], out)
     return out[0], out[1], out[2], out[3]
@@ -471,28 +472,20 @@ def _check_scan_args(q, mat_t, aux, m):
 @functools.lru_cache(maxsize=1024)
 def _scan_splits(b: int, n_pad: int, kf: int, m: int, dtype, device) -> tuple[int, int]:
     """(span, splits) of topn_scan: each CTA walks a contiguous run of
-    whole tiles, with enough CTAs to fill the card. The CUDA-core scan
-    aims at 4 CTAs per SM; the tensor-core scan at as many as one SM
-    holds (one wave)."""
+    whole tiles, with as many CTAs as the card holds at once (one wave)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if dtype == torch.float32:
-        tile, per_sm = _FMA_TILE_ITEMS, 4
-        qtiles = math.ceil(b / (8 if b <= 8 else 32))
-    else:
-        tile = _TC_TILE_ITEMS
-        n, _, _, per_sm = tc_plan(b, kf, m, dtype)
-        if n == 0 or per_sm == 0:
-            raise ValueError(f"no query tile of the tensor-core scan fits kf = {kf}, m = {m}")
-        qtiles = math.ceil(b / n)
-    tiles = n_pad // tile
-    splits = max(1, min(tiles, math.ceil(per_sm * sms / qtiles)))
+    n, _, _, per_sm = tc_plan(b, kf, m, dtype)
+    if n == 0 or per_sm == 0:
+        raise ValueError(f"no query tile of the scan fits kf = {kf}, m = {m}")
+    tiles = n_pad // _TC_TILE_ITEMS
+    splits = max(1, min(tiles, math.ceil(per_sm * sms / math.ceil(b / n))))
     per = math.ceil(tiles / splits)
-    return per * tile, math.ceil(tiles / per)
+    return per * _TC_TILE_ITEMS, math.ceil(tiles / per)
 
 
 def _launch_scan(name, q, mat_t, aux, n_items, m, mode, span, grid_y):
     b = q.shape[0]
-    path = "fma" if mat_t.dtype == torch.float32 else "tc"
+    path = "tc_f32" if mat_t.dtype == torch.float32 else "tc"
     out_v = torch.empty((grid_y, b, m), dtype=torch.float32, device=q.device)
     out_i = torch.empty((grid_y, b, m), dtype=torch.int32, device=q.device)
     rc = getattr(_kernels(), name)(
@@ -532,19 +525,29 @@ def topn_candidates(q, mat_t, aux, n_items, m, cosine, quantized):
     )
 
 
+def _check_merge_args(cand_v, cand_i, m):
+    """Raise ValueError for what the merge kernel does not take (CUDA
+    tensors last, as _check_scan_args)."""
+    if cand_v.dtype != torch.float32 or cand_i.dtype != torch.int32:
+        raise ValueError("topn_merge takes float32 values and int32 ids")
+    if cand_v.dim() != 3 or cand_v.shape != cand_i.shape or cand_v.shape[2] != m:
+        raise ValueError(f"candidates {tuple(cand_v.shape)} are not [S, b, {m}]")
+    if not 1 <= m <= MAX_KERNEL_K:
+        raise ValueError(f"m = {m} is outside [1, {MAX_KERNEL_K}]")
+    if min(cand_v.shape) < 1:
+        raise ValueError(f"candidates {tuple(cand_v.shape)} are empty")
+    if not (cand_v.is_contiguous() and cand_i.is_contiguous()):
+        raise ValueError("topn_merge takes contiguous tensors")
+    if cand_v.device.type != "cuda" or cand_i.device != cand_v.device:
+        raise ValueError(f"topn_merge takes CUDA tensors, not {cand_v.device}")
+
+
 def topn_merge(cand_v, cand_i, m):
     """[S, b, m] sorted lists -> the best m per row, [b, m]. CPU tensors
     take the plain version."""
     if cand_v.device.type == "cpu":
         return topn_merge_plain(cand_v, cand_i, m)
-    if cand_v.device.type != "cuda" or cand_i.device != cand_v.device:
-        raise ValueError(f"topn_merge takes CUDA tensors, not {cand_v.device}")
-    if cand_v.dtype != torch.float32 or cand_i.dtype != torch.int32:
-        raise ValueError("topn_merge takes float32 values and int32 ids")
-    if cand_v.dim() != 3 or cand_v.shape != cand_i.shape or cand_v.shape[2] != m:
-        raise ValueError(f"candidates {tuple(cand_v.shape)} are not [S, b, {m}]")
-    if not (cand_v.is_contiguous() and cand_i.is_contiguous()):
-        raise ValueError("topn_merge takes contiguous tensors")
+    _check_merge_args(cand_v, cand_i, m)
     s, b, _ = cand_v.shape
     out_v = torch.empty((b, m), dtype=torch.float32, device=cand_v.device)
     out_i = torch.empty((b, m), dtype=torch.int32, device=cand_v.device)

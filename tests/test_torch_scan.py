@@ -16,6 +16,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import jax
 import jax.numpy as jnp
 
 from oryx_tpu.ops import pallas_topn as ptn
@@ -232,6 +233,107 @@ def test_split_bf16x3_is_exact_on_seeded_queries(b, kf, seed):
     _assert_exact_split(torch.from_numpy(q))
 
 
+# -- a float32 plane's six bf16 passes -------------------------------------------
+
+# (item piece, query piece) of each pass, in csrc/topn.cu's order: the
+# three cross terms left out (mid.lo, lo.mid, lo.lo) are about 2^-24 of a
+# product
+_PASSES = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
+
+
+def _six_pass_product(q: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """[b, n] float32 scores of queries q [b, kf] against items y [n, kf]
+    as the scan computes a float32 plane's: both split in three bf16
+    pieces, the six passes' products (each exact in float32) summed in
+    float32."""
+    qp, yp = _split_bf16x3(q).float(), _split_bf16x3(y).float()
+    out = torch.zeros((q.shape[0], y.shape[0]), dtype=torch.float32)
+    for a, b in _PASSES:
+        out += qp[b] @ yp[a].T
+    return out
+
+
+def _assert_six_passes_within_rtol(q: np.ndarray, y: np.ndarray) -> None:
+    """The six-pass product within rtol 1e-5 of the float64 product of the
+    float32 operands, relative to the sum of the terms' magnitudes (a dot
+    product may cancel to 0; float32 rounding scales with its terms). The
+    dropped cross terms alone, summed in float64, stay below 2^-22 of it."""
+    got = _six_pass_product(torch.from_numpy(q), torch.from_numpy(y)).double().numpy()
+    q64, y64 = q.astype(np.float64), y.astype(np.float64)
+    exact = q64 @ y64.T
+    scale = np.abs(q64) @ np.abs(y64).T
+    assert np.all(np.abs(got - exact) <= 1e-5 * scale)
+    qp = _split_bf16x3(torch.from_numpy(q)).double().numpy()
+    yp = _split_bf16x3(torch.from_numpy(y)).double().numpy()
+    kept = sum(qp[b] @ yp[a].T for a, b in _PASSES)
+    assert np.all(np.abs(kept - exact) <= 2.0**-22 * scale)
+
+
+@pytest.mark.parametrize("b,n,seed", [(8, 500, 0), (256, 64, 1), (1, 2000, 2)])
+def test_six_bf16_passes_match_float64_on_seeded_rows(b, n, seed):
+    """Queries N(0, 1) and items N(0, 1/250) at 250 features, the scan's
+    main-path shape."""
+    gen = np.random.default_rng(seed)
+    q = gen.standard_normal((b, 250), dtype=np.float32)
+    y = gen.standard_normal((n, 250), dtype=np.float32) / np.float32(np.sqrt(250))
+    _assert_six_passes_within_rtol(q, y)
+
+
+# finite f32 values whose products and split remainders stay normal
+_moderate_f32 = st.builds(
+    lambda sign, mant, exp: float(np.ldexp(np.float32(sign * mant), exp)),
+    st.sampled_from([-1, 1]), st.integers(1 << 23, (1 << 24) - 1), st.integers(-50, 6),
+)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(st.one_of(st.just(0.0), _moderate_f32), min_size=500, max_size=500))
+def test_six_bf16_passes_match_float64(values):
+    """One 250-feature query row against one item row, any values."""
+    v = np.asarray(values, dtype=np.float32)
+    _assert_six_passes_within_rtol(v[None, :250], v[None, 250:])
+
+
+# -- the merge ----------------------------------------------------------------------
+
+
+def _merge_lists(gen, s: int, b: int, m: int):
+    """[S, b, m] lists as the scans leave them: each best first, values on
+    a coarse grid (equal values within and across lists), ids of list s
+    below list s + 1's and ascending among equal values, a random run of
+    (-inf, INT_MAX) padding ending each list; row 0 one value throughout,
+    and row 1 padding but for the first half of list 0, so that padding
+    reaches the merged list."""
+    # + 0.0 leaves no -0.0: lax.top_k orders it below 0.0, which the
+    # scans' comparisons and a stable sort take as equal
+    v = np.round(gen.standard_normal((s, b, m)) * 2) / 4 + 0.0
+    v = -np.sort(-v, axis=2).astype(np.float32)
+    v[:, 0] = 0.5
+    rank = np.arange(m)
+    ids = np.broadcast_to(np.arange(s)[:, None, None] * m + rank, (s, b, m)).astype(np.int32)
+    kept = m - gen.integers(0, m + 1, (s, b, 1))
+    kept[:, 1] = 0
+    kept[0, 1] = m // 2
+    pad = rank >= kept
+    return np.where(pad, -np.inf, v).astype(np.float32), np.where(pad, 2**31 - 1, ids)
+
+
+@pytest.mark.parametrize("s,m", [(1, 1), (3, 1), (5, 16), (7, 128), (33, 64)])
+def test_merge_plain_matches_jax_lax_top_k(s, m):
+    """topn_merge_plain against the JAX package's merge of candidate
+    lists (lax.top_k over the flattened lists, pallas_topn.py:597-599)."""
+    gen = np.random.default_rng(10 + s * m)
+    b = 4
+    v, ids = _merge_lists(gen, s, b, m)
+    allv = jnp.moveaxis(jnp.asarray(v), 0, 1).reshape(b, s * m)
+    alli = jnp.moveaxis(jnp.asarray(ids), 0, 1).reshape(b, s * m)
+    jv, pos = jax.lax.top_k(allv, m)
+    pv, pi = stn.topn_merge_plain(torch.from_numpy(v), torch.from_numpy(ids), m)
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(jnp.take_along_axis(alli, pos, axis=1)))
+    assert np.isneginf(pv[1].numpy()).sum() == m - m // 2  # padding reached row 1
+
+
 @pytest.mark.parametrize("kernel", ["topn_scan", "topn_candidates"])
 @pytest.mark.parametrize("cosine", [False, True])
 def test_bf16_plane_wrappers_score_rounded_queries(kernel, cosine):
@@ -294,6 +396,24 @@ def test_check_scan_args_refuses(what, q, mat_t, aux, m, message):
         stn._check_scan_args(q, mat_t, aux, m)
 
 
+# (what, values, ids, m, message): each breaks one rule of the merge kernel
+_MERGE_REFUSED = [
+    ("f64 values", _meta((3, 2, 8), torch.float64), _meta((3, 2, 8), torch.int32), 8, "float32"),
+    ("int64 ids", _meta((3, 2, 8)), _meta((3, 2, 8), torch.int64), 8, "int32"),
+    ("m mismatch", _meta((3, 2, 8)), _meta((3, 2, 8), torch.int32), 4, "not"),
+    ("m = 129", _meta((3, 2, 129)), _meta((3, 2, 129), torch.int32), 129, "outside"),
+    ("no lists", _meta((0, 2, 8)), _meta((0, 2, 8), torch.int32), 8, "empty"),
+    ("strided", _meta((3, 8, 2)).transpose(1, 2), _meta((3, 2, 8), torch.int32), 8, "contiguous"),
+    ("not CUDA", _meta((3, 2, 8)), _meta((3, 2, 8), torch.int32), 8, "CUDA"),
+]
+
+
+@pytest.mark.parametrize("what,v,i,m,message", _MERGE_REFUSED, ids=[c[0] for c in _MERGE_REFUSED])
+def test_check_merge_args_refuses(what, v, i, m, message):
+    with pytest.raises(ValueError, match=message):
+        stn._check_merge_args(v, i, m)
+
+
 def test_cpu_scans_count_no_launches():
     """CPU tensors take the plain versions: no kernel path counts a
     launch or a batch."""
@@ -301,8 +421,8 @@ def test_cpu_scans_count_no_launches():
     y, q = _make(n=3000, kf=16, b=5, seed=8)
     stn.top_k_streaming(stn.upload_streaming(y, dtype=torch.int8), q, 10)
     assert stn.launch_counts() == {
-        "topn_scan.tc": 0, "topn_scan.fma": 0, "topn_candidates.tc": 0,
-        "topn_candidates.fma": 0, "topn_merge": 0,
+        "topn_scan.tc": 0, "topn_scan.tc_f32": 0, "topn_candidates.tc": 0,
+        "topn_candidates.tc_f32": 0, "topn_merge": 0,
     }
     assert stn.scan_batch_histogram() == {}
 

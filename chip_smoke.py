@@ -33,12 +33,21 @@ Phases, each printing one JSON line:
    exact top-10 (ties to the lowest id), and a 512-query batch through
    ``topn.top_k_scores_batch`` (the candidates kernel) must too; every
    scan takes the ``tc_f32`` path (six bf16 passes);
-5. kmeans-kernels: ``kmeans_sweep`` + ``kmeans_reduce`` (the Lloyd sweep)
-   against their plain versions on Gaussian blobs at 200,000 x 20 (k = 10,
-   the repo's k-means shape), 10,000,000 x 20 (k = 10) and 1,000,000 x 256
-   (k = 256): counts equal but for near ties (two smallest distances
-   within 1e-5 relative), sums within rtol 1e-5 of max |sum| (plus the
-   near ties' share), cost within rtol 1e-5; with CUDA-event times;
+5. kmeans-kernels: the Lloyd sweep (``pallas_kmeans.sweep``, one launch
+   of ``kmeans_sweep.tc``) against its plain version on Gaussian blobs at
+   200,000 x 20 (k = 10, the repo's k-means shape), 10,000,000 x 20
+   (k = 10) and 1,000,000 x 256 (k = 256), and at the shapes of the
+   kernel's other paths: 100,000 x 7 (k = 5: d * 4 not a multiple of 16,
+   also from an address that is not 16-byte aligned), 200,000 x 32
+   (k = 300: more centers than one tile of 256), 200,000 x 768 (k = 10)
+   and 50,000 x 601 (k = 300: rows staged in chunks) and 20,000 x 16
+   (k = 10,000): counts equal but for near ties (two smallest
+   distances within 1e-5 relative), sums within rtol 1e-5 of max |sum|
+   (plus the near ties' share), cost within rtol 1e-5, two launches bit
+   for bit, NaN and inf rows to no center; with CUDA-event times of the
+   sweep (on the device alone, and calls back to back), its plain version
+   and a PyTorch yardstick that the port never calls (f32 matmul
+   distances, ``torch.min``, ``index_add_``, ``bincount``);
 6. kmeans-batch: the port's BatchLayer with KMeansUpdate on an inproc
    bus (reference.conf defaults: 30 iterations, 3 runs, k-means||,
    SILHOUETTE, test-fraction 0.1) trains on 200,000 CSV points of 20
@@ -86,8 +95,7 @@ SOURCES = {
     "topn_merge": "oryx_tpu_torch/csrc/topn.cu",
     "topn_candidates.tc": "oryx_tpu_torch/csrc/topn.cu",
     "topn_candidates.tc_f32": "oryx_tpu_torch/csrc/topn.cu",
-    "kmeans_sweep": "oryx_tpu_torch/csrc/kmeans.cu",
-    "kmeans_reduce": "oryx_tpu_torch/csrc/kmeans.cu",
+    "kmeans_sweep.tc": "oryx_tpu_torch/csrc/kmeans.cu",
 }
 REPLACES = {
     "topn_scan.tc": "oryx_tpu/ops/pallas_topn.py:300",
@@ -95,8 +103,7 @@ REPLACES = {
     "topn_merge": "oryx_tpu/ops/pallas_topn.py:300",
     "topn_candidates.tc": "oryx_tpu/ops/pallas_topn.py:364",
     "topn_candidates.tc_f32": "oryx_tpu/ops/pallas_topn.py:364",
-    "kmeans_sweep": "oryx_tpu/ops/pallas_kmeans.py:59",
-    "kmeans_reduce": "oryx_tpu/ops/pallas_kmeans.py:59",
+    "kmeans_sweep.tc": "oryx_tpu/ops/pallas_kmeans.py:59",
 }
 RTOL = 1e-5
 # batch rows of the phase-2 scans: the batcher's buckets (serving/batcher.py
@@ -111,8 +118,15 @@ MERGE_ROWS = (1, CANDIDATES_BATCH)
 # (points, features, clusters) of the k-means kernel phase; the first is
 # the repo's k-means training shape (tools/train_benchmark.py:161-170)
 KMEANS_SHAPES = ((200_000, 20, 10), (10_000_000, 20, 10), (1_000_000, 256, 256))
-SWEEP_LIBRARY_NOTE = "no single PyTorch call computes the fused sweep"
-REDUCE_LIBRARY_NOTE = "no single PyTorch call reduces the sums, counts and cost together"
+# shapes that take the kernel's other paths: d * 4 not a multiple of 16
+# (checked from an unaligned address too), kp > 256 (two center tiles),
+# rows too wide for a whole 64-point tile in shared memory (staged in
+# chunks; 601 features also by 4-byte copies, with two center tiles), and
+# more centers than |c|^2 keeps in shared memory
+KMEANS_EXTRA_SHAPES = (
+    (100_000, 7, 5), (200_000, 32, 300), (200_000, 768, 10), (50_000, 601, 300),
+    (20_000, 16, 10_000),
+)
 
 
 def emit(obj) -> None:
@@ -633,13 +647,14 @@ def gaussian_blobs(n: int, d: int, k: int, seed: int):
     return pts, centers
 
 
-def sweep_bound(n: int, d: int, kp: int) -> tuple[float, str]:
+def sweep_bound(n: int, d: int, kp: int, k: int) -> tuple[float, str]:
     """Least time for one Lloyd sweep: the bytes it must move (points,
     centers in, sums, counts and cost out) over 3.35 TB/s against
-    2*n*kp*d + n*d float32 operations (the TPU kernel's HIGHEST) at the
-    card's f32-accurate rate, six bf16 tensor-core passes (PEAK_OPS)."""
+    2*n*k*d + n*d float32 operations (the TPU kernel's HIGHEST; the
+    kp - k padded centers need no product) at the card's f32-accurate
+    rate, six bf16 tensor-core passes (PEAK_OPS)."""
     t_bytes = (n * d + 2 * kp * d + kp + 1) * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = (2.0 * n * kp * d + n * d) / PEAK_OPS["float32"] * 1e3
+    t_ops = (2.0 * n * k * d + n * d) / PEAK_OPS["float32"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -688,20 +703,32 @@ def check_sweep(torch, what, pts, ctr, n, k, got, ref):
     return out
 
 
+def library_sweep(torch, pts, ctr, n: int, k: int):
+    """The yardstick: the fewest PyTorch calls that compute the sweep (f32
+    matmul distances, padded centers masked, torch.min, index_add_,
+    bincount, the cost's sum); the port never calls it."""
+    p = pts[:n]
+    d2 = torch.sum(p * p, 1, keepdim=True) - 2.0 * (p @ ctr.T) + torch.sum(ctr * ctr, 1)
+    d2[:, k:] = torch.inf
+    mind2, a = torch.min(d2, dim=1)
+    sums = torch.zeros_like(ctr).index_add_(0, a, p)
+    counts = torch.bincount(a, minlength=ctr.shape[0])
+    return sums, counts, mind2.clamp_min(0).sum()
+
+
 def check_non_finite_rows(torch, pk, pts, ctr, k) -> dict:
-    """The sweep kernels against their plain versions on 3,000 rows (2,900
-    real) with a NaN row, a row with one inf feature, a row whose squared
-    norm overflows float32, and a NaN padding row: counts equal, sums
-    within rtol 1e-5 and finite, cost NaN in both."""
+    """The sweep against its plain version on 3,000 rows (2,900 real) with a
+    NaN row, a row with one inf feature, a row whose squared norm
+    overflows float32, and a NaN padding row: counts equal, sums within
+    rtol 1e-5 and finite, cost NaN in both."""
     bad = pts[:3000].clone()
     n = 2900
     bad[5] = math.nan
     bad[777, 2] = math.inf
     bad[1500] = 1e20
     bad[2950] = math.nan  # padding: counts for nothing
-    num_ctas, rows_per_cta = pk.sweep_grid(bad.shape[0], bad.device)
-    got = pk.kmeans_reduce(*pk.kmeans_sweep(bad, ctr, n, k))
-    ref = pk.kmeans_reduce_plain(*pk.kmeans_sweep_plain(bad, ctr, n, k, num_ctas, rows_per_cta))
+    got = pk.sweep(bad, ctr, n, k)
+    ref = pk.sweep_plain(bad, ctr, n, k)
     torch.cuda.synchronize()
     what = "sweep non-finite rows"
     if not torch.equal(got[1], ref[1]):
@@ -722,15 +749,18 @@ def check_non_finite_rows(torch, pk, pts, ctr, k) -> dict:
 
 
 def phase_kmeans_kernels(torch, pk, seed: int, scale: float = 1.0, device="cuda") -> dict:
-    """kmeans_sweep and kmeans_reduce against their plain versions on the
-    card at KMEANS_SHAPES; returns the per-kernel record of the first
-    shape (the main path's) with the largest error over all shapes and
-    the near ties of all shapes."""
+    """The sweep against its plain version on the card at KMEANS_SHAPES and
+    KMEANS_EXTRA_SHAPES (the odd-d one also from an unaligned address),
+    the sweep through the public ``pk.sweep`` only, so that ``scan_bench.py
+    --phase kmeans`` runs it on another checkout's package; returns the record of
+    the first shape (the main path's) with the largest error and the near
+    ties over all shapes, keyed by the launch key the sweeps took."""
     dev = torch.device(device)
-    rec: dict[str, dict] = {}
-    worst = {"kmeans_sweep": 0.0, "kmeans_reduce": 0.0}
-    near_ties = 0
-    for i, (n, d, k) in enumerate(KMEANS_SHAPES):
+    first = None
+    worst, near_ties = 0.0, 0
+    shapes = [(s, False) for s in KMEANS_SHAPES] + [(s, False) for s in KMEANS_EXTRA_SHAPES]
+    shapes.insert(len(KMEANS_SHAPES) + 1, (KMEANS_EXTRA_SHAPES[0], True))
+    for i, ((n, d, k), unaligned) in enumerate(shapes):
         n = max(1024, int(n * scale))
         pts_np, _ = gaussian_blobs(n, d, k, seed + 100 + i)
         gen = np.random.default_rng(seed + 200 + i)
@@ -739,67 +769,46 @@ def phase_kmeans_kernels(torch, pk, seed: int, scale: float = 1.0, device="cuda"
         ctr = torch.zeros((kp, d), dtype=torch.float32, device=dev)
         ctr[:k] = torch.from_numpy(pts_np[gen.choice(n, size=k, replace=False)]).to(dev)
         del pts_np
-        num_ctas, rows_per_cta = pk.sweep_grid(pts.shape[0], pts.device)
-        parts = pk.kmeans_sweep(pts, ctr, n, k)
-        got = pk.kmeans_reduce(*parts)
-        plain_parts = pk.kmeans_sweep_plain(pts, ctr, n, k, num_ctas, rows_per_cta)
-        ref = pk.kmeans_reduce_plain(*plain_parts)
-        again = pk.kmeans_reduce(*pk.kmeans_sweep(pts, ctr, n, k))
+        if unaligned:  # row 1 on: 28 bytes past the allocation, not 16-byte aligned
+            pts = pts[1:]
+            n -= 1
+        before = pk.launch_counts()
+        got = pk.sweep(pts, ctr, n, k)
+        keys = sorted(name for name, c in pk.launch_counts().items() if c > before.get(name, 0))
+        ref = pk.sweep_plain(pts, ctr, n, k)
+        again = pk.sweep(pts, ctr, n, k)
         torch.cuda.synchronize()
-        case = f"sweep n={n} d={d} k={k}"
+        case = f"sweep n={n} d={d} k={k}" + (" unaligned" if unaligned else "")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{case}: two launches disagree")
         cmp = check_sweep(torch, case, pts, ctr, n, k, got, ref)
-        # the reduce kernel against its plain version on the kernel's partials
-        red_ref = pk.kmeans_reduce_plain(*parts)
-        if not torch.equal(got[1], red_ref[1]):
-            raise AssertionError(f"{case}: kmeans_reduce counts disagree")
-        red_err = max(float((a - b).abs().max()) for a, b in zip(got, red_ref))
-        red_scale = max(float(b.abs().max()) for b in red_ref)
-        if red_err > RTOL * red_scale:
-            raise AssertionError(f"{case}: kmeans_reduce differs by {red_err}")
         if i == 0:
             check_non_finite_rows(torch, pk, pts, ctr, k)
-        del plain_parts, ref, red_ref, again
+        del ref, again
         torch.cuda.empty_cache()
-        ms = time_ms(torch, lambda: pk.kmeans_sweep(pts, ctr, n, k), 10)
-        plain_ms = time_ms(
-            torch, lambda: pk.kmeans_sweep_plain(pts, ctr, n, k, num_ctas, rows_per_cta), 3
-        )
-        red_ms = time_ms(torch, lambda: pk.kmeans_reduce(*parts), 10)
-        red_plain_ms = time_ms(torch, lambda: pk.kmeans_reduce_plain(*parts), 10)
-        bound_ms, bound_by = sweep_bound(n, d, kp)
-        red_bound = (
-            num_ctas * (kp * d * 8 + kp * 4 + 8) + (kp * d + kp + 1) * 4
-        ) / HBM_BYTES_PER_S * 1e3
-        # the sweep's error includes the points of near ties that the two
-        # versions assign apart (counted in near_ties)
-        worst["kmeans_sweep"] = max(worst["kmeans_sweep"], cmp["sums_max_abs_err"])
-        worst["kmeans_reduce"] = max(worst["kmeans_reduce"], red_err)
+        run = lambda: pk.sweep(pts, ctr, n, k)  # noqa: E731
+        ms = device_ms(torch, run, 10)
+        call_ms = time_ms(torch, run, 10)
+        plain_ms = time_ms(torch, lambda: pk.sweep_plain(pts, ctr, n, k), 3)
+        library_ms = time_ms(torch, lambda: library_sweep(torch, pts, ctr, n, k), 10)
+        bound_ms, bound_by = sweep_bound(n, d, kp, k)
+        worst = max(worst, cmp["sums_max_abs_err"])
         near_ties += cmp["near_ties"]
+        plan = pk.sweep_plan(kp, d, n, dev)[1] if dev.type == "cuda" else None
         emit({
-            "phase": "kmeans-kernels", "case": case, "kp": kp, "ctas": num_ctas,
-            "rows_per_cta": rows_per_cta, "groups": pk._sweep_groups(kp, d), **cmp,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "library_note": SWEEP_LIBRARY_NOTE,
-            "reduce_max_abs_err": red_err, "reduce_ms": red_ms,
-            "reduce_plain_ms": red_plain_ms, "reduce_bound_ms": red_bound,
+            "phase": "kmeans-kernels", "case": case, "kp": kp, "launch_keys": keys,
+            "plan": plan, **cmp, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / ms,
         })
         if i == 0:
-            rec["kmeans_sweep"] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, library_note=SWEEP_LIBRARY_NOTE,
-            )
-            rec["kmeans_reduce"] = dict(
-                ms=red_ms, plain_ms=red_plain_ms, bound_ms=red_bound, bound_by="bytes",
-                library_ms=None, library_note=REDUCE_LIBRARY_NOTE,
-            )
-        del pts, ctr, parts, got
+            first = (keys, dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=bound_ms, bound_by=bound_by))
+        del pts, ctr, got
         torch.cuda.empty_cache()
-    for name in rec:
-        rec[name]["max_abs_err"] = worst[name]
-    rec["kmeans_sweep"]["near_ties"] = near_ties
-    return rec
+    keys, rec = first
+    rec.update(max_abs_err=worst, near_ties=near_ties)
+    return {name: dict(rec) for name in keys}
 
 
 def kmeans_config(broker_loc: str, root: str, d: int, k: int, minibatch: int | None):

@@ -3,16 +3,14 @@
 
 One Lloyd iteration assigns every point to its nearest center and
 reduces the points into per-center sums, counts and the cost. The sweep
-runs in hand-written CUDA kernels (``csrc/kmeans.cu``), which replace
-``pallas_kmeans._sweep_kernel`` (B3):
+runs in one hand-written CUDA kernel (``csrc/kmeans.cu``), which
+replaces ``pallas_kmeans._sweep_kernel`` (B3): ``sweep`` launches it
+once per call (launch key ``kmeans_sweep.tc``: distances on the tensor
+cores, per-CTA partials and their reduction in the same launch).
 
-- ``kmeans_sweep``: each CTA owns a contiguous range of points, reads
-  each point once, and writes its partial sums, counts and cost;
-- ``kmeans_reduce``: the partials summed over CTAs in CTA order.
-
-Each kernel has a plain PyTorch version of the same function here
-(``*_plain``). A wrapper runs the plain version only for tensors on the
-CPU (the tests); for a CUDA tensor it launches the kernel or raises.
+``sweep_plain`` is the plain PyTorch version of the same function. The
+wrapper runs it only for tensors on the CPU (the tests); for a CUDA
+tensor it launches the kernel or raises.
 
 ``lloyd`` and ``minibatch_lloyd`` run whole schedules with the centers
 on the device between sweeps: nothing in their iteration loops waits
@@ -36,14 +34,6 @@ from oryx_tpu_torch.device import resolve
 # padded shapes agree with the JAX package
 BLOCK_N = 1024
 
-# rows per tile of the sweep kernel; a CTA's range is whole tiles
-_TILE_ROWS = 64
-# threads per CTA in csrc/kmeans.cu
-_KERNEL_THREADS = 256
-# dynamic shared memory a sweep CTA may take for its accumulator copies;
-# beyond it the CTA accumulates in its slab of the partials output
-_SMEM_BUDGET = 100 * 1024
-
 
 def _ceil_to(x: int, m: int) -> int:
     return (x + m - 1) // m * m
@@ -66,7 +56,7 @@ def pad_to_block(points: np.ndarray) -> np.ndarray:
 # -- launch counters -------------------------------------------------------------
 
 _launch_lock = threading.Lock()
-LAUNCHES = {"kmeans_sweep": 0, "kmeans_reduce": 0}
+LAUNCHES = {"kmeans_sweep.tc": 0}
 
 
 def _count(name: str) -> None:
@@ -85,12 +75,14 @@ def launch_counts() -> dict[str, int]:
         return dict(LAUNCHES)
 
 
-# -- the kernels and their plain versions -----------------------------------------
+# -- the kernel and its plain version ----------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _lib = None
+_PLAN_KEYS = ("N", "center_tiles", "resident", "row_features", "point_slots", "copies", "smem",
+              "ctas", "tiles_per_cta")
 
 
 def _kernels():
@@ -99,37 +91,29 @@ def _kernels():
         from oryx_tpu_torch.ops import _build
 
         lib = _build.load("kmeans")
-        lib.kmeans_sweep.argtypes = [_P, _L, _I, _P, _I, _I, _L, _I, _L, _I, _P, _P, _P, _P]
+        lib.kmeans_sweep.argtypes = [_P, _L, _I, _P, _I, _I, _L, _P, _L, _P, _P, _P, _P]
         lib.kmeans_sweep.restype = _I
-        lib.kmeans_reduce.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]
-        lib.kmeans_reduce.restype = _I
-        lib.kmeans_sweep_smem_bytes.argtypes = [_I, _I, _I]
-        lib.kmeans_sweep_smem_bytes.restype = _L
+        lib.kmeans_sweep_plan.argtypes = [_I, _I, _L, ctypes.POINTER(_I)]
+        lib.kmeans_sweep_plan.restype = _L
         _lib = lib
     return _lib
 
 
-def sweep_grid(n_pad: int, device) -> tuple[int, int]:
-    """(num_ctas, rows_per_cta) of kmeans_sweep: up to four CTAs per SM,
-    each walking a contiguous run of whole 64-row tiles. The CPU takes one
-    range."""
-    tiles = max(1, math.ceil(n_pad / _TILE_ROWS))
-    if torch.device(device).type != "cuda":
-        return 1, tiles * _TILE_ROWS
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per = math.ceil(tiles / min(tiles, 4 * sms))
-    return math.ceil(tiles / per), per * _TILE_ROWS
-
-
-def _sweep_groups(kp: int, d: int) -> int:
-    """Accumulator copies a sweep CTA keeps in shared memory: as many as
-    its threads cover (256 // min(d, 256)) within the budget, or 0 when
-    even one does not fit (then it accumulates in its partials slab)."""
-    lib = _kernels()
-    groups = _KERNEL_THREADS // min(d, _KERNEL_THREADS)
-    while groups > 0 and lib.kmeans_sweep_smem_bytes(kp, d, groups) > _SMEM_BUDGET:
-        groups -= 1
-    return groups
+def sweep_plan(kp: int, d: int, n: int, device) -> tuple[int, dict]:
+    """(scratch bytes, plan) of a sweep over n points against kp centers of
+    d features on a card: the center tile N and tiles, whether the center
+    stages stay resident, the features of a staged point row (d, or a chunk
+    of d for wide rows), the point slots per warpgroup, the f64 accumulator
+    copies per warpgroup in shared memory (0: the CTA's slab in global
+    memory), the shared-memory bytes, the CTAs and the 64-point tiles each
+    walks (csrc/kmeans.cu; the C side keeps the card's occupancy and the
+    kernel's attributes)."""
+    info = (_I * len(_PLAN_KEYS))()
+    with torch.cuda.device(device):
+        nbytes = _kernels().kmeans_sweep_plan(kp, d, n, info)
+    if nbytes < 0:
+        raise RuntimeError(f"the sweep kernel cannot run {kp} centers x {d} features on {device}")
+    return int(nbytes), dict(zip(_PLAN_KEYS, list(info)))
 
 
 def assign_plain(points: torch.Tensor, centers: torch.Tensor, k_real: int):
@@ -145,123 +129,68 @@ def assign_plain(points: torch.Tensor, centers: torch.Tensor, k_real: int):
     return torch.argmin(d2, dim=1), torch.amin(d2, dim=1)
 
 
-def kmeans_sweep_plain(points, centers, n_items, k_real, num_ctas, rows_per_cta):
-    """Plain version of kmeans_sweep: the same partials, [num_ctas, kp, d]
-    f64 sums, [num_ctas, kp] int32 counts and [num_ctas] f64 cost, from
-    matmul distances, argmin and index_add_ into (CTA, center) rows. A
-    point with a NaN distance adds NaN to the cost and goes to no center,
-    as in the TPU kernel (its equality argmin against a NaN minimum
+def sweep_plain(points, centers, n_items: int, k_real: int):
+    """Plain version of the sweep: (sums [kp, d], counts [kp], cost [1]) f32
+    of the first ``n_items`` points against the first ``k_real`` centers,
+    from matmul distances, argmin and f64 ``index_add_``, rounded to f32
+    once. A point with a NaN distance adds NaN to the cost and goes to no
+    center, as in the TPU kernel (its equality argmin against a NaN minimum
     matches nothing)."""
-    n_pad, d = points.shape
-    kp = centers.shape[0]
-    n = min(int(n_items), n_pad)
+    kp, d = centers.shape
+    n = min(int(n_items), points.shape[0])
     a, mind2 = assign_plain(points[:n], centers, k_real)
-    row = torch.arange(n, device=points.device)
-    slot = (row // rows_per_cta) * kp + a
     keep = ~torch.isnan(mind2)
-    sums = torch.zeros((num_ctas * kp, d), dtype=torch.float64, device=points.device)
-    sums.index_add_(0, slot[keep], points[:n][keep].double())
-    counts = torch.zeros(num_ctas * kp, dtype=torch.int32, device=points.device)
-    counts.index_add_(0, slot[keep], torch.ones_like(slot[keep], dtype=torch.int32))
-    cost = torch.zeros(num_ctas, dtype=torch.float64, device=points.device)
-    cost.index_add_(0, row // rows_per_cta, torch.clamp_min(mind2, 0.0).double())
-    return sums.view(num_ctas, kp, d), counts.view(num_ctas, kp), cost
-
-
-def kmeans_reduce_plain(part_sums, part_counts, part_cost):
-    """Plain version of kmeans_reduce: (sums [kp, d] f32, counts [kp] f32,
-    cost [1] f32), the partials summed over the CTA axis."""
-    return (
-        part_sums.sum(dim=0).float(),
-        part_counts.sum(dim=0).float(),
-        part_cost.sum().reshape(1).float(),
-    )
+    sums = torch.zeros((kp, d), dtype=torch.float64, device=points.device)
+    sums.index_add_(0, a[keep], points[:n][keep].double())
+    counts = torch.zeros(kp, dtype=torch.float64, device=points.device)
+    counts.index_add_(0, a[keep], torch.ones_like(a[keep], dtype=torch.float64))
+    cost = torch.clamp_min(mind2, 0.0).double().sum().reshape(1)
+    return sums.float(), counts.float(), cost.float()
 
 
 def _check_sweep_args(points, centers, n_items, k_real):
     if points.device.type != "cuda" or centers.device != points.device:
-        raise ValueError(f"kmeans_sweep takes CUDA tensors, not {points.device}/{centers.device}")
+        raise ValueError(f"sweep takes CUDA tensors, not {points.device}/{centers.device}")
     if points.dtype != torch.float32 or centers.dtype != torch.float32:
-        raise ValueError("kmeans_sweep takes float32 points and centers")
+        raise ValueError("sweep takes float32 points and centers")
     if points.dim() != 2 or centers.dim() != 2 or points.shape[1] != centers.shape[1]:
         raise ValueError(
             f"points {tuple(points.shape)} do not match centers {tuple(centers.shape)}"
         )
     if not (points.is_contiguous() and centers.is_contiguous()):
-        raise ValueError("kmeans_sweep takes contiguous tensors")
+        raise ValueError("sweep takes contiguous tensors")
     if not 1 <= k_real <= centers.shape[0]:
         raise ValueError(f"k_real = {k_real} is outside [1, {centers.shape[0]}]")
     if n_items < 0:
         raise ValueError(f"n_items = {n_items} is negative")
 
 
-def kmeans_sweep(points, centers, n_items: int, k_real: int):
-    """B3, first pass: per-CTA partials (sums [C, kp, d] f64, counts
-    [C, kp] int32, cost [C] f64) of the points' first ``n_items`` rows
-    against the centers' first ``k_real`` rows. CPU tensors take the plain
-    version."""
-    num_ctas, rows_per_cta = sweep_grid(points.shape[0], points.device)
+def sweep(points, centers, n_items: int, k_real: int):
+    """One fused assignment + reduction pass (``pallas_kmeans._sweep``):
+    (sums [kp, d], counts [kp], cost [1]), all f32 on the points' device,
+    of the first ``n_items`` points against the first ``k_real`` centers.
+    CPU tensors take the plain version."""
     if points.device.type == "cpu":
-        return kmeans_sweep_plain(points, centers, n_items, k_real, num_ctas, rows_per_cta)
+        return sweep_plain(points, centers, n_items, k_real)
     _check_sweep_args(points, centers, n_items, k_real)
-    n_pad, d = points.shape
+    n_rows, d = points.shape
     kp = centers.shape[0]
-    groups = _sweep_groups(kp, d)
+    n = min(int(n_items), n_rows)
     dev = points.device
-    part_sums = torch.empty((num_ctas, kp, d), dtype=torch.float64, device=dev)
-    part_counts = torch.empty((num_ctas, kp), dtype=torch.int32, device=dev)
-    part_cost = torch.empty(num_ctas, dtype=torch.float64, device=dev)
-    rc = _kernels().kmeans_sweep(
-        points.data_ptr(), n_pad, d, centers.data_ptr(), kp, int(k_real), int(n_items),
-        num_ctas, rows_per_cta, groups, part_sums.data_ptr(), part_counts.data_ptr(),
-        part_cost.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"kmeans_sweep kernel launch failed: CUDA error {rc}")
-    _count("kmeans_sweep")
-    return part_sums, part_counts, part_cost
-
-
-def kmeans_reduce(part_sums, part_counts, part_cost):
-    """B3, second pass: (sums [kp, d] f32, counts [kp] f32, cost [1] f32)
-    from kmeans_sweep's partials. CPU tensors take the plain version."""
-    if part_sums.device.type == "cpu":
-        return kmeans_reduce_plain(part_sums, part_counts, part_cost)
-    dev = part_sums.device
-    if part_counts.device != dev or part_cost.device != dev or dev.type != "cuda":
-        raise ValueError("kmeans_reduce takes CUDA tensors on one device")
-    if (part_sums.dtype, part_counts.dtype, part_cost.dtype) != (
-        torch.float64, torch.int32, torch.float64,
-    ):
-        raise ValueError("kmeans_reduce takes f64 sums, int32 counts and f64 cost")
-    if part_sums.dim() != 3 or part_counts.shape != part_sums.shape[:2] or (
-        part_cost.shape != part_sums.shape[:1]
-    ):
-        raise ValueError(
-            f"partials {tuple(part_sums.shape)}, {tuple(part_counts.shape)}, "
-            f"{tuple(part_cost.shape)} do not line up"
-        )
-    if not all(t.is_contiguous() for t in (part_sums, part_counts, part_cost)):
-        raise ValueError("kmeans_reduce takes contiguous tensors")
-    num_ctas, kp, d = part_sums.shape
+    nbytes, _ = sweep_plan(kp, d, n, dev)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     sums = torch.empty((kp, d), dtype=torch.float32, device=dev)
     counts = torch.empty(kp, dtype=torch.float32, device=dev)
     cost = torch.empty(1, dtype=torch.float32, device=dev)
-    rc = _kernels().kmeans_reduce(
-        part_sums.data_ptr(), part_counts.data_ptr(), part_cost.data_ptr(), num_ctas, kp, d,
-        sums.data_ptr(), counts.data_ptr(), cost.data_ptr(),
+    rc = _kernels().kmeans_sweep(
+        points.data_ptr(), n_rows, d, centers.data_ptr(), kp, int(k_real), n,
+        scratch.data_ptr(), nbytes, sums.data_ptr(), counts.data_ptr(), cost.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"kmeans_reduce kernel launch failed: CUDA error {rc}")
-    _count("kmeans_reduce")
+        raise RuntimeError(f"kmeans_sweep kernel launch failed: CUDA error {rc}")
+    _count("kmeans_sweep.tc")
     return sums, counts, cost
-
-
-def sweep(points, centers, n_items: int, k_real: int):
-    """One fused assignment + reduction pass (``pallas_kmeans._sweep``):
-    (sums [kp, d], counts [kp], cost [1]), all f32 on the points' device."""
-    return kmeans_reduce(*kmeans_sweep(points, centers, n_items, k_real))
 
 
 # -- schedules ---------------------------------------------------------------------

@@ -14,6 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from oryx_tpu.app.kmeans import common as jcommon
 from oryx_tpu.app.schema import InputSchema as JaxInputSchema
@@ -82,7 +84,7 @@ def test_plain_sweep_matches_jax_sweep(n_per, k, d):
     np.testing.assert_allclose(float(tcost[0]), float(jcost), rtol=COST_RTOL)
     assert tc.numpy()[k:].sum() == 0  # padded centers attract nothing
     assert tc.numpy().sum() == n  # padding rows count nothing
-    assert tpk.launch_counts() == {"kmeans_sweep": 0, "kmeans_reduce": 0}  # CPU: plain
+    assert tpk.launch_counts() == {"kmeans_sweep.tc": 0}  # CPU: plain
 
 
 # (row, feature or None for all, value): a NaN feature, one inf feature
@@ -127,21 +129,82 @@ def test_plain_sweep_matches_jax_sweep_on_non_finite_rows(case):
     assert np.isfinite(ts.numpy()).all()
 
 
-def test_sweep_partials_split_by_cta_range():
-    """The plain sweep lays out per-CTA partials as the kernel does; the
-    reduce sums them back to the one-range result."""
-    pts, init = blobs(300, 4, 6, seed=3)
+@pytest.mark.parametrize("k", [1, 5, 300])
+@pytest.mark.parametrize("d", [3, 7, 20, 601, 768])
+def test_plain_sweep_matches_jax_sweep_at_kernel_shapes(d, k):
+    """The shapes the CUDA kernel takes its other paths for: d * 4 not a
+    multiple of 16 (3, 7, 601), one center, kp = 304 > 256 (two center
+    tiles), and rows too wide for a whole 64-point tile in shared memory
+    (601, 768: staged in chunks); padding rows, and n_items below the real
+    rows."""
+    pts, init = blobs(1500 // k + 40, k, d, seed=31 * d + k)
+    init = init + np.random.default_rng(d).standard_normal(init.shape).astype(np.float32)
     padded, ctr = padded_inputs(pts, init)
-    p, c = torch.from_numpy(padded), torch.from_numpy(ctr)
-    n = len(pts)
-    one = tpk.kmeans_reduce(*tpk.kmeans_sweep_plain(p, c, n, 4, 1, padded.shape[0]))
-    parts = tpk.kmeans_sweep_plain(p, c, n, 4, 8, 256)  # 1,200 points in 2,048 rows
-    assert parts[0].shape == (8, 8, 6) and parts[1].shape == (8, 8) and parts[2].shape == (8,)
-    assert parts[1].sum(dim=1).tolist() == [256, 256, 256, 256, 176, 0, 0, 0]
-    split = tpk.kmeans_reduce(*parts)
-    np.testing.assert_allclose(split[0].numpy(), one[0].numpy(), rtol=1e-12)
-    np.testing.assert_array_equal(split[1].numpy(), one[1].numpy())
-    np.testing.assert_allclose(split[2].numpy(), one[2].numpy(), rtol=1e-12)
+    n = len(pts) - 13
+    js, jc, jcost = jpk._sweep(
+        jnp.asarray(padded), jnp.asarray(ctr), n_items=n, k_real=k, interpret=True
+    )
+    ts, tc, tcost = tpk.sweep(torch.from_numpy(padded), torch.from_numpy(ctr), n, k)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), **SUMS_TOL)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_allclose(float(tcost[0]), float(jcost), rtol=COST_RTOL)
+    assert tc.numpy().sum() == n and tc.numpy()[k:].sum() == 0
+
+
+def split3(x: torch.Tensor):
+    """x as three bf16 pieces, each rounding to nearest even what the earlier
+    ones left (csrc/kmeans.cu split_value / split_pair), as f32 tensors."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    lo = (x - hi - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def six_pass_d2(points: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """The kernel's distances: |p|^2 - 2 p.c + |c|^2 with p.c from six bf16
+    products (hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid) summed in f32."""
+    p, c = split3(points), split3(centers)
+    dot = torch.zeros((points.shape[0], centers.shape[0]), dtype=torch.float32)
+    for a, b in ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1)):
+        dot = dot + p[a] @ c[b].T
+    return torch.sum(points * points, 1, keepdim=True) - 2.0 * dot + torch.sum(centers**2, 1)
+
+
+def assert_six_pass_argmin_exact(seed: int, scale: float, n: int = 256, k: int = 48):
+    gen = np.random.default_rng(seed)
+    centers = (gen.standard_normal((k, 256)) * scale).astype(np.float32)
+    pts = centers[gen.integers(0, k, n)] + gen.standard_normal((n, 256)).astype(np.float32)
+    p, c = torch.from_numpy(pts), torch.from_numpy(centers)
+    for x in (p, c):  # the split is exact
+        hi, mid, lo = split3(x)
+        assert torch.equal(hi + mid + lo, x)
+    got = torch.argmin(six_pass_d2(p, c), dim=1).numpy()
+    d64 = ((pts.astype(np.float64)[:, None, :] - centers.astype(np.float64)[None]) ** 2).sum(-1)
+    want = np.argmin(d64, axis=1)
+    two = np.sort(d64, axis=1)[:, :2]
+    near = two[:, 1] - two[:, 0] <= 1e-5 * two[:, 1]
+    bad = (got != want) & ~near
+    assert not bad.any(), f"rows {np.nonzero(bad)[0][:5]} pick another center"
+
+
+def test_six_pass_distance_argmin_matches_float64():
+    assert_six_pass_argmin_exact(seed=5, scale=0.2)  # centers close: many near rivals
+
+
+@settings(max_examples=15, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), scale=st.floats(0.05, 8.0))
+def test_six_pass_distance_argmin_matches_float64_hypothesis(seed, scale):
+    assert_six_pass_argmin_exact(seed, scale, n=64, k=24)
+
+
+def test_launch_counts_name_the_tensor_core_sweep():
+    """The launch key says which path the sweep took; CPU tensors take the
+    plain version and count nothing."""
+    pts, init = blobs(50, 3, 4, seed=2)
+    padded, ctr = padded_inputs(pts, init)
+    tpk.reset_launch_counts()
+    tpk.sweep(torch.from_numpy(padded), torch.from_numpy(ctr), len(pts), 3)
+    assert tpk.launch_counts() == {"kmeans_sweep.tc": 0}
 
 
 @pytest.mark.parametrize("iterations", [1, 8])

@@ -15,7 +15,11 @@ Phases, each printing one JSON line:
    kernel at b = 512; planted exact ties (duplicated item columns) must
    come back in lowest-id order; the widest query tile (N = 128) at
    b = 128 and 256 on a 50-feature plane (bfloat16, int8) and a
-   10-feature one (float32); the merge bit for bit on synthetic lists
+   10-feature one (float32); wide planes of 1,056, 2,048 and 4,096
+   features x 262,144 items, whose query pieces stream beside the items,
+   every plane type, topn_scan at b = 8 and 256 and topn_candidates at
+   b = 512, dot and cosine, on the ``tc`` / ``tc_f32`` launch keys; the
+   merge bit for bit on synthetic lists
    (S = 1 to 1221 lists, m = 1 to 128, b = 1 and 512, padding, equal
    values across lists); with CUDA-event times of the kernel (on the
    device alone, and calls back to back), the plain version and two
@@ -56,10 +60,23 @@ Phases, each printing one JSON line:
    numpy nearest-center search does, and every true blob center has a
    trained center within 0.5; a second generation with mini-batch size
    10,000 warm-starts from the champion under the same checks;
-7. the kernel table: launches on the main paths (ALS during phases 3-4,
+7. kmeans-lambda: the k-means lambda loop as three OS processes
+   (``python -m oryx_tpu_torch batch|speed|serving``) on one ``file:``
+   bus: wave 1, the phase-6 training set (200,000 x 20, k = 10), POSTed
+   to serving's /add and trained by the batch process (which must have
+   launched ``kmeans_sweep.tc``, read from its metrics UI), served as in
+   phase 6; the batch process is then stopped, so that its next
+   generation cannot replace the speed layer's folds; wave 2, 20,000
+   points around blob 0 moved by +1.0 in every feature, folded by the
+   speed process and served as the float64 running mean (within 1e-9
+   relative); the speed process restarted; wave 3, 20,000 more, with
+   every cluster's count the model's plus waves 2 and 3 (nothing
+   consumed twice or lost); with the generation and micro-batch
+   seconds and each wave's staleness (last POST to serving's answer);
+8. the kernel table: launches on the main paths (ALS during phases 3-4,
    k-means during phase 6, each counted from zero just before; the scans
    also by batch rows, per path) and the numbers of phases 2 and 5;
-8. the card's name and power limit, then ``{"ok": true, "device": ...}``.
+9. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the exit code is not 0. Without CUDA, or run
 from a directory that holds no ``oryx_tpu_torch``, it exits 2 before
@@ -110,6 +127,11 @@ RTOL = 1e-5
 # _b_bucket, up to LOCAL_TOPK_BATCH), and one batch past them
 SCAN_BATCHES = (8, 16, 32, 64, 128, 256)
 CANDIDATES_BATCH = 512
+# the wide scans: feature counts past the 1,024 whose query pieces stay
+# resident in shared memory, on planes of this many items
+WIDE_FEATURES = (1056, 2048, 4096)
+WIDE_ITEMS = 262_144
+WIDE_RUNS = ((8, "topn_scan"), (256, "topn_scan"), (CANDIDATES_BATCH, "topn_candidates"))
 # the merge check's synthetic shapes: lists (1221 = the candidates kernel's
 # blocks at 20M items), list length and rows
 MERGE_LISTS = (1, 2, 7, 33, 1221)
@@ -464,6 +486,67 @@ def check_widest_query_tile(torch, stn, n: int, seed: int) -> None:
                       "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by})
         del up
         torch.cuda.empty_cache()
+
+
+def check_wide_scans(torch, stn, seed: int) -> None:
+    """The scans past 1,024 features, whose query pieces no longer stay in
+    shared memory and stream beside the items (``ScanPlan.streamed``):
+    every plane type, dot and cosine, topn_scan at b = 8 and 256 and
+    topn_candidates at b = 512, at WIDE_FEATURES x WIDE_ITEMS, each
+    against its plain version under check_topk and on the ``tc`` /
+    ``tc_f32`` launch key of its plane type, with its device time beside
+    kernel_bound() and the matmul + topk yardstick."""
+    gen = np.random.default_rng(seed + 5)
+    for d in WIDE_FEATURES:
+        y = factors(gen, WIDE_ITEMS, d)
+        for dtype in ("float32", "bfloat16", "int8"):
+            up = stn.upload_streaming(y, dtype=stn.torch_dtype(dtype), device="cuda")
+            quantized = up.scales is not None
+            kf = up.mat_t.shape[0]
+            m = stn._scan_k(16, WIDE_ITEMS, up.resid)
+            work_plane = up.mat_t if dtype != "int8" else up.mat_t.to(torch.bfloat16)
+            path = "tc_f32" if dtype == "float32" else "tc"
+            for cosine in (False, True):
+                aux = stn._fold_aux(up.norms, up.scales, cosine).contiguous()
+                for b, kernel in WIDE_RUNS:
+                    q = scan_queries(torch, stn, gen, b, d, kf)
+                    scan = getattr(stn, kernel)
+                    plain = getattr(stn, kernel + "_plain")
+                    case = f"wide {kernel} {dtype} {'cosine' if cosine else 'dot'} b={b} m={m} kf={d}"
+                    plan = stn.tc_plan(b, kf, m, up.mat_t.dtype)
+                    if not plan.streamed:
+                        raise AssertionError(f"{case}: the plan keeps the query resident: {plan}")
+                    before = stn.launch_counts()
+                    cv, ci = scan(q, up.mat_t, aux, WIDE_ITEMS, m, cosine, quantized)
+                    name = launched(stn, before)
+                    if name != f"{kernel}.{path}":
+                        raise AssertionError(f"{case}: took {name}, not {kernel}.{path}")
+                    kv, ki = stn.topn_merge(cv, ci, m)
+                    pv, pi = stn.topn_merge_plain(
+                        *plain(q, up.mat_t, aux, WIDE_ITEMS, m, cosine, quantized), m
+                    )
+                    torch.cuda.synchronize()
+                    err = check_topk(case, kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+                    del kv, ki, pv, pi
+                    ms = device_ms(
+                        torch, lambda: scan(q, up.mat_t, aux, WIDE_ITEMS, m, cosine, quantized), 5
+                    )
+                    qw = q.to(work_plane.dtype)
+                    library_topk_ms = time_ms(
+                        torch, lambda: library_topk(torch, qw, work_plane, m), 3
+                    )
+                    bound_ms, bound_by = kernel_bound(dtype, b, d, WIDE_ITEMS, cv.numel() * 8)
+                    emit({
+                        "phase": "kernels", "case": case, "path": name,
+                        "plan": {"query_tile": plan.tile, "stages": plan.stages,
+                                 "streamed": plan.streamed},
+                        "max_abs_err": err, "ms": ms, "library_topk_ms": library_topk_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
+                    })
+                    del cv, ci, qw
+            del up, work_plane
+            torch.cuda.empty_cache()
+        del y
 
 
 def merge_lists(torch, gen, s: int, b: int, m: int):
@@ -839,11 +922,10 @@ def kmeans_config(broker_loc: str, root: str, d: int, k: int, minibatch: int | N
     )
 
 
-def check_served_clusters(what, base, model, lines, pts, true_centers, gen):
+def check_served_clusters(what, base, clusters, lines, pts, true_centers, gen):
     """/assign and /distanceToNearest for 1,000 sampled points against a
-    float64 numpy nearest-center search over the served centers; every
-    true center within 0.5 of a trained one."""
-    clusters = model.clusters()
+    float64 numpy nearest-center search over the served centers (a list
+    of ClusterInfo); every true center within 0.5 of a trained one."""
     ids = np.array([c.id for c in clusters])
     centers = np.stack([c.center for c in clusters]).astype(np.float64)
     for true in true_centers:
@@ -931,7 +1013,7 @@ def phase_kmeans_batch(pk, seed: int, scale: float = 1.0) -> dict:
                     raise AssertionError(f"generation {gen_no} never reached serving")
                 time.sleep(0.05)
             check_served_clusters(
-                f"generation {gen_no}", base, model, lines, pts, true_centers, gen
+                f"generation {gen_no}", base, model.clusters(), lines, pts, true_centers, gen
             )
             out[f"gen{gen_no}"] = {
                 "seconds": gen_s, "minibatch": minibatch,
@@ -949,6 +1031,334 @@ def phase_kmeans_batch(pk, seed: int, scale: float = 1.0) -> dict:
         if count <= 0:
             raise AssertionError(f"{name} was never launched on the k-means batch path")
     return launches
+
+
+# -- phase 7: the k-means lambda loop as three processes ----------------------------
+
+LAMBDA_WAVE = 20_000  # points of waves 2 and 3
+LAMBDA_BODY_LINES = 4_000  # CSV lines per POST /add
+LAMBDA_BATCH_INTERVAL_S = 45  # the batch process's generation interval
+LAMBDA_TIMEOUT_S = 600  # the longest any one step may take
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def lambda_conf(root: str, d: int, k: int, ports: dict, batch_interval: int) -> str:
+    """The three layers' config: one file: bus, oryx.id set (offsets
+    persist), reference.conf defaults otherwise, the batch and speed
+    metrics UIs on the given ports."""
+    features = ", ".join(f'"{j}"' for j in range(d))
+    return f"""
+    oryx {{
+      id = "ChipSmokeLambda"
+      input-topic.broker = "file:{root}/bus"
+      update-topic.broker = "file:{root}/bus"
+      input-schema {{ num-features = {d}, numeric-features = [{features}] }}
+      kmeans.hyperparams.k = {k}
+      batch {{
+        streaming.generation-interval-sec = {batch_interval}
+        update-class = "oryx_tpu_torch.app.kmeans.update:KMeansUpdate"
+        storage {{ data-dir = "{root}/data/", model-dir = "{root}/model/" }}
+        ui.port = {ports["batch"]}
+      }}
+      speed {{
+        streaming.generation-interval-sec = 1
+        model-manager-class = "oryx_tpu_torch.app.kmeans.speed:KMeansSpeedModelManager"
+        ui.port = {ports["speed"]}
+      }}
+      serving {{
+        api.port = {ports["serving"]}
+        model-manager-class = "oryx_tpu_torch.app.kmeans.serving:KMeansServingModelManager"
+        application-resources = "oryx_tpu_torch.app.kmeans.serving"
+      }}
+    }}
+    """
+
+
+def start_layer(layer: str, conf: str, root: str, device: str, run: int):
+    """``python -m oryx_tpu_torch <layer> --conf <conf>`` from the checkout,
+    its output in <root>/logs/<layer>-<run>.log: (process, log path)."""
+    log_path = os.path.join(root, "logs", f"{layer}-{run}.log")
+    cmd = [sys.executable, "-m", "oryx_tpu_torch", layer, "--conf", conf]
+    if device == "cpu":
+        cmd += ["--device", "cpu"]
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=log_file, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def wait_until(what: str, pred, timeout: float = LAMBDA_TIMEOUT_S, procs=()):
+    """Poll pred() every 50 ms until it is truthy (returned), failing when
+    the time runs out or one of procs has exited."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        for name, proc in procs:
+            if proc.poll() is not None:
+                raise AssertionError(f"{what}: the {name} process exited ({proc.returncode})")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.05)
+
+
+def log_has(path: str, text: str, count: int = 1) -> bool:
+    with open(path, errors="replace") as f:
+        return f.read().count(text) >= count
+
+
+def post_lines(base: str, lines: list[str]) -> float:
+    """POST /add in bodies of LAMBDA_BODY_LINES lines; the monotonic time
+    the last answer came."""
+    for i in range(0, len(lines), LAMBDA_BODY_LINES):
+        body = "\n".join(lines[i : i + LAMBDA_BODY_LINES]).encode()
+        req = urllib.request.Request(base + "/add", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            if resp.status != 204:
+                raise AssertionError(f"POST /add answered {resp.status}")
+    return time.monotonic()
+
+
+def hist_summary(snapshot: dict) -> dict:
+    """count, sum, mean and max of a histogram's snapshot (seconds)."""
+    return {key: snapshot.get(key) for key in ("count", "sum", "mean", "max")}
+
+
+def scrape(port: int) -> dict:
+    """A layer's metrics registry, from its UI."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def update_topic_state(loc: str):
+    """(clusters of the last MODEL, {id: (center, count)} after the UPs
+    that followed it), read off the update topic as serving replays it."""
+    from oryx_tpu_torch import bus
+    from oryx_tpu_torch.app import pmml as app_pmml
+    from oryx_tpu_torch.app.kmeans import common as km
+
+    consumer = bus.get_broker(loc).consumer("OryxUpdate", from_beginning=True)
+    model, state = None, {}
+    try:
+        while True:
+            records = consumer.poll(10_000, 0.2)
+            if not records:
+                break
+            for rec in records:
+                if rec.key in ("MODEL", "MODEL-REF"):
+                    pmml = app_pmml.read_pmml_from_update_message(rec.key, rec.message)
+                    model = km.pmml_to_clusters(pmml)
+                    state = {c.id: (np.asarray(c.center, np.float64), c.count) for c in model}
+                elif rec.key == "UP" and model is not None:
+                    cid, center, count = json.loads(rec.message)
+                    state[int(cid)] = (np.asarray(center, np.float64), int(count))
+    finally:
+        consumer.close()
+    return model, state
+
+
+def running_mean(state: dict, pts: np.ndarray):
+    """The speed layer's fold, in float64: each point to its nearest
+    center, each center the weighted mean of itself and its points.
+    Returns (new state, {id: points folded})."""
+    ids = sorted(state)
+    centers = np.stack([state[i][0] for i in ids])
+    near = np.argmin(((pts[:, None, :] - centers[None, :, :]) ** 2).sum(axis=2), axis=1)
+    new, added = dict(state), {}
+    for j in np.unique(near):
+        cid, (center, count) = ids[j], state[ids[j]]
+        sel = pts[near == j]
+        new[cid] = ((center * count + sel.sum(axis=0)) / (count + len(sel)), count + len(sel))
+        added[cid] = len(sel)
+    return new, added
+
+
+def status_of(url: str) -> int | None:
+    """The HTTP status of a GET, or None while nothing listens."""
+    try:
+        return http_get(url)[0]
+    except (urllib.error.URLError, ConnectionError):
+        return None
+
+
+def served_matches(base: str, want: dict, cid: int) -> bool:
+    """Serving answers cluster cid's expected center with cid at distance
+    0 (within 1e-9 of its norm), and the bus's center agrees to 1e-9."""
+    center = want[cid][0]
+    path = ",".join(repr(float(v)) for v in center)
+    status, body, _ = http_get(f"{base}/distanceToNearest/{path}")
+    if status != 200 or float(json.loads(body)) > 1e-9 * float(np.linalg.norm(center)):
+        return False
+    status, body, _ = http_get(f"{base}/assign/{path}")
+    return status == 200 and int(json.loads(body)) == cid
+
+
+def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
+                        batch_interval: int = LAMBDA_BATCH_INTERVAL_S) -> dict:
+    """The k-means lambda loop as three OS processes on one file: bus
+    (``python -m oryx_tpu_torch batch|speed|serving``): wave 1, the
+    training set, through serving's /add; the batch process's
+    generation, served exactly; wave 2 folded by the speed process and
+    served as the float64 running mean; the speed process restarted;
+    wave 3 folded with no record consumed twice or lost. Returns the
+    phase's record, the batch process's kernel launches included."""
+    import io
+    import signal
+    import tempfile
+
+    n = max(2_000, int(KMEANS_SHAPES[0][0] * scale))
+    d, k = KMEANS_SHAPES[0][1], KMEANS_SHAPES[0][2]
+    wave = max(200, int(LAMBDA_WAVE * scale))
+    pts32, true_centers = gaussian_blobs(n, d, k, seed + 400)
+    gen = np.random.default_rng(seed + 401)
+    # waves 2 and 3 around blob 0 moved by +1.0 in every feature
+    moved = true_centers[0] + 1.0
+    later = [(moved + gen.standard_normal((wave, d))).astype(np.float32) for _ in range(2)]
+    texts = []
+    for block in [pts32] + later:
+        buf = io.StringIO()
+        np.savetxt(buf, block, fmt="%.6f", delimiter=",")
+        texts.append(buf.getvalue())
+    lines = [t.splitlines() for t in texts]
+    values = [np.loadtxt(io.StringIO(t), delimiter=",", dtype=np.float64) for t in texts]
+    del texts, pts32, later
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-lambda-")
+    os.makedirs(os.path.join(root, "logs"))
+    ports = {name: free_port() for name in ("batch", "speed", "serving")}
+    conf = os.path.join(root, "oryx.conf")
+    with open(conf, "w") as f:
+        f.write(lambda_conf(root, d, k, ports, batch_interval))
+    loc = f"file:{root}/bus"
+    base = f"http://127.0.0.1:{ports['serving']}"
+    procs: dict = {}
+    logs: list[str] = []
+    out = {"phase": "kmeans-lambda", "points": n, "features": d, "k": k, "wave_points": wave,
+           "bus": "file:", "batch_interval_s": batch_interval}
+
+    def start(layer: str, run: int = 1):
+        procs[layer], path = start_layer(layer, conf, root, device, run)
+        logs.append(path)
+        return path
+
+    def stop(layer: str) -> int:
+        procs[layer].send_signal(signal.SIGTERM)
+        return procs.pop(layer).wait(timeout=120)
+
+    def live():
+        return list(procs.items())
+
+    try:
+        from oryx_tpu_torch import bus
+
+        start("serving")
+        batch_log = start("batch")
+        speed_log = start("speed")
+        # consumer groups start at the topic's end: wave 1 waits until the
+        # batch and speed layers have attached theirs
+        wait_until("layers up", lambda: log_has(batch_log, "BatchLayer started")
+                   and log_has(speed_log, "SpeedLayer started")
+                   and status_of(base + "/ready") == 503, procs=live())
+        t_post = time.monotonic()
+        t_last = post_lines(base, lines[0])
+        out["wave1_post_s"] = t_last - t_post
+
+        # wave 1: the batch process's generation, served exactly
+        wait_until("generation 1", lambda: http_get(base + "/ready")[0] == 200, procs=live())
+        out["wave1_staleness_s"] = time.monotonic() - t_last
+        model, state = update_topic_state(loc)
+        check_served_clusters("wave 1", base, model, lines[0], values[0], true_centers, gen)
+        metrics_batch = wait_until(
+            "the batch generation's end",
+            lambda: (m := scrape(ports["batch"])).get("batch.generations", {}).get("value", 0) >= 1
+            and m,
+            procs=live(),
+        )
+        input_broker = bus.get_broker(loc)
+        latest = input_broker.latest_offsets("OryxInput")
+        drained = input_broker.get_offsets("OryxGroup-batch-ChipSmokeLambda", "OryxInput")
+        if drained != latest or sum(latest.values()) != n:
+            raise AssertionError(f"generation 1 drained {drained} of {latest} ({n} posted)")
+        out["batch_generation_s"] = hist_summary(metrics_batch["batch.generation.seconds"])
+        out["batch_launches"] = {
+            name.split(".", 1)[1].rsplit(".", 1)[0]: int(m["value"])
+            for name, m in metrics_batch.items()
+            if name.startswith("kernels.") and name.endswith(".launches")
+        }
+        # a second generation would retrain on waves 2-3 and publish a new
+        # MODEL over the speed layer's folds: the batch process has done its part
+        if stop("batch") != 0:
+            raise AssertionError("the batch process did not stop cleanly")
+
+        wait_until("the speed model", lambda: log_has(speed_log, "k-means speed model"),
+                   procs=live())
+        speed_group = "OryxGroup-speed-ChipSmokeLambda"
+        _, state = update_topic_state(loc)  # the published model (and any UP since)
+        expected = dict(state)
+        base_counts = {cid: count for cid, (_, count) in state.items()}
+        folded = {cid: 0 for cid in state}
+        out["speed_batch_s"] = []
+        for wave_no, (wave_lines, wave_pts) in enumerate(zip(lines[1:], values[1:]), start=2):
+            if wave_no == 3:  # restart the speed process: it resumes, and replays the updates
+                out["speed_batch_s"].append(
+                    hist_summary(scrape(ports["speed"])["speed.batch.seconds"])
+                )
+                if stop("speed") != 0:
+                    raise AssertionError("the speed process did not stop cleanly")
+                speed_log = start("speed", run=2)
+                wait_until("the restarted speed model",
+                           lambda: log_has(speed_log, "k-means speed model"), procs=live())
+                # the UPs behind the MODEL replay in the same pass, in
+                # microseconds; a second's margin before wave 3 arrives
+                time.sleep(1.0)
+            expected, added = running_mean(expected, wave_pts)
+            for cid, c in added.items():
+                folded[cid] += c
+            t_last = post_lines(base, wave_lines)
+            moved_ids = sorted(added)
+            wait_until(f"wave {wave_no} served",
+                       lambda: all(served_matches(base, expected, c) for c in moved_ids),
+                       procs=live())
+            out[f"wave{wave_no}_staleness_s"] = time.monotonic() - t_last
+            # every cluster as the bus has it (serving replays the same):
+            # the running mean, and the model's count plus the waves' points
+            _, state = update_topic_state(loc)
+            for cid, (center, count) in expected.items():
+                got_center, got_count = state[cid]
+                rel = float(np.linalg.norm(got_center - center) / np.linalg.norm(center))
+                if rel > 1e-9 or got_count != base_counts[cid] + folded[cid]:
+                    raise AssertionError(
+                        f"wave {wave_no}: cluster {cid} holds {got_count} points, not "
+                        f"{base_counts[cid]} + {folded[cid]}, at {rel:.3g} relative from "
+                        "the running mean"
+                    )
+            wait_until(f"wave {wave_no} committed",
+                       lambda: input_broker.get_offsets(speed_group, "OryxInput")
+                       == input_broker.latest_offsets("OryxInput"), timeout=30, procs=live())
+            out[f"wave{wave_no}_folded"] = {str(c): added[c] for c in moved_ids}
+        out["speed_batch_s"].append(hist_summary(scrape(ports["speed"])["speed.batch.seconds"]))
+        for layer in list(procs):
+            if stop(layer) != 0:
+                raise AssertionError(f"the {layer} process did not stop cleanly")
+    except BaseException:
+        for path in logs:
+            with open(path, errors="replace") as f:
+                tail = f.read()[-3000:]
+            print(f"--- {path} (tail) ---\n{tail}", file=sys.stderr, flush=True)
+        raise
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait(timeout=60)
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -1003,6 +1413,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"no phase-2 case took {missing}")
     check_widest_query_tile(torch, stn, args.items, args.seed)
+    check_wide_scans(torch, stn, args.seed)
 
     probe = sorted(gen.choice(np.arange(256, args.users), size=args.concurrency, replace=False))
     y_exact = stn.upload_streaming(y, dtype=torch.float32, device="cuda")
@@ -1085,6 +1496,10 @@ def main() -> int:
 
     kernels.update(phase_kmeans_kernels(torch, pk, args.seed))
     launches.update(phase_kmeans_batch(pk, args.seed))
+    torch.cuda.empty_cache()  # the lambda phase's batch process shares the card
+    lam = phase_kmeans_lambda(args.seed)
+    if lam["batch_launches"].get("kmeans_sweep.tc", 0) <= 0:
+        raise AssertionError(f"the batch process launched {lam['batch_launches']}")
 
     table = []
     for name in SOURCES:

@@ -25,6 +25,7 @@ from oryx_tpu_torch.app.serving_common import (
     get_ready_model,
     read_ingest_lines,
     send_input,
+    send_inputs,
 )
 from oryx_tpu_torch.common.text import join_csv
 from oryx_tpu_torch.common.vectormath import cosine_similarity
@@ -451,8 +452,8 @@ def _parse_float(s: str) -> float:
 
 @resource("POST", "/ingest")
 def ingest(ctx: ServingContext, req: Request):
-    """Bulk input: text, gzip, zip, or multipart (als/Ingest.java:61-72)."""
+    """Bulk input: text, gzip, zip, or multipart (als/Ingest.java:61-72),
+    the body's lines in one ``send_many``."""
     check_not_read_only(ctx)
-    for line in read_ingest_lines(req):
-        send_input(ctx, line)
+    send_inputs(ctx, read_ingest_lines(req))
     return Response(204)

@@ -7,7 +7,8 @@ GET /assign (clustering/Assign.java:52), POST /add (clustering/Add.java:
 
 Port note: a copy of ``oryx_tpu/app/kmeans/serving.py`` with its imports
 pointed at ``oryx_tpu_torch``, less the HTML console routes, which wait
-for the port's serving console (with the ALS console).
+for the port's serving console (with the ALS console). ``/add`` sends a
+body's lines in one ``send_many`` (``app/serving_common.send_inputs``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from oryx_tpu_torch.api.serving import AbstractServingModelManager, ServingModel
 from oryx_tpu_torch.app import pmml as app_pmml
 from oryx_tpu_torch.app.kmeans import common as km
 from oryx_tpu_torch.app.schema import InputSchema
-from oryx_tpu_torch.app.serving_common import check_not_read_only, get_ready_model, send_input
+from oryx_tpu_torch.app.serving_common import check_not_read_only, get_ready_model, send_inputs
 from oryx_tpu_torch.bus.core import KeyMessage
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.text import parse_line, read_json
@@ -124,7 +125,5 @@ def distance_to_nearest(ctx: ServingContext, req: Request):
 def add(ctx: ServingContext, req: Request) -> Response:
     """Queue new data points to the input topic (clustering/Add.java)."""
     check_not_read_only(ctx)
-    for line in req.text().splitlines():
-        if line.strip():
-            send_input(ctx, line.strip())
+    send_inputs(ctx, [line.strip() for line in req.text().splitlines() if line.strip()])
     return Response(204)

@@ -28,11 +28,13 @@ from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.app.kmeans import common as km
 from oryx_tpu_torch.app.schema import InputSchema
 from oryx_tpu_torch.bus.core import KeyMessage
+from oryx_tpu_torch.common import metrics
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.text import parse_line
 from oryx_tpu_torch.ml import param as hp
 from oryx_tpu_torch.ml.update import MLUpdate
 from oryx_tpu_torch.ops import kmeans as km_ops
+from oryx_tpu_torch.ops import pallas_kmeans
 
 log = logging.getLogger(__name__)
 
@@ -104,6 +106,10 @@ class KMeansUpdate(MLUpdate):
             if best is None or cost < best[2]:
                 best = (centers, counts, cost)
         centers, counts, _ = best
+        # the process's sweep launches so far, where the batch UI's
+        # /metrics shows them (oryx.batch.ui.port)
+        for name, n in pallas_kmeans.launch_counts().items():
+            metrics.registry.gauge(f"kernels.{name}.launches").set(n)
         clusters = [
             km.ClusterInfo(i, centers[i].astype(np.float64), int(counts[i]))
             for i in range(len(centers))

@@ -7,7 +7,9 @@ send helper, read-only guard, and compressed/multipart ingest body
 decoding (Ingest accepts raw text, gzip, zip, and multipart forms).
 
 Port note: a copy of ``oryx_tpu/app/serving_common.py`` (JAX-free), with its imports
-pointed at ``oryx_tpu_torch``.
+pointed at ``oryx_tpu_torch``, plus ``send_inputs``: the bulk routes
+(``/add``, ``/ingest``) send a request's lines in one ``send_many``, the
+same records the JAX package sends one by one.
 """
 
 from __future__ import annotations
@@ -39,9 +41,18 @@ def check_not_read_only(ctx: ServingContext) -> None:
 def send_input(ctx: ServingContext, line: str) -> None:
     """Write one event line to the input topic
     (AbstractOryxResource.sendInput:65-69; keyed by line hash)."""
+    send_inputs(ctx, [line])
+
+
+def send_inputs(ctx: ServingContext, lines: list[str]) -> None:
+    """Write a request's event lines to the input topic, keyed as
+    send_input keys each, in one ``send_many``: on the file bus one lock
+    and one write per partition instead of one per line."""
     if ctx.input_producer is None:
         raise OryxServingException(503, "no input topic configured")
-    ctx.input_producer.send(format(abs(hash(line)) & 0xFFFFFFFF, "x"), line)
+    ctx.input_producer.send_many(
+        (format(abs(hash(line)) & 0xFFFFFFFF, "x"), line) for line in lines
+    )
 
 
 def read_ingest_lines(req: Request) -> list[str]:

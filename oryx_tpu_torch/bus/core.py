@@ -5,7 +5,8 @@ KeyMessage.java, TopicProducer.java) and admin utils (framework/kafka-util/
 src/main/java/com/cloudera/oryx/kafka/util/KafkaUtils.java:42-190).
 
 Port note: a copy of ``oryx_tpu/bus/core.py`` (JAX-free), with its imports
-pointed at ``oryx_tpu_torch``; ``get_broker`` serves ``inproc://`` only.
+pointed at ``oryx_tpu_torch``; ``get_broker`` serves ``inproc://`` and
+``file:`` buses (the others raise).
 """
 
 from __future__ import annotations
@@ -220,17 +221,29 @@ def get_broker(locator: str) -> Broker:
     """Resolve a bus locator to a Broker.
 
     inproc://<name> — process-local named broker (tests, single-process runs)
+    file:/<dir> or file://<dir> or a bare path — file-backed broker
+        (oryx_tpu_torch.bus.filebus; the same on-disk format as the JAX
+        package's, so the two packages share a bus directory)
 
-    The file, shm, tcp, kafka and fault buses of ``oryx_tpu.bus`` are not
-    ported yet; their locators raise."""
+    The shm, tcp, kafka and fault buses of ``oryx_tpu.bus`` are not ported
+    yet; their locators raise."""
     if locator.startswith("inproc://"):
         from oryx_tpu_torch.bus.inproc import InProcessBroker
 
         return InProcessBroker.named(locator[len("inproc://") :])
-    raise NotImplementedError(
-        f"bus locator {locator!r} is not yet ported to oryx_tpu_torch "
-        "(only inproc:// is)"
-    )
+    if locator.startswith(("fault+", "tcp://", "kafka://", "shm:")):
+        raise NotImplementedError(
+            f"bus locator {locator!r} is not yet ported to oryx_tpu_torch "
+            "(inproc:// and file: are)"
+        )
+    from oryx_tpu_torch.bus.filebus import FileBroker
+
+    if locator.startswith("file:"):
+        path = locator[len("file:") :]
+        while path.startswith("//"):
+            path = path[1:]
+        return FileBroker(path)
+    return FileBroker(locator)  # bare filesystem path
 
 
 # -- KafkaUtils-style module-level admin helpers ----------------------------

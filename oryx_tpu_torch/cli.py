@@ -1,15 +1,22 @@
 """Command-line launcher (counterpart of ``oryx_tpu/cli.py``):
 
-    python -m oryx_tpu_torch serving --conf oryx.conf
     python -m oryx_tpu_torch batch --conf oryx.conf
+    python -m oryx_tpu_torch speed --conf oryx.conf
+    python -m oryx_tpu_torch serving --conf oryx.conf
 
-The ``serving`` and ``batch`` layers are ported. Config layers as in the
-JAX package: packaged defaults <- ``--conf`` file <- ``--set`` overrides.
-The config must name the port's classes, e.g.
-``model-manager-class = "oryx_tpu_torch.app.als.serving_model:ALSServingModelManager"``,
-``application-resources = "oryx_tpu_torch.app.als"`` or
-``update-class = "oryx_tpu_torch.app.kmeans.update:KMeansUpdate"``; a
-name under ``oryx_tpu`` is refused.
+The three layers are ported; each runs as its own process, and they meet
+on the bus the config names (the packaged default is the file bus
+``file:/tmp/OryxTPU/bus``). The operator commands of the JAX package
+(``bus-setup``, ``bus-tail``, ``repair`` and the others) are not.
+Config layers as in the JAX package: packaged defaults <- ``--conf``
+file <- ``--set`` overrides. The config must name the port's classes,
+e.g. ``model-manager-class =
+"oryx_tpu_torch.app.als.serving_model:ALSServingModelManager"``,
+``application-resources = "oryx_tpu_torch.app.als"``, ``update-class =
+"oryx_tpu_torch.app.kmeans.update:KMeansUpdate"`` or, for the speed
+layer, ``model-manager-class =
+"oryx_tpu_torch.app.kmeans.speed:KMeansSpeedModelManager"``; a name under
+``oryx_tpu`` is refused.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from oryx_tpu_torch.common.lang import close_at_shutdown
 
 log = logging.getLogger(__name__)
 
-COMMANDS = ("batch", "serving")
+COMMANDS = ("batch", "speed", "serving")
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -54,6 +61,12 @@ def _build_parser() -> argparse.ArgumentParser:
         help="config override, e.g. --set oryx.serving.api.port=9090; repeatable",
     )
     p.add_argument("--log-level", default="INFO", help="python logging level")
+    p.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="where the layer computes: the card (default), or the CPU for tests and rehearsals",
+    )
     return p
 
 
@@ -100,6 +113,16 @@ def run_batch(cfg: Config) -> None:
     layer.await_termination()
 
 
+def run_speed(cfg: Config) -> None:
+    from oryx_tpu_torch.lambda_.speed import SpeedLayer
+
+    layer = SpeedLayer(cfg)
+    close_at_shutdown(layer)
+    _install_signal_handlers(layer)
+    layer.start()
+    layer.await_termination()
+
+
 def run_serving(cfg: Config) -> None:
     from oryx_tpu_torch.serving.layer import ServingLayer
 
@@ -118,9 +141,15 @@ def main(argv: list[str] | None = None) -> int:
     )
     for d in args.app_dir:
         sys.path.insert(0, os.path.abspath(d))
+    if args.device == "cpu":
+        from oryx_tpu_torch.device import set_device
+
+        set_device("cpu")
     cfg = load_config(args.conf, args.set)
     if args.command == "batch":
         run_batch(cfg)
+    elif args.command == "speed":
+        run_speed(cfg)
     elif args.command == "serving":
         run_serving(cfg)
     return 0

@@ -82,6 +82,17 @@
 //     it stages B. int8 issues three wgmmas per k16 step on the same A
 //     fragment, one per query piece; float32 the six above; bf16 one, on
 //     the query rounded to bf16 (hi, and the cosine norm of hi).
+//   - Wide planes. Resident pieces take P * N * kfp * 2 bytes, which at
+//     thousands of features leave no room for any query tile (the TPU
+//     kernel halves its tiles instead, pallas_topn.py:491-520). Past
+//     kResidentMaxFeatures, or wherever no resident plan fits, the plan
+//     streams B (the QS kernels): split_queries_kernel writes each query
+//     tile's pieces once to device memory, laid out per stage exactly as
+//     the resident B is, and the producer brings the stage's slice of them
+//     into the ring beside the items with one bulk copy on the same
+//     barrier. The consumers then release a stage only after its wgmmas
+//     have read it. Every plane of up to kResidentMaxFeatures features
+//     keeps the resident plan it had.
 //   - Selection. The tile's products are staged in shared memory; warp w
 //     takes queries w, w + 8, ..., applies aux and the mask, and appends
 //     the scores that beat the query's threshold to its candidate buffer
@@ -133,6 +144,8 @@ constexpr int kTcMinStages = 3;
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block can use
 constexpr int kBarSelect = 1;       // named barrier of the consumer threads
 constexpr int kScStride = kTcItems + 8;  // staged products per query row, padded
+constexpr int kResidentMaxFeatures = 1024;  // widest plane whose query pieces stay resident
+constexpr int kQsSumFeatures = 256;  // features a streamed tile sums on the tensor cores alone
 
 // features per ring stage: four k16 steps of bf16 or int8 items, two of
 // float32 ones (16 KB either way for bf16 and f32)
@@ -157,7 +170,8 @@ __host__ __device__ constexpr int pass_query_piece(int pt, int p) {
 // (the 128-byte swizzle repeats every 1024 bytes).
 struct TcLayout {
   int stages;
-  int stage_bytes;
+  int stage_bytes;  // the items of a stage
+  int q_stage;      // the query pieces of a stage when B streams, else 0
   int a, bq, sc, aux, bv, bi, tv, ti, cnt, qn, bars;
   int total;  // including the alignment slack
 };
@@ -172,13 +186,17 @@ __host__ __device__ inline int tc_slots(int m) {
   return slots;
 }
 
-__host__ __device__ inline TcLayout tc_layout(int n, int kfp, int pt, int m, int stages) {
+// B is either resident (P pieces of n x kfp) or a ring of one stage's
+// pieces (P x n x chunk) beside each item stage
+__host__ __device__ inline TcLayout tc_layout(int n, int kfp, int pt, int m, int stages,
+                                              bool streamed) {
   TcLayout L;
   L.stages = stages;
   L.stage_bytes = tc_chunk(pt) * kTcItems * tc_item_bytes(pt);
+  L.q_stage = streamed ? tc_query_pieces(pt) * n * tc_chunk(pt) * 2 : 0;
   L.a = 0;
   L.bq = stages * L.stage_bytes;
-  L.sc = L.bq + tc_query_pieces(pt) * n * kfp * 2;
+  L.sc = L.bq + (streamed ? stages * L.q_stage : tc_query_pieces(pt) * n * kfp * 2);
   L.aux = L.sc + n * kScStride * 4;
   L.bv = L.aux + kTcItems * 4;
   L.bi = L.bv + n * tc_slots(m) * 4;
@@ -192,26 +210,38 @@ __host__ __device__ inline TcLayout tc_layout(int n, int kfp, int pt, int m, int
 }
 
 // The query tile and ring depth for b queries: the widest N bucket not
-// above b's (powers of two from 8 to 128) whose resident query pieces,
-// staged scores, candidate buffers and at least kTcMinStages stages fit;
-// N = 8 may run on two. n = 0 when nothing fits.
+// above b's (powers of two from 8 to 128) whose query pieces, staged
+// scores, candidate buffers and at least kTcMinStages stages fit; N = 8
+// may run on two. Up to kResidentMaxFeatures features the pieces stay
+// resident if any N fits so; past it, or if none does, they stream, and
+// N = 8 always fits then. n = 0 when nothing fits.
 struct TcPlan {
   int n;
+  bool streamed;
   TcLayout layout;
 };
 
 inline TcPlan tc_plan(int b, int kf, int m, int pt) {
   const int kfp = align_up(kf, tc_chunk(pt));
-  int n = 8;
-  while (n < b && n < 128) n <<= 1;
-  for (; n >= 8; n >>= 1) {
-    const TcLayout fixed = tc_layout(n, kfp, pt, m, 0);
-    const int stages = min(kTcMaxStages, (kSmemLimit - fixed.total) /
-                                             (fixed.stage_bytes + 16));
-    if (stages >= kTcMinStages || (n == 8 && stages >= 2))
-      return {n, tc_layout(n, kfp, pt, m, stages)};
+  int top = 8;
+  while (top < b && top < 128) top <<= 1;
+  for (int streamed = kf > kResidentMaxFeatures; streamed < 2; ++streamed) {
+    for (int n = top; n >= 8; n >>= 1) {
+      const TcLayout fixed = tc_layout(n, kfp, pt, m, 0, streamed);
+      const int stages = min(kTcMaxStages, (kSmemLimit - fixed.total) /
+                                               (fixed.stage_bytes + fixed.q_stage + 16));
+      if (stages >= kTcMinStages || (n == 8 && stages >= 2))
+        return {n, streamed != 0, tc_layout(n, kfp, pt, m, stages, streamed)};
+    }
   }
-  return {0, tc_layout(8, kfp, pt, m, 0)};
+  return {0, false, tc_layout(8, kfp, pt, m, 0, false)};
+}
+
+// bytes of the streamed query pieces of b queries: P pieces of every
+// query tile of n rows, kfp features each
+inline long long tc_scratch_bytes(int b, int kf, int n, int pt) {
+  const long long rows = (long long)(b + n - 1) / n * n;
+  return rows * align_up(kf, tc_chunk(pt)) * tc_query_pieces(pt) * 2;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -250,6 +280,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(f)
+      : "memory");
+}
+
+// one contiguous run of device memory (16-byte aligned, a 16-byte
+// multiple) into shared memory, completing on the barrier as tma_load
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -564,6 +603,33 @@ struct TileGate {
   }
 };
 
+// The streamed B of the QS scans: the pieces of query tile t (n rows) for
+// stage c of the K walk at qs + (t * nchunks + c) * P * n * chunk, piece p
+// n * chunk values after piece p - 1, each laid out as the resident B of
+// one stage (8 x 16-byte core matrices, K-major), queries past b and
+// features past kf zero. One thread per (query row, feature).
+template <int PT>
+__global__ void split_queries_kernel(const float* __restrict__ q, int b, int kf, int n,
+                                     __nv_bfloat16* __restrict__ qs) {
+  constexpr int P = tc_query_pieces(PT);
+  constexpr int kChunk = tc_chunk(PT);
+  const int kfp = align_up(kf, kChunk), nchunks = kfp / kChunk;
+  const long long total = (long long)(b + n - 1) / n * n * kfp;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long row = e / kfp;
+    const int k = (int)(e - row * kfp);
+    const int t = (int)(row / n), r = (int)(row - (long long)t * n);
+    const int c = k / kChunk, kk = k - c * kChunk;
+    __nv_bfloat16 piece[3];
+    split_query(row < b && k < kf ? q[row * kf + k] : 0.f, piece);
+    const int at = (((kk / 16) * (n / 8) + r / 8) * 2 + (kk % 16) / 8) * 64 + (r % 8) * 8 + kk % 8;
+    __nv_bfloat16* dst = qs + ((long long)t * nchunks + c) * P * n * kChunk;
+#pragma unroll
+    for (int p = 0; p < P; ++p) dst[p * n * kChunk + at] = piece[p];
+  }
+}
+
 // CTAs per SM the register budget is sized for: the narrow query tiles
 // need little shared memory, so several CTAs (and their warps) can share
 // an SM and hide each other's latency
@@ -577,14 +643,15 @@ constexpr int tc_min_blocks() {
 // of [grid_y, b, m], on the f32 queries q [b, kf]. topn_scan (B1)
 // launches it with span = n_pad / splits, topn_candidates (B2) with span
 // = one item block. The CTA splits its query tile into bf16 pieces as it
-// stages B (see split_query).
-template <int N, int PT>
+// stages B (see split_query), or, with QS, streams the pieces that
+// split_queries_kernel left in qs.
+template <int N, int PT, bool QS>
 __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, PT>())
     topn_tc_kernel(const __grid_constant__ CUtensorMap plane,
                    const float* __restrict__ q, int b, int kf,
                    const float* __restrict__ aux, int n_items, int m, int mode, long long span,
-                   long long n_pad, int stages, float* __restrict__ out_v,
-                   int* __restrict__ out_i) {
+                   long long n_pad, int stages, const __nv_bfloat16* __restrict__ qs,
+                   float* __restrict__ out_v, int* __restrict__ out_i) {
   constexpr int P = tc_query_pieces(PT);
   constexpr int kChunk = tc_chunk(PT);
   constexpr int kSteps = kChunk / 16;  // k16 steps per stage
@@ -592,7 +659,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, PT>())
   constexpr int kBoxes = kTcItems * tc_item_bytes(PT) / 128;  // TMA boxes per stage
   constexpr bool kPairedRows = PT != kBf16;  // accumulator row g = item 2g
   const int kfp = align_up(kf, kChunk);
-  const TcLayout L = tc_layout(N, kfp, PT, m, stages);
+  const TcLayout L = tc_layout(N, kfp, PT, m, stages, QS);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* ring = base + L.a;
@@ -630,13 +697,15 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, PT>())
   }
   // the query pieces as resident B operands: [P][kfp / 16][N / 8] k16 x
   // 8-row blocks, each two 128-byte core matrices (features 0-7, 8-15)
-  for (int e = tid; e < N * kfp; e += kTcThreads) {
-    const int k = e % kfp, n = e / kfp;
-    __nv_bfloat16 piece[3];
-    split_query(n < nq && k < kf ? q[(long long)(q0 + n) * kf + k] : 0.f, piece);
-    const int at = (((k / 16) * (N / 8) + n / 8) * 2 + (k % 16) / 8) * 64 + (n % 8) * 8 + k % 8;
+  if constexpr (!QS) {
+    for (int e = tid; e < N * kfp; e += kTcThreads) {
+      const int k = e % kfp, n = e / kfp;
+      __nv_bfloat16 piece[3];
+      split_query(n < nq && k < kf ? q[(long long)(q0 + n) * kf + k] : 0.f, piece);
+      const int at = (((k / 16) * (N / 8) + n / 8) * 2 + (k % 16) / 8) * 64 + (n % 8) * 8 + k % 8;
 #pragma unroll
-    for (int p = 0; p < P; ++p) bq[p * N * kfp + at] = piece[p];
+      for (int p = 0; p < P; ++p) bq[p * N * kfp + at] = piece[p];
+    }
   }
   if (tid < N) {
     cnt[tid] = 0;
@@ -663,7 +732,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, PT>())
       for (int it = 0; it < iters; ++it) {
         const int s = it % stages;
         mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
-        mbar_arrive_tx(&full[s], L.stage_bytes);
+        mbar_arrive_tx(&full[s], L.stage_bytes + L.q_stage);
         const int x = (int)(begin + (long long)(it / nchunks) * kTcItems);
         const int f = (it % nchunks) * kChunk;
         unsigned char* dst = ring + s * L.stage_bytes;
@@ -671,6 +740,11 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, PT>())
         for (int j = 0; j < kBoxes; ++j)
           tma_load(dst + j * (L.stage_bytes / kBoxes), &plane, &full[s],
                    x + j * (kTcItems / kBoxes), f);
+        if constexpr (QS)  // this stage's slice of the query tile's pieces
+          bulk_load(reinterpret_cast<unsigned char*>(bq) + s * L.q_stage,
+                    reinterpret_cast<const unsigned char*>(qs) +
+                        ((long long)blockIdx.x * nchunks + it % nchunks) * L.q_stage,
+                    L.q_stage, &full[s]);
       }
     }
     return;
@@ -680,7 +754,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, PT>())
   // its warp wq the 16 items from 64 wg + 16 wq
   const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, tq = lane & 3;
   const uint32_t bq_addr = smem_addr(bq);
-  const uint32_t piece_bytes = N * kfp * 2;
+  const uint32_t piece_bytes = QS ? N * kChunk * 2 : N * kfp * 2;
   float acc[kAcc];
   int it = 0;
   for (int t = 0; t < ntiles; ++t) {
@@ -750,12 +824,20 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, PT>())
           split_pair(x[2].y, x[3].y, a[ks][0][3], a[ks][1][3], a[ks][2][3]);
         }
       }
-      mbar_arrive(&empty[s]);  // the stage is in registers now
+      // the stage's items are in registers now; a streamed B is still
+      // read by the wgmmas, so a QS stage is released after them
+      if constexpr (!QS) mbar_arrive(&empty[s]);
+      if constexpr (QS) {  // each run of kQsSumFeatures starts from zero (see below)
+        const bool fresh = c % (kQsSumFeatures / kChunk) == 0;
+#pragma unroll
+        for (int j = 0; j < kAcc; ++j) acc[j] = fresh ? 0.f : acc[j];
+      }
       fence_regs<kAcc>(acc);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int ks = 0; ks < kSteps; ++ks) {
-        const uint32_t at = bq_addr + ((c * kSteps + ks) * (N / 8) * 2) * 128;
+        const uint32_t at = QS ? bq_addr + (s * L.q_stage + ks * (N / 8) * 2 * 128)
+                               : bq_addr + ((c * kSteps + ks) * (N / 8) * 2) * 128;
 #pragma unroll
         for (int p = 0; p < tc_passes(PT); ++p)
           wgmma_rs<N>(acc, a[ks][pass_item_piece(PT, p)],
@@ -764,18 +846,41 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks<N, PT>())
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_regs<kAcc>(acc);
+      if constexpr (QS) mbar_arrive(&empty[s]);
+      if (QS && ((c + 1) % (kQsSumFeatures / kChunk) == 0 || c + 1 == nchunks)) {
+        // each run of kQsSumFeatures features' products summed into the
+        // tile's staged products in IEEE f32 (this thread's own entries of
+        // sc, which the previous tile's selection has left): over
+        // thousands of features the tensor cores' f32 accumulation alone
+        // drifts past the plain version's rounding
+        const bool first = c < kQsSumFeatures / kChunk;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float* at = sc + (8 * j + 2 * tq + e) * kScStride + local[h];
+              *at = first ? acc[4 * j + 2 * h + e] : *at + acc[4 * j + 2 * h + e];
+            }
+          }
+        }
+      }
     }
 
-    // the tile's raw products staged [N][kScStride] by item, and its aux;
-    // the selecting warps apply aux and the mask (short code: this loop
-    // runs per tile from the instruction cache)
+    // the tile's raw products staged [N][kScStride] by item (a QS tile's
+    // are there already), and its aux; the selecting warps apply aux and
+    // the mask (short code: this loop runs per tile from the instruction
+    // cache)
+    if constexpr (!QS) {
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
+      for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+        for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          sc[(8 * j + 2 * tq + e) * kScStride + local[h]] = acc[4 * j + 2 * h + e];
+          for (int e = 0; e < 2; ++e) {
+            sc[(8 * j + 2 * tq + e) * kScStride + local[h]] = acc[4 * j + 2 * h + e];
+          }
         }
       }
     }
@@ -1107,9 +1212,9 @@ bool plane_map(CUtensorMap* map, const void* mat, int pt, int rows, long long n_
 
 // the kernel's dynamic shared memory, and all of the SM's 228 KB as
 // shared memory so that as many CTAs fit as tc_ctas_per_sm reports
-template <int N, int PT>
+template <int N, int PT, bool QS>
 cudaError_t tc_attributes(const TcLayout& L) {
-  auto kernel = topn_tc_kernel<N, PT>;
+  auto kernel = topn_tc_kernel<N, PT, QS>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return err;
@@ -1117,12 +1222,12 @@ cudaError_t tc_attributes(const TcLayout& L) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int N, int PT>
+template <int N, int PT, bool QS>
 int tc_ctas_per_sm(const TcLayout& L) {
   int blocks = 0;
-  if (tc_attributes<N, PT>(L) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topn_tc_kernel<N, PT>, kTcThreads,
-                                                    L.total) != cudaSuccess)
+  if (tc_attributes<N, PT, QS>(L) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, topn_tc_kernel<N, PT, QS>,
+                                                    kTcThreads, L.total) != cudaSuccess)
     return 0;
   return blocks;
 }
@@ -1161,10 +1266,17 @@ int with_tile(int n, F f) {
   }
 }
 
+// f(integral_constant<bool, QS>) for the plan's way of holding B
+template <typename F>
+int with_streamed(bool streamed, F f) {
+  return streamed ? f(std::integral_constant<bool, true>{})
+                  : f(std::integral_constant<bool, false>{});
+}
+
 template <int PT>
 int dispatch_tc(const float* q, int b, int kf, const void* mat, long long n_pad, const float* aux,
-                int n_items, int m, int mode, long long span, int grid_y, float* out_v,
-                int* out_i, cudaStream_t st) {
+                int n_items, int m, int mode, long long span, int grid_y, void* scratch,
+                long long scratch_bytes, float* out_v, int* out_i, cudaStream_t st) {
   // int8 planes pad features to 32 (two k16 steps per ldmatrix); spans
   // are whole tiles
   if ((PT == kInt8 && kf % 32) || span % kTcItems || n_pad % kTcItems)
@@ -1172,24 +1284,41 @@ int dispatch_tc(const float* q, int b, int kf, const void* mat, long long n_pad,
   const TcPlan plan = tc_plan(b, kf, m, PT);
   CUtensorMap map;
   if (plan.n == 0 || !plane_map(&map, mat, PT, kf, n_pad)) return (int)cudaErrorInvalidValue;
+  if (plan.streamed && (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 ||
+                        scratch_bytes < tc_scratch_bytes(b, kf, plan.n, PT)))
+    return (int)cudaErrorInvalidValue;
+  __nv_bfloat16* qs = static_cast<__nv_bfloat16*>(scratch);
   return with_tile(plan.n, [&](auto tile) {
     constexpr int N = decltype(tile)::value;
-    const cudaError_t err = tc_attributes<N, PT>(plan.layout);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((b + N - 1) / N, grid_y);
-    topn_tc_kernel<N, PT><<<grid, kTcThreads, plan.layout.total, st>>>(
-        map, q, b, kf, aux, n_items, m, mode, span, n_pad, plan.layout.stages, out_v, out_i);
-    return (int)cudaGetLastError();
+    return with_streamed(plan.streamed, [&](auto streamed) {
+      constexpr bool QS = decltype(streamed)::value;
+      const cudaError_t err = tc_attributes<N, PT, QS>(plan.layout);
+      if (err != cudaSuccess) return (int)err;
+      if (QS) {
+        const long long total = tc_scratch_bytes(b, kf, N, PT) / (2 * tc_query_pieces(PT));
+        const long long want = (total + 255) / 256;
+        const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+        split_queries_kernel<PT><<<blocks, 256, 0, st>>>(q, b, kf, N, qs);
+        const cudaError_t split_err = cudaGetLastError();
+        if (split_err != cudaSuccess) return (int)split_err;
+      }
+      const dim3 grid((b + N - 1) / N, grid_y);
+      topn_tc_kernel<N, PT, QS><<<grid, kTcThreads, plan.layout.total, st>>>(
+          map, q, b, kf, aux, n_items, m, mode, span, n_pad, plan.layout.stages, qs, out_v,
+          out_i);
+      return (int)cudaGetLastError();
+    });
   });
 }
 
 int dispatch_scan(const float* q, int b, int kf, const void* mat, int dtype,
                   long long n_pad, const float* aux, int n_items, int m, int mode,
-                  long long span, int grid_y, float* out_v, int* out_i, void* stream) {
+                  long long span, int grid_y, void* scratch, long long scratch_bytes,
+                  float* out_v, int* out_i, void* stream) {
   if (m < 1 || m > kMaxM || b < 1 || kf < 1 || grid_y < 1) return (int)cudaErrorInvalidValue;
   return with_plane(dtype, [&](auto pt) {
     return dispatch_tc<decltype(pt)::value>(q, b, kf, mat, n_pad, aux, n_items, m, mode, span,
-                                            grid_y, out_v, out_i,
+                                            grid_y, scratch, scratch_bytes, out_v, out_i,
                                             static_cast<cudaStream_t>(stream));
   });
 }
@@ -1202,36 +1331,47 @@ extern "C" {
 
 // The scan's plan for b queries over kf features keeping m: out = {query
 // tile N, ring stages, dynamic shared memory bytes, CTAs that fit on one
-// SM}; returns N, 0 when no tile fits.
-int topn_tc_plan(int b, int kf, int m, int dtype, int* out) {
-  out[0] = out[1] = out[2] = out[3] = 0;
+// SM, 1 if the query pieces stream, the bytes of scratch they stream
+// from (0 when resident)}; returns N, 0 when no tile fits.
+int topn_tc_plan(int b, int kf, int m, int dtype, long long* out) {
+  for (int j = 0; j < 6; ++j) out[j] = 0;
   with_plane(dtype, [&](auto pt) {
     constexpr int PT = decltype(pt)::value;
     const TcPlan plan = tc_plan(b, kf, m, PT);
     out[0] = plan.n;
     out[1] = plan.layout.stages;
     out[2] = plan.layout.total;
-    if (plan.n > 0)
+    if (plan.n > 0) {
       out[3] = with_tile(plan.n, [&](auto tile) {
-        return tc_ctas_per_sm<decltype(tile)::value, PT>(plan.layout);
+        return with_streamed(plan.streamed, [&](auto streamed) {
+          return tc_ctas_per_sm<decltype(tile)::value, PT, decltype(streamed)::value>(
+              plan.layout);
+        });
       });
+      out[4] = plan.streamed;
+      out[5] = plan.streamed ? tc_scratch_bytes(b, kf, plan.n, PT) : 0;
+    }
     return 0;
   });
-  return out[0];
+  return (int)out[0];
 }
 
+// scratch: scratch_bytes of device memory, 16-byte aligned, for the
+// streamed query pieces (topn_tc_plan's out[5]; unused when resident)
 int topn_scan(const float* q, int b, int kf, const void* mat, int dtype,
               long long n_pad, const float* aux, int n_items, int m, int mode, long long span,
-              int splits, float* out_v, int* out_i, void* stream) {
+              int splits, void* scratch, long long scratch_bytes, float* out_v, int* out_i,
+              void* stream) {
   return dispatch_scan(q, b, kf, mat, dtype, n_pad, aux, n_items, m, mode, span, splits,
-                       out_v, out_i, stream);
+                       scratch, scratch_bytes, out_v, out_i, stream);
 }
 
 int topn_candidates(const float* q, int b, int kf, const void* mat, int dtype,
                     long long n_pad, const float* aux, int n_items, int m, int mode,
-                    long long block, int blocks, float* out_v, int* out_i, void* stream) {
+                    long long block, int blocks, void* scratch, long long scratch_bytes,
+                    float* out_v, int* out_i, void* stream) {
   return dispatch_scan(q, b, kf, mat, dtype, n_pad, aux, n_items, m, mode, block, blocks,
-                       out_v, out_i, stream);
+                       scratch, scratch_bytes, out_v, out_i, stream);
 }
 
 int topn_merge(const float* cv, const int* ci, int lists, int b, int m, float* out_v,

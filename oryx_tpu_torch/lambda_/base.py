@@ -9,9 +9,7 @@ Port note: a copy of ``oryx_tpu/lambda_/base.py`` with its imports pointed at
 ``oryx_tpu_torch``, less the JAX multi-controller runtime and the XLA
 compilation cache: a config that asks for either
 (``oryx.batch.compute.distributed.*`` or its ``ORYX_*`` environment
-variables, ``oryx.compute.compile-cache-dir``) raises NotYetPortedError. The
-speed layer's feeds (``blocking_iterator``, ``GuardedBlockFeed``) come
-with the speed layer.
+variables, ``oryx.compute.compile-cache-dir``) raises NotYetPortedError.
 """
 
 from __future__ import annotations
@@ -19,9 +17,10 @@ from __future__ import annotations
 import logging
 import os
 import threading
+from typing import Iterator
 
 from oryx_tpu_torch import NotYetPortedError
-from oryx_tpu_torch.bus.core import Broker, TopicConsumer, get_broker
+from oryx_tpu_torch.bus.core import Broker, KeyMessage, TopicConsumer, get_broker
 from oryx_tpu_torch.common import ledger, metrics
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
@@ -242,3 +241,91 @@ class AbstractLayer:
             self._ui_thread = None
             self.join_or_report_leak(t)
 
+
+def blocking_iterator(consumer: TopicConsumer, stop_event: threading.Event) -> Iterator[KeyMessage]:
+    """Endless KeyMessage iterator over a consumer, ending on close/stop."""
+    while not stop_event.is_set() and not consumer.closed():
+        for rec in consumer.poll(timeout=0.2):
+            yield rec
+
+
+class GuardedBlockFeed:
+    """A restartable block feed with poison-message quarantine.
+
+    Wraps a consumer for use under a SupervisedThread: call `blocks()` for
+    a FRESH generator on every (re)start, and `record_failure` from the
+    supervisor's failure hook. A block that was mid-consume when the
+    manager raised is retried on restart; after `max_failures` failures of
+    the SAME block it is published to the dead-letter topic instead and
+    the stream moves on. A failure with no block in flight (the poll
+    itself raised — broker outage) is not counted against any block.
+    """
+
+    def __init__(
+        self,
+        consumer: TopicConsumer,
+        stop_event: threading.Event,
+        max_failures: int,
+        dead_letter,
+        on_block=None,
+    ) -> None:
+        self._consumer = consumer
+        self._stop_event = stop_event
+        self._max_failures = max(1, max_failures)
+        self._dead_letter = dead_letter  # callable(block) -> None
+        self._on_block = on_block  # callable(block) after each successful poll
+        self._in_flight = None
+        self._pending_retry = None
+        self._failures = 0
+
+    def blocks(self):
+        """A fresh generator; an abandoned predecessor (after a failure)
+        holds no state — everything lives on the feed object."""
+        while not self._stop_event.is_set() and not self._consumer.closed():
+            if self._pending_retry is not None:
+                block = self._pending_retry
+                self._pending_retry = None
+            else:
+                block = self._consumer.poll_block(max_records=10_000, timeout=0.2)
+                if block is None:
+                    continue
+                if self._on_block is not None:
+                    self._on_block(block)
+            self._in_flight = block
+            yield block
+            # reaching here means the manager pulled the next block: the
+            # previous one was fully consumed (on a failure the generator
+            # is abandoned at the yield and these lines never run)
+            self._in_flight = None
+            self._failures = 0
+
+    def record_failure(self, exc: BaseException) -> None:
+        """Supervisor failure hook (same thread as the consume loop)."""
+        block = self._in_flight
+        self._in_flight = None
+        if block is None:
+            return  # poll-side failure; nothing to quarantine
+        self._failures += 1
+        if self._failures >= self._max_failures:
+            self._failures = 0
+            log.error(
+                "block of %d update record(s) failed consume %d times (%s); dead-lettering",
+                len(block), self._max_failures, exc,
+            )
+            try:
+                self._dead_letter(block)
+            except Exception:  # noqa: BLE001 - a DL failure must not kill the stream
+                log.exception("dead-letter publish failed; block lost")
+        else:
+            self._pending_retry = block
+
+
+def blocking_block_iterator(consumer: TopicConsumer, stop_event: threading.Event):
+    """Endless RecordBlock iterator over a consumer (columnar poll),
+    ending on close/stop. The high-rate twin of blocking_iterator: model
+    consumers that can apply whole blocks at once (vectorized UP parsing)
+    drain the update topic without per-record decoding."""
+    while not stop_event.is_set() and not consumer.closed():
+        block = consumer.poll_block(max_records=10_000, timeout=0.2)
+        if block is not None:
+            yield block

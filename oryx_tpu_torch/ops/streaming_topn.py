@@ -23,7 +23,9 @@ float32 query exactly, as three bfloat16 pieces; a float32 plane splits
 its items alike and scores at float32 accuracy (six bfloat16 passes, as
 the JAX package's ``Precision.HIGHEST``); a bfloat16 plane scores the
 query rounded to bfloat16, in the kernel and in its plain version
-alike.
+alike. A plane of any feature count scans: past 1,024 features the
+query pieces no longer stay in shared memory for the whole scan but
+stream through the kernel's ring beside the items (``ScanPlan.streamed``).
 
 Each kernel has a plain PyTorch version of the same function here
 (``*_plain``). A wrapper runs the plain version only for tensors on the
@@ -40,6 +42,7 @@ import functools
 import math
 import threading
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -362,26 +365,36 @@ def _kernels():
         from oryx_tpu_torch.ops import _build
 
         lib = _build.load("topn")
-        scan_args = [_P, _I, _I, _P, _I, _L, _P, _I, _I, _I, _L, _I, _P, _P, _P]
+        scan_args = [_P, _I, _I, _P, _I, _L, _P, _I, _I, _I, _L, _I, _P, _L, _P, _P, _P]
         for name in ("topn_scan", "topn_candidates"):
             fn = getattr(lib, name)
             fn.argtypes = scan_args
             fn.restype = _I
         lib.topn_merge.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
         lib.topn_merge.restype = _I
-        lib.topn_tc_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+        lib.topn_tc_plan.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_L)]
         lib.topn_tc_plan.restype = _I
         _lib = lib
     return _lib
 
 
-def tc_plan(b: int, kf: int, m: int, dtype: torch.dtype) -> tuple[int, int, int, int]:
-    """(query tile N, ring stages, shared-memory bytes, CTAs per SM) of the
-    scan for b queries over kf features keeping m on a plane of ``dtype``;
-    N = 0 if none fits. Asks the card, so the CUDA context must exist."""
-    out = (_I * 4)()
+class ScanPlan(NamedTuple):
+    """The scan kernel's plan (csrc/topn.cu ``tc_plan``)."""
+
+    tile: int  # query tile N; 0 if none fits
+    stages: int  # ring stages
+    smem: int  # dynamic shared memory bytes
+    ctas_per_sm: int
+    streamed: bool  # the query pieces stream with the items (wide planes)
+    scratch_bytes: int  # device memory the streamed pieces come from
+
+
+def tc_plan(b: int, kf: int, m: int, dtype: torch.dtype) -> ScanPlan:
+    """The scan's plan for b queries over kf features keeping m on a
+    plane of ``dtype``. Asks the card, so the CUDA context must exist."""
+    out = (_L * 6)()
     _kernels().topn_tc_plan(int(b), int(kf), int(m), _KERNEL_DTYPES[dtype], out)
-    return out[0], out[1], out[2], out[3]
+    return ScanPlan(out[0], out[1], out[2], out[3], bool(out[4]), out[5])
 
 
 def _score_plain(q, mat_t, aux, n_items, cosine, quantized):
@@ -460,8 +473,6 @@ def _check_scan_args(q, mat_t, aux, m):
         raise ValueError(f"m = {m} is outside [1, {MAX_KERNEL_K}]")
     if q.shape[0] < 1:
         raise ValueError("no queries")
-    if q.shape[1] > 1024:
-        raise ValueError(f"{q.shape[1]} features exceed the kernels' 1024")
     if q.device.type != "cuda":
         raise ValueError(f"the scan kernels take CUDA tensors, not {q.device}")
     for name, t in (("mat_t", mat_t), ("aux", aux)):
@@ -470,15 +481,22 @@ def _check_scan_args(q, mat_t, aux, m):
 
 
 @functools.lru_cache(maxsize=1024)
+def _plan(b: int, kf: int, m: int, dtype, device) -> ScanPlan:
+    with torch.cuda.device(device):
+        plan = tc_plan(b, kf, m, dtype)
+    if plan.tile == 0 or plan.ctas_per_sm == 0:
+        raise ValueError(f"no query tile of the scan fits kf = {kf}, m = {m}")
+    return plan
+
+
+@functools.lru_cache(maxsize=1024)
 def _scan_splits(b: int, n_pad: int, kf: int, m: int, dtype, device) -> tuple[int, int]:
     """(span, splits) of topn_scan: each CTA walks a contiguous run of
     whole tiles, with as many CTAs as the card holds at once (one wave)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n, _, _, per_sm = tc_plan(b, kf, m, dtype)
-    if n == 0 or per_sm == 0:
-        raise ValueError(f"no query tile of the scan fits kf = {kf}, m = {m}")
+    plan = _plan(b, kf, m, dtype, device)
     tiles = n_pad // _TC_TILE_ITEMS
-    splits = max(1, min(tiles, math.ceil(per_sm * sms / math.ceil(b / n))))
+    splits = max(1, min(tiles, math.ceil(plan.ctas_per_sm * sms / math.ceil(b / plan.tile))))
     per = math.ceil(tiles / splits)
     return per * _TC_TILE_ITEMS, math.ceil(tiles / per)
 
@@ -488,9 +506,15 @@ def _launch_scan(name, q, mat_t, aux, n_items, m, mode, span, grid_y):
     path = "tc_f32" if mat_t.dtype == torch.float32 else "tc"
     out_v = torch.empty((grid_y, b, m), dtype=torch.float32, device=q.device)
     out_i = torch.empty((grid_y, b, m), dtype=torch.int32, device=q.device)
+    # a wide plane's query pieces, split once for the scan to stream
+    scratch_bytes = _plan(b, q.shape[1], m, mat_t.dtype, q.device).scratch_bytes
+    scratch = (
+        torch.empty(scratch_bytes, dtype=torch.uint8, device=q.device) if scratch_bytes else None
+    )
     rc = getattr(_kernels(), name)(
         q.data_ptr(), b, q.shape[1], mat_t.data_ptr(), _KERNEL_DTYPES[mat_t.dtype],
         mat_t.shape[1], aux.data_ptr(), int(n_items), int(m), mode, span, grid_y,
+        0 if scratch is None else scratch.data_ptr(), scratch_bytes,
         out_v.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

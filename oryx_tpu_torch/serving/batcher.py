@@ -19,9 +19,15 @@ depth and the batch ceiling, and while every inflight slot is taken the
 dispatcher keeps absorbing arrivals in 1 ms waits so one full batch goes
 out where several padded fragments would have.
 
+The queue is bounded as in the JAX package
+(``oryx.serving.overload.max-queue``): an entry past the bound raises
+:class:`BatcherOverloadedError` at once and counts
+``serving.batcher.queue.rejected``, and the serving layer answers 429.
+
 Not ported yet: tenancy (the deficit-round-robin queue serves the single
-default tenant), overload control (no bounded queue, no reduced-probe
-override: there is no IVF tier to probe) and the tiered-store prefetch.
+default tenant, and no tenant's share of the bound is kept), the rest of
+overload control (no admission ladder, no reduced-probe override: there
+is no IVF tier to probe) and the tiered-store prefetch.
 """
 
 from __future__ import annotations
@@ -55,6 +61,12 @@ MAX_INFLIGHT = 32
 class BatcherClosedError(RuntimeError):
     """Raised by ``score`` when the batcher was closed before the entry
     could be enqueued; ``score_default`` retries only this."""
+
+
+class BatcherOverloadedError(RuntimeError):
+    """Raised by ``score`` when the bounded queue is full
+    (``oryx.serving.overload.max-queue``): an immediate shed decision for
+    the caller, never retried by ``score_default``."""
 
 
 @dataclass
@@ -192,7 +204,12 @@ class TopNBatcher:
     # ceil(n/256) scans submitted at once
     MULTI_THRESHOLD = 256
 
-    def __init__(self, max_batch: int | None = None, max_inflight: int | None = None) -> None:
+    def __init__(
+        self,
+        max_batch: int | None = None,
+        max_inflight: int | None = None,
+        max_queue: int | None = None,
+    ) -> None:
         # None => adaptive: the completer resizes the knob from its EWMA
         # of dispatch latency; an explicit value pins it
         self._adaptive_batch = max_batch is None
@@ -200,6 +217,8 @@ class TopNBatcher:
         self.max_batch = MIN_ADAPTIVE_BATCH if max_batch is None else int(max_batch)
         self._inflight_cap = MIN_INFLIGHT + 2 if max_inflight is None else int(max_inflight)
         self._ewma_ms: float | None = None
+        # queued entries past this raise BatcherOverloadedError; None = unbounded
+        self._max_queue = None if max_queue is None else int(max_queue)
         self._queue = _FairQueue()
         self._pending: queue.Queue = queue.Queue()
         # inflight tracked under a Condition so the adaptive cap can move
@@ -244,6 +263,11 @@ class TopNBatcher:
         with self._state_lock:  # an entry can never land after the sentinel
             if self._closed:
                 raise BatcherClosedError("batcher is closed")
+            if self._max_queue is not None and self._queue.qsize() >= self._max_queue:
+                # approximate bound (qsize races concurrent enqueues by a
+                # few entries) — exactness doesn't matter, unboundedness does
+                _metrics.counter("serving.batcher.queue.rejected").inc()
+                raise BatcherOverloadedError(f"batcher queue full ({self._max_queue} entries)")
             self._queue.put(e)
             _metrics.gauge("serving.batcher.queue.depth").set(self._queue.qsize())
         e.done.wait()
@@ -434,14 +458,17 @@ def configure_scheduler(
     max_batch: int | None = None,
     max_inflight: int | None = None,
     latency_budget_ms: float | None = None,
+    max_queue: int | None = None,
 ) -> None:
     """Pin the process-wide batcher's scheduler knobs (the serving layer
-    maps ``oryx.serving.scan.*`` here at startup, before the default
-    batcher spins up). ``None`` leaves a knob adaptive."""
+    maps ``oryx.serving.scan.*`` / ``oryx.serving.overload.max-queue``
+    here at startup, before the default batcher spins up). ``None`` leaves
+    a knob adaptive (for ``max_queue``: unbounded)."""
     global LATENCY_BUDGET_MS
     with _default_lock:
         _default_init["max_batch"] = max_batch
         _default_init["max_inflight"] = max_inflight
+        _default_init["max_queue"] = max_queue
         if latency_budget_ms is not None:
             LATENCY_BUDGET_MS = float(latency_budget_ms)
 

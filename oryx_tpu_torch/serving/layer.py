@@ -12,11 +12,17 @@ The port runs on CUDA: constructing a layer raises when no CUDA device
 is present, unless the caller chose the CPU
 (``oryx_tpu_torch.device.set_device("cpu")``).
 
-Not ported yet: tenancy, online experiments, the model registry and
-rollback, MODEL-REF restage, overload control, the native HTTP front,
-TLS and auth (a config that sets a key file or credentials is refused
-at construction), ``/metrics``, ``/healthz``, ``/readyz``, tracing
-export routes and profiling.
+The batcher's queue is bounded by ``oryx.serving.overload.max-queue``;
+a request that finds it full is answered 429 with ``Retry-After``
+(``oryx.serving.overload.retry-after-s``), as in the JAX package.
+
+Not ported yet: tenancy and online experiments (a config that declares
+enabled tenants or sets ``oryx.serving.ab.fraction`` above 0 is refused
+at construction), the model registry and rollback, MODEL-REF restage,
+the rest of overload control (the admission ladder), the native HTTP
+front, TLS and auth (a config that sets a key file or credentials is
+refused at construction), ``/metrics``, ``/healthz``, ``/readyz``,
+tracing export routes and profiling.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
 from oryx_tpu_torch.device import default_device
+from oryx_tpu_torch.serving.batcher import BatcherOverloadedError
 from oryx_tpu_torch.serving.web import (
     OryxServingException,
     Request,
@@ -196,10 +203,29 @@ def _refuse_tls_and_auth(config: Config) -> None:
             )
 
 
+def _refuse_tenancy_and_experiments(config: Config) -> None:
+    """Tenancy and online experiments are not ported: a config that
+    declares tenants (the JAX package serves them when
+    ``oryx.tenancy.enabled`` is on) or splits traffic to a challenger must
+    not come up as one untenanted app serving the champion alone."""
+    if config.get("oryx.tenancy.enabled", None) and config.get("oryx.tenancy.tenants", None):
+        raise NotYetPortedError(
+            "oryx.tenancy.tenants declares tenants, but tenancy is not yet ported "
+            "to oryx_tpu_torch"
+        )
+    fraction = config.get_optional_float("oryx.serving.ab.fraction")
+    if fraction is not None and fraction > 0:
+        raise NotYetPortedError(
+            f"oryx.serving.ab.fraction = {fraction}, but online experiments are not yet "
+            "ported to oryx_tpu_torch"
+        )
+
+
 class ServingLayer:
     def __init__(self, config: Config) -> None:
         default_device()  # the port serves from the card: fail now, not per request
         _refuse_tls_and_auth(config)
+        _refuse_tenancy_and_experiments(config)
         self.config = config
         tracing.configure_from(config)
         self.port = config.get_int("oryx.serving.api.port")
@@ -222,7 +248,10 @@ class ServingLayer:
             max_batch=config.get_optional_int("oryx.serving.scan.max-batch"),
             max_inflight=config.get_optional_int("oryx.serving.scan.max-inflight"),
             latency_budget_ms=config.get_optional_float("oryx.serving.scan.latency-budget-ms"),
+            # a full queue sheds at once (429) instead of queueing without bound
+            max_queue=config.get_optional_int("oryx.serving.overload.max-queue"),
         )
+        self.retry_after_s = config.get_optional_int("oryx.serving.overload.retry-after-s") or 1
         configure_scan(oversample=config.get_optional_int("oryx.serving.scan.oversample"))
 
         self.model_manager = None
@@ -383,13 +412,28 @@ def _dispatch_parsed(layer: ServingLayer, ctx: ServingContext, method: str, raw_
     if incoming is not None and incoming.sampled:
         with tracing.use(incoming):
             with tracing.span("serving.request", attrs=attrs) as sp:
-                response = layer.router.dispatch(ctx, req)
+                response = _route(layer, ctx, req)
                 sp.set("status", response.status)
     else:
         with tracing.span("serving.request", attrs=attrs, root=True) as sp:
-            response = layer.router.dispatch(ctx, req)
+            response = _route(layer, ctx, req)
             sp.set("status", response.status)
     return render(response, headers.get("Accept", "application/json"))
+
+
+def _route(layer: ServingLayer, ctx: ServingContext, req: Request) -> Response:
+    """The router's answer, or 429 when the batcher's bounded queue is full
+    (``oryx.serving.overload.max-queue``): an immediate shed instead of an
+    unbounded wait, with Retry-After so clients back off."""
+    try:
+        return layer.router.dispatch(ctx, req)
+    except BatcherOverloadedError:
+        return Response(
+            429,
+            {"error": "overloaded", "retry_after_s": layer.retry_after_s},
+            content_type="application/json",
+            headers={"Retry-After": str(layer.retry_after_s)},
+        )
 
 
 def _make_handler(layer: ServingLayer, ctx: ServingContext):

@@ -17,7 +17,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # Runs in a fresh interpreter where importing jax or any oryx_tpu module
 # (other than oryx_tpu_torch) fails: every module of the port imports,
 # the serving path answers over HTTP on the CPU, the k-means batch path
-# trains one generation, and chip_smoke.py and scan_bench.py import.
+# trains one generation on a file: bus and the speed layer folds points
+# into its model, and chip_smoke.py and scan_bench.py import.
 _ISOLATED = textwrap.dedent(
     r"""
     import importlib.abc, json, pkgutil, sys, time, urllib.request
@@ -84,26 +85,44 @@ _ISOLATED = textwrap.dedent(
             with urllib.request.urlopen(base + path, timeout=10) as resp:
                 assert resp.status == 200 and json.loads(resp.read()), path
         layer.close()
-    # the k-means batch path: one generation, trained through the sweep
+    # the k-means lambda on a file: bus: one batch generation, trained
+    # through the sweep, then a speed micro-batch folded into its model
     from oryx_tpu_torch.lambda_.batch import BatchLayer
+    from oryx_tpu_torch.lambda_.speed import SpeedLayer
     import tempfile
     tmp = tempfile.mkdtemp()
-    batch = BatchLayer(config.get_default().with_overlay(f'''
+    kmeans_cfg = config.get_default().with_overlay(f'''
         oryx {{
-          input-topic.broker = "inproc://isolated-kmeans"
-          update-topic.broker = "inproc://isolated-kmeans"
+          id = "Isolated"
+          input-topic.broker = "file:{tmp}/bus"
+          update-topic.broker = "file:{tmp}/bus"
           input-schema {{ num-features = 2, numeric-features = ["0", "1"] }}
           kmeans.hyperparams.k = 2
           batch.update-class = "oryx_tpu_torch.app.kmeans.update:KMeansUpdate"
           batch.storage {{ data-dir = "{tmp}/data/", model-dir = "{tmp}/model/" }}
-        }}'''))
+          speed.model-manager-class = "oryx_tpu_torch.app.kmeans.speed:KMeansSpeedModelManager"
+          speed.streaming.generation-interval-sec = 3600
+        }}''')
+    batch = BatchLayer(kmeans_cfg)
     batch.prepare()
-    with bus.get_broker("inproc://isolated-kmeans").producer("OryxInput") as p:
+    speed = SpeedLayer(kmeans_cfg)
+    speed.start()
+    file_bus = bus.get_broker(f"file:{tmp}/bus")
+    with file_bus.producer("OryxInput") as p:
         for j in range(40):
             p.send(None, f"{(j % 2) * 10 + gen.standard_normal():.3f},{gen.standard_normal():.3f}")
+    assert speed.run_one_batch() == 0  # no model yet
     batch.run_one_generation(timestamp_ms=5)
     batch.close()
     assert pmml.read_pmml(f"{tmp}/model/5/model.pmml") is not None
+    deadline = time.monotonic() + 30
+    while speed.manager.model is None:
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+    with file_bus.producer("OryxInput") as p:
+        p.send(None, "10.0,0.0")
+    assert speed.run_one_batch() == 1
+    speed.close()
     import chip_smoke  # the chip scripts import nothing of JAX either
     import scan_bench
     leaked = sorted(m for m in sys.modules
@@ -127,6 +146,7 @@ def test_port_runs_without_jax_or_the_jax_package():
 def test_entry_points_raise_without_cuda_unless_cpu_chosen(monkeypatch):
     from oryx_tpu_torch.common import config
     from oryx_tpu_torch.lambda_.batch import BatchLayer
+    from oryx_tpu_torch.lambda_.speed import SpeedLayer
     from oryx_tpu_torch.ops import kmeans, pallas_kmeans, streaming_topn, topn
     from oryx_tpu_torch.serving.layer import ServingLayer
 
@@ -148,6 +168,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_chosen(monkeypatch):
     with pytest.raises(RuntimeError, match="set_device"):
         BatchLayer(config.get_default().with_overlay(
             'oryx.batch.update-class = "oryx_tpu_torch.app.kmeans.update:KMeansUpdate"'
+        ))
+    with pytest.raises(RuntimeError, match="set_device"):
+        SpeedLayer(config.get_default().with_overlay(
+            'oryx.speed.model-manager-class = '
+            '"oryx_tpu_torch.app.kmeans.speed:KMeansSpeedModelManager"'
         ))
     with pytest.raises(RuntimeError, match="set_device"):
         kmeans.train_kmeans(y, 2, iterations=1)

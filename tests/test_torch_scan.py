@@ -383,8 +383,10 @@ _REFUSED = [
     ("m = 0", _meta((2, 32)), _meta((32, 16384)), _meta((1, 16384)), 0, "outside"),
     ("m = 129", _meta((2, 32)), _meta((32, 16384)), _meta((1, 16384)), 129, "outside"),
     ("no queries", _meta((0, 32)), _meta((32, 16384)), _meta((1, 16384)), 8, "no queries"),
+    # any feature count scans now (the query pieces stream past 1,024):
+    # only the device is left to refuse here
     ("1056 features", _meta((2, 1056)), _meta((1056, 16384), torch.int8), _meta((1, 16384)), 8,
-     "1024"),
+     "CUDA"),
     ("not CUDA", _meta((2, 32)), _meta((32, 16384), torch.bfloat16), _meta((1, 16384)), 8,
      "CUDA"),
 ]
@@ -394,6 +396,48 @@ _REFUSED = [
 def test_check_scan_args_refuses(what, q, mat_t, aux, m, message):
     with pytest.raises(ValueError, match=message):
         stn._check_scan_args(q, mat_t, aux, m)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kf", [1056, 4096])
+def test_check_scan_args_takes_wide_planes(dtype, kf):
+    """Past 1,024 features the query pieces stream: every shape rule
+    holds, and only the device (a meta tensor here) is refused."""
+    tdt = DTYPES[dtype][1]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        stn._check_scan_args(_meta((8, kf)), _meta((kf, 16384), tdt), _meta((1, 16384)), 64)
+
+
+def test_check_scan_args_keeps_int8_feature_multiple_on_wide_planes():
+    with pytest.raises(ValueError, match="32 multiple"):
+        stn._check_scan_args(_meta((8, 1048)), _meta((1048, 16384), torch.int8),
+                             _meta((1, 16384)), 64)
+    assert stn._ceil_to(1041, stn._INT8_FEAT_MULTIPLE) == 1056
+
+
+@pytest.mark.parametrize("dtype,cosine,b", [
+    ("float32", False, 8), ("float32", True, 300), ("int8", False, 300), ("int8", True, 8),
+    ("bfloat16", False, 8),
+])
+def test_wide_scan_matches_pallas(dtype, cosine, b):
+    """1,056 features, the first width past the resident query pieces:
+    the plain versions (what the wide kernels are held to on the card)
+    against the Pallas scan in interpret mode, as test_scan_matches_pallas
+    (int8 also through its 32-feature padding: 1,041 features)."""
+    jdt, tdt = DTYPES[dtype]
+    kf = 1041 if dtype == "int8" else 1056
+    y, q = _make(n=3000, kf=kf, b=b, seed=40 + b)
+    y /= np.sqrt(kf)
+    ridx, rvals = ptn.top_k_streaming(ptn.upload_streaming(y, dtype=jdt), q, 10,
+                                      cosine=cosine, interpret=True)
+    idx, vals = stn.top_k_streaming(stn.upload_streaming(y, dtype=tdt), q, 10, cosine=cosine)
+    if dtype == "bfloat16":
+        for got, ref in zip(idx, ridx):
+            assert len(set(got.tolist()) & set(ref.tolist())) >= 8
+        np.testing.assert_allclose(vals, rvals, rtol=1e-2, atol=1e-2)
+        return
+    np.testing.assert_array_equal(idx, ridx)
+    np.testing.assert_allclose(vals, rvals, atol=1e-4)
 
 
 # (what, values, ids, m, message): each breaks one rule of the merge kernel

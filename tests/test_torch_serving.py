@@ -469,14 +469,88 @@ def test_tls_and_auth_settings_raise(key):
         ServingLayer(cfg)
 
 
+def test_declared_tenants_raise():
+    """Tenancy is not ported: enabled tenants must not be served as one
+    untenanted app (the JAX package builds a tenant per block); a block
+    that tenancy leaves disabled is ignored by both packages."""
+    tenants = 'tenancy { enabled = %s, tenants { shop { app = "als", weight = 2.0 } } }'
+    with pytest.raises(tsm.NotYetPortedError, match="tenancy"):
+        ServingLayer(serving_config("torch", "inproc://unused6", tenants % "true"))
+    ServingLayer(serving_config("torch", "inproc://unused6", tenants % "false"))
+
+
+def test_ab_fraction_raises():
+    """Online experiments are not ported: a challenger split must not be
+    served as the champion alone."""
+    with pytest.raises(tsm.NotYetPortedError, match="ab.fraction"):
+        ServingLayer(serving_config("torch", "inproc://unused7", "serving.ab.fraction = 0.1"))
+    ServingLayer(serving_config("torch", "inproc://unused7", "serving.ab.fraction = 0.0"))
+
+
+def test_batcher_queue_bound_raises_past_it():
+    """TopNBatcher(max_queue=...) as tests/serving/test_overload.py holds
+    the JAX package's: past the bound an entry raises at once, counted,
+    and is no closed-batcher retry."""
+    from oryx_tpu_torch.common import metrics
+    from oryx_tpu_torch.serving.batcher import (
+        BatcherClosedError,
+        BatcherOverloadedError,
+        TopNBatcher,
+    )
+
+    rejected = metrics.registry.counter("serving.batcher.queue.rejected")
+    before = rejected.value
+    b = TopNBatcher(max_queue=0)  # every enqueue is over the bound
+    try:
+        with pytest.raises(BatcherOverloadedError, match="full"):
+            b.score(None, np.zeros(4, dtype=np.float32), 3)
+    finally:
+        b.close()
+    assert rejected.value == before + 1
+    assert not issubclass(BatcherOverloadedError, BatcherClosedError)
+
+
+def test_max_queue_default_reaches_the_batcher(monkeypatch):
+    from oryx_tpu_torch.serving import batcher
+
+    monkeypatch.setattr(batcher, "_default_init", {})
+    ServingLayer(serving_config("torch", "inproc://unused8"))
+    assert batcher._default_init["max_queue"] == 2048
+
+
+def test_full_batcher_queue_answers_429(monkeypatch):
+    """oryx.serving.overload.max-queue bounds the serving batcher: a
+    /recommend that finds the queue full is shed at once with 429 and
+    Retry-After, as the JAX package's layer answers."""
+    from oryx_tpu_torch.serving import batcher
+
+    # a process-wide batcher of this layer's own, built with its bound
+    monkeypatch.setattr(batcher, "_default", None)
+    monkeypatch.setattr(batcher, "_default_refs", 0)
+    monkeypatch.setattr(batcher, "_default_init", {})
+    layer, base, _ = _start("torch", "inproc://overload", ITEM_VECS, USER_VECS, KNOWN, 2,
+                            extra="serving.overload.max-queue = 0")
+    try:
+        status, body, headers = http("GET", f"{base}/recommend/U0")
+        assert status == 429
+        assert headers["Retry-After"] == "1"
+        assert json.loads(body) == {"error": "overloaded", "retry_after_s": 1}
+        assert http("GET", f"{base}/ready")[0] == 200  # the rest still answers
+    finally:
+        layer.close()
+
+
 def test_index_ref_and_other_buses_raise():
     mgr = tsm.ALSServingModelManager(serving_config("torch", "inproc://unused3"))
     mgr.consume(iter([KeyMessage("MODEL", model_message("torch", ["U0"], ["I0"]))]))
     with pytest.raises(tsm.NotYetPortedError):
         mgr.consume(iter([KeyMessage("INDEX-REF", "file:/nowhere")]))
     mgr.close()
-    with pytest.raises(NotImplementedError):
-        tbus.get_broker("file:/tmp/nowhere")
+    # the file bus is ported; the shm, tcp, kafka and fault buses are not
+    for loc in ("shm:/tmp/nowhere", "tcp://localhost:1", "kafka://localhost:1",
+                "fault+inproc://x?drop=0.1"):
+        with pytest.raises(NotImplementedError):
+            tbus.get_broker(loc)
 
 
 def test_layer_refuses_jax_package_classes():

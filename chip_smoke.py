@@ -73,10 +73,42 @@ Phases, each printing one JSON line:
    every cluster's count the model's plus waves 2 and 3 (nothing
    consumed twice or lost); with the generation and micro-batch
    seconds and each wave's staleness (last POST to serving's answer);
-8. the kernel table: launches on the main paths (ALS during phases 3-4,
-   k-means during phase 6, each counted from zero just before; the scans
-   also by batch rows, per path) and the numbers of phases 2 and 5;
-9. the card's name and power limit, then ``{"ok": true, "device": ...}``.
+8. als-train: ALS training and fold-in through ``ops/als.py`` on the
+   card (PyTorch ops: the JAX package runs them through XLA, no Pallas
+   kernel): (a) the MovieLens-100K shape of tools/train_benchmark.py
+   (943 x 1,682, 100,000 explicit 1-5 ratings, 90/10 split, rank 25,
+   lam 0.1, 10 sweeps, seed 42) trained on the card and on the CPU by the
+   same code, held-out predictions within 1e-3 and RMSE within 1e-4, in
+   float32; bfloat16 Gramians printed beside it; (b) a MovieLens-25M-
+   shaped implicit set (162,541 x 59,047, 25,000,095 power-law ratings)
+   at rank 200, lam 0.01, alpha 1, 10 iterations, float32 and bfloat16:
+   packing through forked workers after CUDA is up, finite factors, one
+   half-sweep each way timed by stage (gather + Gramian, solve), 512 of
+   its user rows solved again on the CPU within rtol 2e-2, atol 2e-3,
+   the Cholesky solve against a batched LU on one piece, mean_auc; (c)
+   ``fold_in_batch`` of 100,000 events at k = 50 and 200 on the card
+   against the host within rtol 1e-4, atol 1e-5, a singular Gramian
+   with no non-finite output, events per second;
+9. als-lambda: the ALS lambda loop as three processes (``python -m
+   oryx_tpu_torch batch|speed|serving``) on one ``file:`` bus, and a
+   second serving process scoring int8: a MovieLens-1M-shaped implicit
+   set (6,040 x 3,706, 1,000,209 lines) POSTed to /ingest, one batch
+   generation (50 features, 10 iterations) whose /recommend equals the
+   float64 exact top-10 from the published X/Y (float32, through
+   ``topn_scan.tc_f32``) or reaches recall@10 0.99 (int8, ``topn_scan.tc``),
+   read off each serving process's /metrics; the batch process stopped;
+   two waves of 2,000 interactions of 200 new users and 2,000 of existing
+   users, folded on the card by the speed process (restarted between
+   them): every new user served the exact top-10 of the vector the speed
+   layer published, and that vector the float64 fold-in of its events
+   within 1e-4 relative; with the generation's seconds and phases, the
+   held-out AUC, the micro-batch seconds and each wave's staleness;
+10. the table of the XLA-ported ALS ops (phase 8), then the kernel
+   table: launches on the main paths (ALS during phases 3-4, k-means
+   during phase 6, each counted from zero just before; the scans also by
+   batch rows, per path; and the als-lambda serving processes' own) and
+   the numbers of phases 2 and 5;
+11. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the exit code is not 0. Without CUDA, or run
 from a directory that holds no ``oryx_tpu_torch``, it exits 2 before
@@ -163,6 +195,8 @@ def parse_args(argv=None):
     p.add_argument("--requests", type=int, default=256)
     p.add_argument("--concurrency", type=int, default=64)
     p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--als-iterations", type=int, default=ALS_SCALE_ITERATIONS,
+                   help="iterations of the MovieLens-25M-shaped ALS run (phase 8)")
     return p.parse_args(argv)
 
 
@@ -1361,6 +1395,706 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
     return out
 
 
+# -- phase 8: ALS training and fold-in on the card ------------------------------------
+
+# MovieLens-shaped synthetic ratings (tools/train_benchmark.py:60-79 and
+# :109-125), at published dataset shapes: (users, items, ratings)
+ML100K = (943, 1682, 100_000)
+ML1M = (6_040, 3_706, 1_000_209)
+ML25M = (162_541, 59_047, 25_000_095)
+ALS_SCALE_RANK = 200  # BASELINE.json's MovieLens-25M configuration
+ALS_SCALE_ITERATIONS = 10  # reference.conf; bench_als_scale's 3 is the cut
+ALS_CHECK_ROWS = 512  # user rows of the scale run solved again on the CPU
+ALS_FOLD_EVENTS = 100_000
+ALS_FOLD_RANKS = (50, 200)
+FACTOR_TOL = dict(rtol=2e-2, atol=2e-3)  # tests/ops/test_als_ops.py:378
+FOLD_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/ops/test_als_ops.py:178
+
+
+def movielens_shape(num_users: int, num_items: int, nnz: int, seed: int):
+    """tools/train_benchmark.py:60-79's generator at any size: uniform
+    users, power-law items (zipf 1.3), unique pairs in random order and a
+    rank-8 taste plus noise mapped to 1-5 stars by quantile. At the
+    MovieLens-100K shape and seed 17 it gives that tool's data bit for
+    bit; larger shapes draw more pairs until enough are unique."""
+    gen = np.random.default_rng(seed)
+    r = 8
+    xt = gen.standard_normal((num_users, r)) / np.sqrt(r)
+    yt = gen.standard_normal((num_items, r)) / np.sqrt(r)
+    draws = 2 * nnz
+    while True:
+        pop = gen.zipf(1.3, size=draws) % num_items
+        u = gen.integers(0, num_users, draws).astype(np.int32)
+        key = np.unique(u.astype(np.int64) * num_items + pop)
+        if len(key) >= nnz:
+            break
+        draws *= 2
+    gen.shuffle(key)
+    key = key[:nnz]
+    u, i = (key // num_items).astype(np.int32), (key % num_items).astype(np.int32)
+    raw = np.einsum("nk,nk->n", xt[u], yt[i]) + 0.35 * gen.standard_normal(nnz)
+    qs = np.quantile(raw, [0.1, 0.3, 0.6, 0.85])
+    return u, i, (1.0 + np.digitize(raw, qs)).astype(np.float32)
+
+
+def power_law_ratings(num_users: int, num_items: int, nnz: int, seed: int = 99):
+    """tools/train_benchmark.py:109-125's implicit set: power-law users and
+    items (pareto-like weights), strengths in [1, 2)."""
+    gen = np.random.default_rng(seed)
+    uw = (1.0 / (np.arange(num_users) + 10.0)) ** 0.8
+    iw = (1.0 / (np.arange(num_items) + 10.0)) ** 0.9
+    u = gen.choice(num_users, size=nnz, p=uw / uw.sum()).astype(np.int32)
+    i = gen.choice(num_items, size=nnz, p=iw / iw.sum()).astype(np.int32)
+    return u, i, (1.0 + gen.random(nnz)).astype(np.float32)
+
+
+def ops_bound(moved_bytes: float, operations: float) -> tuple[float, str]:
+    """The larger of bytes over 3.35 TB/s and float32 operations over
+    989/6 TFLOP/s (kernel_bound()'s float32 rate), in ms."""
+    t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = operations / PEAK_OPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(what: str, got, want, rtol: float, atol: float) -> float:
+    """|got - want| <= atol + rtol * |want| everywhere; the largest
+    absolute difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: shape {got.shape} vs {want.shape}, or non-finite")
+    err = np.abs(got - want)
+    bad = err > atol + rtol * np.abs(want)
+    if bad.any():
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {bad.size} beyond rtol {rtol}, atol {atol} "
+            f"(max |err| {err.max():.3g})"
+        )
+    return float(err.max())
+
+
+class StageTimer:
+    """``_sweep_buckets``' stage hook: CUDA events around every "gram" and
+    "solve" piece, summed into device ms."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events: dict[str, list] = {"gram": [], "solve": []}
+
+    def __call__(self, name: str):
+        import contextlib
+
+        torch, events = self.torch, self.events[name]
+
+        @contextlib.contextmanager
+        def span():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            events.append((start, end))
+
+        return span()
+
+    def ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        return {n: sum(s.elapsed_time(e) for s, e in ev) for n, ev in self.events.items()}
+
+    def pieces(self) -> dict:
+        return {n: len(ev) for n, ev in self.events.items()}
+
+
+def als_parity(als, device: str) -> dict:
+    """(a) tools/train_benchmark.py:81-105: MovieLens-100K shape, 90/10
+    split, explicit, rank 25, lam 0.1, 10 sweeps, seed 42; the card
+    against the CPU through the same port code, float32 and bfloat16."""
+    num_users, num_items, nnz = ML100K
+    u, i, v = movielens_shape(num_users, num_items, nnz, 17)
+    test = np.random.default_rng(5).random(len(u)) < 0.1
+    out = {}
+    for md in (None, "bfloat16"):
+        runs = {}
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            model = als.train_als(
+                u[~test], i[~test], v[~test], num_users, num_items, features=25, lam=0.1,
+                implicit=False, iterations=10, seed=42, matmul_dtype=md, device=dev,
+            )
+            wall = time.perf_counter() - t0
+            phases = dict(als.last_phase_seconds)
+            pred = als.predict_pairs(model.x, model.y, u[test], i[test], device=dev)
+            rmse = float(np.sqrt(np.mean((pred - v[test]) ** 2)))
+            runs[dev] = (pred, rmse, {"wall_s": wall, **phases})
+        (pred_d, rmse_d, secs_d), (pred_c, rmse_c, secs_c) = runs[device], runs["cpu"]
+        name = md or "float32"
+        pred_err = float(np.abs(pred_d.astype(np.float64) - pred_c).max())
+        out[name] = {"rmse_card": rmse_d, "rmse_cpu": rmse_c, "max_pred_diff": pred_err,
+                     "seconds_card": secs_d, "seconds_cpu": secs_c}
+        if md is None and (pred_err > 1e-3 or abs(rmse_d - rmse_c) > 1e-4):
+            raise AssertionError(
+                f"ALS at the MovieLens-100K shape: card and CPU predictions differ by "
+                f"{pred_err:.3g}, RMSE {rmse_d} against {rmse_c}"
+            )
+        if not (np.isfinite(pred_d).all() and np.isfinite(rmse_d)):
+            raise AssertionError(f"ALS {name}: non-finite predictions on the card")
+    return out
+
+
+def als_scale(torch, als, packing, iterations: int, seed: int, device: str = "cuda",
+              scale: float = 1.0) -> tuple[dict, dict]:
+    """(b) the MovieLens-25M-shaped implicit set, rank 200, lam 0.01,
+    alpha 1, float32 and bfloat16: times, memory, the multi-worker pack,
+    finite factors, one half-sweep by stage, 512 users of it solved again
+    on the CPU, the solve against a batched LU, mean_auc. Returns (record,
+    ops rows)."""
+    num_users, num_items, nnz = (max(1_000, int(n * scale)) for n in ML25M)
+    k = ALS_SCALE_RANK
+    t0 = time.perf_counter()
+    u, i, v = power_law_ratings(num_users, num_items, nnz)
+    out = {"shape": [num_users, num_items, nnz], "rank": k, "iterations": iterations, "lam": 0.01,
+           "alpha": 1.0, "data_s": time.perf_counter() - t0}
+    models = {}
+    for md in (None, "bfloat16"):
+        torch.cuda.reset_peak_memory_stats()
+        model = als.train_als(u, i, v, num_users, num_items, features=k, lam=0.01, alpha=1.0,
+                              implicit=True, iterations=iterations, seed=seed,
+                              matmul_dtype=md, device=device)
+        secs = dict(als.last_phase_seconds)
+        workers = int(packing.last_pack_stats.get("workers", 0))
+        if workers <= 1:
+            raise AssertionError(f"ALS packing took {workers} worker(s), not the forked path")
+        if not (np.isfinite(model.x).all() and np.isfinite(model.y).all()):
+            raise AssertionError(f"ALS {md or 'float32'} at scale: non-finite factors")
+        out[md or "float32"] = {
+            **secs, "pack_workers": workers,
+            "ratings_per_s": nnz * iterations / secs["iterate"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        models[md or "float32"] = model
+    model = models["float32"]
+
+    # one half-sweep each way on the trained factors, by stage
+    users_pad, items_pad = als._pow2_at_least(num_users + 1), als._pow2_at_least(num_items + 1)
+    u_buckets = als.build_neighbor_buckets(u, i, v, num_users, features=k)
+    i_buckets = als.build_neighbor_buckets(i, u, v, num_items, features=k)
+    y = torch.zeros((items_pad, k), device=device)
+    y[:num_items] = torch.from_numpy(model.y).to(device)
+    x = torch.zeros((users_pad, k), device=device)
+    x[:num_users] = torch.from_numpy(model.x).to(device)
+    u_args, i_args = als.bucket_tensors(u_buckets, device), als.bucket_tensors(i_buckets, device)
+    als._sweep_buckets(y, users_pad, u_args, 0.01, 1.0, True)  # warm
+    sweeps = {}
+    for side, other, pad, args in (("users", y, users_pad, u_args),
+                                   ("items", x, items_pad, i_args)):
+        timer = StageTimer(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solved = als._sweep_buckets(other, pad, args, 0.01, 1.0, True, stage=timer)
+        torch.cuda.synchronize()
+        sweeps[side] = {"wall_ms": (time.perf_counter() - t0) * 1e3, "ms": timer.ms(),
+                        "pieces": timer.pieces(),
+                        "rows": int(sum(len(a[0]) for a in args))}
+        if side == "users":
+            x_dev = solved[:num_users].cpu().numpy()
+    out["half_sweep"] = sweeps
+
+    # 512 users of that half-sweep solved again by the port on the CPU
+    gen = np.random.default_rng(seed)
+    real = [(b, int(np.count_nonzero(b.rows >= 0))) for b in u_buckets]
+    total = sum(n for _, n in real)
+    pick = np.sort(gen.choice(total, size=ALS_CHECK_ROWS, replace=False))
+    sub, start = [], 0
+    for b, n in real:
+        sel = pick[(pick >= start) & (pick < start + n)] - start
+        start += n
+        if len(sel):
+            sub.append((torch.from_numpy(b.rows[sel].astype(np.int64)),
+                        torch.from_numpy(b.idx[sel]), torch.from_numpy(b.val[sel]),
+                        torch.from_numpy(b.deg[sel]), b.chunk))
+    y_cpu = y.cpu()
+    t0 = time.perf_counter()
+    x_cpu = als._sweep_buckets(y_cpu, users_pad, sub, 0.01, 1.0, True).numpy()
+    rows = np.concatenate([a[0].numpy() for a in sub])
+    out["cpu_check"] = {
+        "rows": len(rows), "cpu_s": time.perf_counter() - t0,
+        "max_abs_err": check_close("half-sweep users, card against CPU", x_dev[rows],
+                                   x_cpu[rows], **FACTOR_TOL),
+    }
+
+    # the solve against a batched LU on one piece of real systems
+    b0 = max(u_args, key=lambda a: len(a[0]))
+    piece = min(len(b0[0]), als.SOLVE_ELEMS // (k * k))
+    cidx, cval, cdeg = b0[1][:piece], b0[2][:piece], b0[3][:piece]
+    cmask = (torch.arange(cidx.shape[1], device=device)[None, :] < cdeg[:, None]).float()
+    vg = y.index_select(0, cidx.reshape(-1)).view(*cidx.shape, k) * cmask[..., None]
+    a, bvec = als._normal_equations(vg, cval, cmask, y.T @ y, 0.01, 1.0, True, k)
+    chol_ms = device_ms(torch, lambda: als._solve(a, bvec), 5)
+    lu_ms = device_ms(torch, lambda: torch.linalg.solve_ex(a, bvec[..., None])[0], 5)
+    lu_err = float((als._solve(a, bvec) - torch.linalg.solve_ex(a, bvec[..., None])[0][..., 0])
+                   .abs().max())
+    out["solve_piece"] = {"rows": piece, "k": k, "cholesky_ms": chol_ms, "lu_ms": lu_ms,
+                          "max_abs_diff": lu_err}
+    del a, bvec, vg
+
+    # mean_auc on 1% of the ratings as test pairs
+    test = gen.random(nnz) < 0.01
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    auc = als.mean_auc(model.x, model.y, u[test], i[test], np.random.default_rng(seed), device=device)
+    auc_ms = (time.perf_counter() - t0) * 1e3
+    out["mean_auc"] = {"pairs": int(test.sum()), "auc": auc, "wall_ms": auc_ms}
+    if not 0.5 < auc <= 1.0:
+        raise AssertionError(f"ALS at scale: AUC {auc} on training pairs")
+
+    # the ops table: one generation = `iterations` sweeps of both sides
+    r_u, r_i = sweeps["users"]["rows"], sweeps["items"]["rows"]
+    gram_bytes = nnz * 2 * (8 + 4 * k) + (r_u + r_i) * (4 + 4 * k * k + 4 * k)
+    gram_ops = 2 * nnz * 2 * (k * k + k) + 2 * 2 * (num_users + num_items) * k * k
+    solve_bytes = (r_u + r_i) * (4 * k * k + 8 * k)
+    solve_ops = (r_u + r_i) * 2 * k ** 3 / 3
+    auc_slots = int(test.sum()) * 2
+    rows = {
+        "als_gram": {
+            "what": "gather + normal equations, one sweep (users + items)",
+            "ms": sweeps["users"]["ms"]["gram"] + sweeps["items"]["ms"]["gram"],
+            "launches": (sweeps["users"]["pieces"]["gram"] + sweeps["items"]["pieces"]["gram"])
+            * iterations,
+            "bound": ops_bound(gram_bytes, gram_ops),
+        },
+        "als_solve": {
+            "what": "batched Cholesky solves, one sweep (users + items)",
+            "ms": sweeps["users"]["ms"]["solve"] + sweeps["items"]["ms"]["solve"],
+            "launches": (sweeps["users"]["pieces"]["solve"] + sweeps["items"]["pieces"]["solve"])
+            * iterations,
+            "bound": ops_bound(solve_bytes, solve_ops),
+            "library_ms_one_piece": lu_ms, "ms_one_piece": chol_ms,
+        },
+        "mean_auc": {
+            "what": f"mean_auc over {int(test.sum())} pairs (wall, host sampling included)",
+            "ms": auc_ms, "launches": 1,
+            "bound": ops_bound(auc_slots * 4 * k, 2 * auc_slots * k),
+        },
+    }
+    return out, rows
+
+
+def als_fold(torch, als, seed: int, device: str = "cuda") -> tuple[dict, dict]:
+    """(c) fold_in_batch of 100,000 events at k = 50 and 200, on the card
+    against the host, a singular Gramian, and events per second."""
+    out, rows = {}, {}
+    gen = np.random.default_rng(seed + 500)
+    n = ALS_FOLD_EVENTS
+    for k in ALS_FOLD_RANKS:
+        y = factors(gen, 20_000, k).astype(np.float32)
+        x = factors(gen, 20_000, k).astype(np.float32)
+        yty, xtx = y.T.astype(np.float64) @ y, x.T.astype(np.float64) @ x
+        xu, yi = x[gen.integers(0, 20_000, n)], y[gen.integers(0, 20_000, n)]
+        xu_ok, yi_ok = gen.random(n) < 0.95, gen.random(n) < 0.95
+        values = (1.0 + 4.0 * gen.random(n)).astype(np.float32)
+        args = (xu, xu_ok, yi, yi_ok, values, True)
+        t0 = time.perf_counter()
+        host = als.fold_in_batch(yty, xtx, *args, backend="host")
+        t_host = time.perf_counter() - t0
+        als.fold_in_batch(yty, xtx, *args, backend="device")  # first call
+        t0 = time.perf_counter()
+        card = als.fold_in_batch(yty, xtx, *args, backend="device")
+        t_card = time.perf_counter() - t0
+        for j in (1, 3):
+            if not np.array_equal(card[j], host[j]):
+                raise AssertionError(f"fold-in k={k}: the updated flags differ")
+        err = max(check_close(f"fold-in k={k} {side}", card[j], host[j], **FOLD_TOL)
+                  for j, side in ((0, "users"), (2, "items")))
+        # a singular Gramian: half the features never occur
+        ys = y.copy()
+        ys[:, k // 2:] = 0.0
+        sing = als.fold_in_batch(ys.T.astype(np.float64) @ ys, xtx, *args, backend="device")
+        if not (np.isfinite(sing[0]).all() and np.isfinite(sing[2]).all()):
+            raise AssertionError(f"fold-in k={k}: a singular Gramian gave non-finite vectors")
+        # _fold_half alone on the card, the inputs resident
+        dev = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (xu, xu_ok, yi, yi_ok, values)]
+        g = torch.from_numpy(yty.astype(np.float32)).to(device)
+        half_ms = device_ms(torch, lambda: als._fold_half(g, dev[0], dev[1], dev[2], dev[3], dev[4], True), 5)
+        out[f"k{k}"] = {"events": n, "host_events_per_s": n / t_host,
+                        "device_events_per_s": n / t_card, "max_abs_err": err,
+                        "fold_half_ms": half_ms}
+        rows[f"fold_half_k{k}"] = {
+            "what": f"_fold_half, {n} events, k = {k}", "ms": half_ms, "launches": 2,
+            "bound": ops_bound(n * (3 * 4 * k + 8) + 4 * k * k, 2 * 2 * n * k * k + k ** 3 / 3),
+        }
+    out["baseline_events_per_s"] = 100_000  # BASELINE.json's speed-layer figure; nothing claimed
+    return out, rows
+
+
+def phase_als_train(torch, seed: int, iterations: int = ALS_SCALE_ITERATIONS,
+                    device: str = "cuda", scale: float = 1.0) -> dict:
+    """Phase 8 (als-train): (a) parity at the MovieLens-100K shape, (b)
+    the MovieLens-25M shape at rank 200, (c) fold-in. Returns the ALS ops
+    rows for the table of XLA-ported ops."""
+    from oryx_tpu_torch.ops import als, packing
+
+    torch.zeros(1, device=device)  # the packing workers fork after CUDA is up
+    record = {"phase": "als-train", "parity": als_parity(als, device)}
+    if iterations != ALS_SCALE_ITERATIONS:
+        record["cut"] = f"scale run cut to {iterations} iterations (from {ALS_SCALE_ITERATIONS})"
+    record["scale"], rows = als_scale(torch, als, packing, iterations, seed, device, scale)
+    record["fold"], fold_rows = als_fold(torch, als, seed, device)
+    rows.update(fold_rows)
+    for row in rows.values():
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+    record["ops"] = rows
+    emit(record)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 9: the ALS lambda loop as three processes ------------------------------------
+
+ALS_LAMBDA_FEATURES = 50  # the reference LoadBenchmark's narrower published width
+ALS_WAVE_NEW_USERS = 200
+ALS_WAVE_EVENTS_PER_NEW_USER = 10
+ALS_WAVE_EXISTING_EVENTS = 2_000
+ALS_INGEST_LINES = 50_000  # lines per POST /ingest
+ALS_PROBE_USERS = 200  # users checked against the exact top-10 after the generation
+
+
+def als_lambda_conf(root: str, ports: dict, batch_interval: int, score_dtype: str,
+                    serving_port: int) -> str:
+    """The ALS layers' config: one file: bus, oryx.id set, reference.conf
+    defaults otherwise (10 iterations, implicit, lambda 0.001, alpha 1,
+    test-fraction 0.1), 50 features, the device fold-in."""
+    return f"""
+    oryx {{
+      id = "ChipSmokeALS"
+      input-topic.broker = "file:{root}/bus"
+      update-topic.broker = "file:{root}/bus"
+      als {{
+        hyperparams.features = {ALS_LAMBDA_FEATURES}
+        serving.score-dtype = "{score_dtype}"
+      }}
+      batch {{
+        streaming.generation-interval-sec = {batch_interval}
+        update-class = "oryx_tpu_torch.app.als.update:ALSUpdate"
+        storage {{ data-dir = "{root}/data/", model-dir = "{root}/model/" }}
+        ui.port = {ports["batch"]}
+      }}
+      speed {{
+        streaming.generation-interval-sec = 1
+        model-manager-class = "oryx_tpu_torch.app.als.speed:ALSSpeedModelManager"
+        fold-in-backend = "device"
+        ui.port = {ports["speed"]}
+      }}
+      serving {{
+        api.port = {serving_port}
+        model-manager-class = "oryx_tpu_torch.app.als.serving_model:ALSServingModelManager"
+        application-resources = "oryx_tpu_torch.app.als.endpoints"
+      }}
+    }}
+    """
+
+
+def post_ingest(base: str, lines: list[str]) -> float:
+    """POST /ingest in bodies of ALS_INGEST_LINES lines; the monotonic time
+    the last answer came."""
+    for j in range(0, len(lines), ALS_INGEST_LINES):
+        body = ("\n".join(lines[j : j + ALS_INGEST_LINES]) + "\n").encode()
+        req = urllib.request.Request(base + "/ingest", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if resp.status != 204:
+                raise AssertionError(f"POST /ingest answered {resp.status}")
+    return time.monotonic()
+
+
+def als_topic_state(loc: str, start: int = 0):
+    """The update topic read as serving replays it: (X {id: vector}, Y
+    {id: vector}, the UP messages after record ``start`` in order as
+    (X or Y, id, vector, known ids), records read)."""
+    from oryx_tpu_torch import bus
+
+    consumer = bus.get_broker(loc).consumer("OryxUpdate", from_beginning=True)
+    state, after, seen = {"X": {}, "Y": {}}, [], 0
+    try:
+        while True:
+            records = consumer.poll(100_000, 0.5)
+            if not records:
+                break
+            for rec in records:
+                seen += 1
+                if rec.key != "UP":
+                    continue
+                up = json.loads(rec.message)
+                vec = np.asarray(up[2], np.float32)
+                state[up[0]][up[1]] = vec
+                if seen > start:
+                    after.append((up[0], up[1], vec, up[3] if len(up) > 3 else []))
+    finally:
+        consumer.close()
+    return state["X"], state["Y"], after, seen
+
+
+def exact_top10(y_ids: list[str], y_mat: np.ndarray, xu: np.ndarray):
+    """float64 scores of every item, the top-10 (ties to the lowest id):
+    (values [1, 10], item rows [1, 10])."""
+    scores = y_mat @ xu.astype(np.float64)
+    order = np.lexsort((np.arange(len(scores)), -scores))[:10]
+    return scores[order][None, :], order[None, :]
+
+
+def served_top10(base: str, user: str, index: dict):
+    status, body, _ = http_get(f"{base}/recommend/{user}?howMany=10&considerKnownItems=true")
+    if status != 200:
+        return None
+    recs = json.loads(body)
+    return (np.array([[r["value"] for r in recs]]),
+            np.array([[index.get(r["id"], -1) for r in recs]]))
+
+
+def served_exactly(base: str, user: str, y_ids, y_mat, index, xu) -> bool:
+    got = served_top10(base, user, index)
+    if got is None or got[1].shape != (1, 10):
+        return False
+    want_v, want_i = exact_top10(y_ids, y_mat, xu)
+    try:
+        check_topk(f"/recommend/{user}", got[0], got[1], want_v, want_i)
+    except AssertionError:
+        return False
+    return True
+
+
+def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
+                     batch_interval: int = LAMBDA_BATCH_INTERVAL_S) -> dict:
+    """The ALS lambda loop as three OS processes on one file: bus
+    (``python -m oryx_tpu_torch batch|speed|serving``), and a second
+    serving process scoring int8: the MovieLens-1M-shaped set through
+    /ingest, one batch generation served exactly (float32) and at recall
+    0.99 (int8) through the scan kernels, the batch process stopped; two
+    waves of new and existing users' interactions folded on the card by
+    the speed process, restarted between them; each new user served the
+    exact top-10 of the vector the speed layer published, which is the
+    float64 fold-in of its events (``compute_updated_xu``, ALSUtils'
+    one-event fold) within 1e-4."""
+    import signal
+    import tempfile
+
+    from oryx_tpu_torch.app.als.common import compute_updated_xu
+    from oryx_tpu_torch.common.vectormath import Solver
+
+    num_users, num_items, nnz = ML1M
+    nnz = max(20_000, int(nnz * scale))
+    u, i, v = movielens_shape(num_users, num_items, nnz, seed + 600)
+    lines = [f"u{a},i{b},{c:.0f},{t}" for t, (a, b, c) in
+             enumerate(zip(u.tolist(), i.tolist(), v.tolist()), start=1)]
+    gen = np.random.default_rng(seed + 601)
+    split = int(round(nnz * 0.9))  # test-fraction 0.1: the newest lines are held out
+    train_users, used_items = np.unique(u[:split]), np.unique(i[:split])
+    new_users = max(20, int(ALS_WAVE_NEW_USERS * min(1.0, scale * 10)))
+    existing = max(200, int(ALS_WAVE_EXISTING_EVENTS * min(1.0, scale * 10)))
+    waves = []
+    for w in range(2):
+        events = []
+        for j in range(new_users):
+            for item in gen.choice(used_items, ALS_WAVE_EVENTS_PER_NEW_USER, replace=False):
+                events.append((f"n{w}-{j}", f"i{item}", float(gen.integers(1, 6))))
+        for a, b in zip(gen.choice(train_users, existing), gen.choice(used_items, existing)):
+            events.append((f"u{a}", f"i{b}", float(gen.integers(1, 6))))
+        waves.append(events)
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-als-")
+    os.makedirs(os.path.join(root, "logs"))
+    ports = {name: free_port() for name in ("batch", "speed", "serving", "serving8")}
+    confs = {}
+    for dtype, port in (("float32", ports["serving"]), ("int8", ports["serving8"])):
+        confs[dtype] = os.path.join(root, f"oryx-{dtype}.conf")
+        with open(confs[dtype], "w") as f:
+            f.write(als_lambda_conf(root, ports, batch_interval, dtype, port))
+    loc = f"file:{root}/bus"
+    base = f"http://127.0.0.1:{ports['serving']}"
+    base8 = f"http://127.0.0.1:{ports['serving8']}"
+    procs: dict = {}
+    logs: list[str] = []
+    out = {"phase": "als-lambda", "users": num_users, "items": num_items, "ratings": nnz,
+           "features": ALS_LAMBDA_FEATURES, "bus": "file:", "batch_interval_s": batch_interval,
+           "wave_new_users": new_users, "wave_existing_events": existing}
+
+    def start(layer: str, run: int = 1, dtype: str = "float32"):
+        name = layer if dtype == "float32" else f"{layer}-{dtype}"
+        procs[name], path = start_layer(layer, confs[dtype], root, device, run)
+        logs.append(path)
+        return path
+
+    def stop(name: str) -> int:
+        procs[name].send_signal(signal.SIGTERM)
+        return procs.pop(name).wait(timeout=120)
+
+    def live():
+        return list(procs.items())
+
+    def scan_launches(port: int) -> dict:
+        return {
+            name.split(".", 1)[1].rsplit(".", 1)[0]: int(m["value"])
+            for name, m in scrape(port).items()
+            if name.startswith("kernels.topn_") and name.endswith(".launches")
+        }
+
+    try:
+        from oryx_tpu_torch import bus
+
+        start("serving")
+        batch_log = start("batch")
+        speed_log = start("speed")
+        wait_until("layers up", lambda: log_has(batch_log, "BatchLayer started")
+                   and log_has(speed_log, "SpeedLayer started")
+                   and status_of(base + "/ready") == 503, procs=live())
+        t_post = time.monotonic()
+        t_last = post_ingest(base, lines)
+        out["ingest_s"] = t_last - t_post
+
+        wait_until("the generation", lambda: status_of(base + "/ready") == 200, procs=live())
+        out["generation_staleness_s"] = time.monotonic() - t_last
+        metrics_batch = wait_until(
+            "the batch generation's end",
+            lambda: (m := scrape(ports["batch"])).get("batch.generations", {}).get("value", 0) >= 1
+            and m,
+            procs=live(),
+        )
+        input_broker = bus.get_broker(loc)
+        latest = input_broker.latest_offsets("OryxInput")
+        drained = input_broker.get_offsets("OryxGroup-batch-ChipSmokeALS", "OryxInput")
+        if drained != latest or sum(latest.values()) != nnz:
+            raise AssertionError(f"the generation drained {drained} of {latest} ({nnz} posted)")
+        out["batch_generation_s"] = hist_summary(metrics_batch["batch.generation.seconds"])
+        out["batch_phase_s"] = {
+            name[len("batch.phase."):-len(".seconds")]: metrics_batch[name].get("sum")
+            for name in metrics_batch if name.startswith("batch.phase.")
+        }
+        with open(batch_log, errors="replace") as f:
+            found = re.findall(r"best candidate eval=([-0-9.e+naN]+)", f.read())
+        out["held_out_auc"] = float(found[-1]) if found else None
+        if stop("batch") != 0:
+            raise AssertionError("the batch process did not stop cleanly")
+
+        # the generation, served: float32 exactly, int8 at recall 0.99
+        x_state, y_state, _, _ = als_topic_state(loc)
+        if (sorted(x_state) != sorted(f"u{a}" for a in train_users)
+                or sorted(y_state) != sorted(f"i{b}" for b in used_items)):
+            raise AssertionError(f"published {len(x_state)} users and {len(y_state)} items, not "
+                                 f"{len(train_users)} and {len(used_items)}")
+        y_ids = sorted(y_state)
+        index = {iid: n for n, iid in enumerate(y_ids)}
+        y_mat = np.stack([y_state[iid] for iid in y_ids]).astype(np.float64)
+        probe = gen.choice(sorted(x_state), size=min(ALS_PROBE_USERS, len(x_state)), replace=False)
+        time.sleep(1.0)  # past the serving model's device-cache refresh window
+        launches0 = scan_launches(ports["serving"])
+        for user in probe:
+            if not served_exactly(base, user, y_ids, y_mat, index, x_state[user]):
+                raise AssertionError(f"float32 /recommend/{user} is not the exact top-10")
+        out["float32_launches"] = launches1 = scan_launches(ports["serving"])
+        if device == "cuda" and launches1.get("topn_scan.tc_f32", 0) <= launches0.get("topn_scan.tc_f32", 0):
+            raise AssertionError(f"float32 serving launched {launches0} -> {launches1}")
+        start("serving", run=8, dtype="int8")
+        wait_until("int8 serving", lambda: status_of(base8 + "/ready") == 200, procs=live())
+        time.sleep(1.0)
+        hits = 0
+        for user in probe:
+            got = served_top10(base8, user, index)
+            want = exact_top10(y_ids, y_mat, x_state[user])[1]
+            hits += len(set(got[1][0].tolist()) & set(want[0].tolist()))
+        out["int8_recall_at_10"] = recall = hits / (10.0 * len(probe))
+        out["int8_launches"] = launches8 = scan_launches(ports["serving8"])
+        if recall < 0.99:
+            raise AssertionError(f"int8 /recommend recall@10 {recall} below 0.99")
+        if device == "cuda" and launches8.get("topn_scan.tc", 0) <= 0:
+            raise AssertionError(f"int8 serving launched {launches8}")
+        if stop("serving-int8") != 0:
+            raise AssertionError("the int8 serving process did not stop cleanly")
+
+        # two waves folded by the speed process, restarted between them
+        wait_until("the speed model", lambda: log_has(speed_log, "ALS speed model"), procs=live())
+        speed_group = "OryxGroup-speed-ChipSmokeALS"
+        out["speed_batch_s"] = []
+        for w, events in enumerate(waves, start=1):
+            if w == 2:
+                out["speed_batch_s"].append(hist_summary(scrape(ports["speed"])["speed.batch.seconds"]))
+                if stop("speed") != 0:
+                    raise AssertionError("the speed process did not stop cleanly")
+                speed_log = start("speed", run=2)
+                wait_until("the restarted speed model",
+                           lambda: log_has(speed_log, "ALS speed model"), procs=live())
+                time.sleep(2.0)  # the UPs behind the MODEL replay in the same pass
+            x_pre, y_pre, _, seen = als_topic_state(loc)
+            t_last = post_ingest(base, [f"{a},{b},{c:.0f},{t}" for t, (a, b, c) in
+                                        enumerate(events, start=10_000_000 * w)])
+            users = sorted({a for a, _, _ in events if a.startswith(f"n{w - 1}-")})
+            probe_user = users[-1]
+
+            def probe_right():
+                x_now, y_now, _, _ = als_topic_state(loc)
+                if probe_user not in x_now:
+                    return False
+                ids = sorted(y_now)
+                mat = np.stack([y_now[iid] for iid in ids]).astype(np.float64)
+                return served_exactly(base, probe_user, ids, mat,
+                                      {iid: n for n, iid in enumerate(ids)}, x_now[probe_user])
+
+            wait_until(f"wave {w}: {probe_user} served", probe_right, procs=live())
+            out[f"wave{w}_staleness_s"] = time.monotonic() - t_last
+            wait_until(f"wave {w} committed",
+                       lambda: input_broker.get_offsets(speed_group, "OryxInput")
+                       == input_broker.latest_offsets("OryxInput"), timeout=60, procs=live())
+            time.sleep(2.0)  # past the last micro-batch's publish
+            x_now, y_now, ups, _ = als_topic_state(loc, start=seen)
+            ids = sorted(y_now)
+            mat = np.stack([y_now[iid] for iid in ids]).astype(np.float64)
+            idx = {iid: n for n, iid in enumerate(ids)}
+            for user in users:
+                wait_until(f"wave {w}: /recommend/{user} the exact top-10",
+                           lambda: served_exactly(base, user, ids, mat, idx, x_now[user]),
+                           timeout=30, procs=live())
+            # each published X of a new user: the float64 fold-in of the
+            # event behind it (the last of its known list) against the
+            # state before its micro-batch. A micro-batch publishes all
+            # its X, then all its Y: an X after a Y opens the next one.
+            values = {(a, b): c for a, b, c in events}
+            state = {"X": dict(x_pre), "Y": dict(y_pre)}
+            worst, checked, yty, last = 0.0, 0, None, "Y"
+            for which, user, vec, known in ups:
+                if which == "X" and last == "Y":
+                    mat_y = np.stack(list(state["Y"].values())).astype(np.float64)
+                    yty = Solver(mat_y.T @ mat_y)
+                if which == "X" and user in users:
+                    item = known[-1]
+                    ref = compute_updated_xu(yty, values[(user, item)], state["X"].get(user),
+                                             state["Y"][item], True).astype(np.float64)
+                    rel = float(np.linalg.norm(vec - ref) / np.linalg.norm(ref))
+                    worst, checked = max(worst, rel), checked + 1
+                    if rel > 1e-4:
+                        raise AssertionError(
+                            f"wave {w}: {user}'s published vector is {rel:.3g} from the "
+                            "float64 fold-in"
+                        )
+                state[which][user] = vec
+                last = which
+            if checked < len(users):
+                raise AssertionError(f"wave {w}: {checked} of {len(users)} new users published")
+            out[f"wave{w}_fold_max_rel_err"] = worst
+        out["speed_batch_s"].append(hist_summary(scrape(ports["speed"])["speed.batch.seconds"]))
+        out["serving_launches"] = scan_launches(ports["serving"])
+        for name in list(procs):
+            if stop(name) != 0:
+                raise AssertionError(f"the {name} process did not stop cleanly")
+    except BaseException:
+        for path in logs:
+            with open(path, errors="replace") as f:
+                tail = f.read()[-3000:]
+            print(f"--- {path} (tail) ---\n{tail}", file=sys.stderr, flush=True)
+        raise
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait(timeout=60)
+    emit(out)
+    return out
+
+
 def main() -> int:
     args = parse_args()
     if not os.path.isdir(os.path.join(HERE, "oryx_tpu_torch", "csrc")):
@@ -1500,14 +2234,22 @@ def main() -> int:
     lam = phase_kmeans_lambda(args.seed)
     if lam["batch_launches"].get("kmeans_sweep.tc", 0) <= 0:
         raise AssertionError(f"the batch process launched {lam['batch_launches']}")
+    als_rows = phase_als_train(torch, args.seed, args.als_iterations)
+    als_lam = phase_als_lambda(args.seed)
+    als_launches = {
+        name: als_lam["serving_launches"].get(name, 0) + als_lam["int8_launches"].get(name, 0)
+        for name in SOURCES
+    }
 
+    emit({"als_ops": [{"name": name, **row} for name, row in als_rows.items()]})
     table = []
     for name in SOURCES:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the main path")
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches[name], "parity": "ok", "library_topk_ms": None,
+            "launches": launches[name], "als_lambda_launches": als_launches[name],
+            "parity": "ok", "library_topk_ms": None,
             **kernels[name],
         })
     emit({"kernels": table})

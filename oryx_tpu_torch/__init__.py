@@ -8,9 +8,9 @@ ported path is a CUDA kernel written by hand for Hopper
 keeps as its own copies. The modules mirror ``oryx_tpu``'s layout and
 names, so each has an obvious counterpart.
 
-Ported so far: the ALS serving layer (``python -m oryx_tpu_torch serving``)
-and k-means training through the batch layer with k-means serving
-(``python -m oryx_tpu_torch batch``).
+Ported so far: the ALS and k-means lambda loops, each as ``python -m
+oryx_tpu_torch batch|speed|serving`` on one ``file:`` bus: ALS training,
+fold-in and serving, k-means training, drift and serving.
 """
 
 __version__ = "0.1.0"

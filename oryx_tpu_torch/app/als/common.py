@@ -18,6 +18,7 @@ parser (``oryx_tpu/native``) is not ported yet.
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable
 
 import numpy as np
@@ -214,6 +215,10 @@ def consume_blocks_columnar(block_iterator, model_ready, apply_up_batch, consume
                 i += 1
 
 
+# the separator of two ids in a known-items list: '","' or json.dumps's '", "'
+_KNOWN_SEPARATOR = re.compile(rb'"\s*,\s*"')
+
+
 def apply_up_lines(
     lines: list,
     k: int,
@@ -303,10 +308,14 @@ def apply_up_lines(
                         if inner == b"":
                             known = []
                         elif inner.startswith(b'"') and inner.endswith(b'"'):
-                            known = [
-                                s.decode("utf-8", "replace")
-                                for s in inner[1:-1].split(b'","')
-                            ]
+                            # an unescaped quote can only close or open an
+                            # id, so any '"' <space> ',' <space> '"' run
+                            # separates two (json.dumps writes '", "')
+                            parts = _KNOWN_SEPARATOR.split(inner[1:-1])
+                            if any(b'"' in p for p in parts):
+                                slow = True
+                            else:
+                                known = [p.decode("utf-8", "replace") for p in parts]
                         else:
                             slow = True
         if slow:

@@ -1,3 +1,4 @@
 """Device compute (counterpart of ``oryx_tpu/ops``): the streaming top-N
-scan and its hand-written CUDA kernels.
+scan and the Lloyd sweep with their hand-written CUDA kernels, and ALS
+training and fold-in in PyTorch ops.
 """

@@ -21,8 +21,10 @@ enabled tenants or sets ``oryx.serving.ab.fraction`` above 0 is refused
 at construction), the model registry and rollback, MODEL-REF restage,
 the rest of overload control (the admission ladder), the native HTTP
 front, TLS and auth (a config that sets a key file or credentials is
-refused at construction), ``/metrics``, ``/healthz``, ``/readyz``,
-tracing export routes and profiling.
+refused at construction), ``/healthz``, ``/readyz``, tracing export
+routes and profiling. ``/metrics`` serves the metrics registry (with the
+scan kernels' launch counts), without the JAX package's per-instance
+and model-state entries.
 """
 
 from __future__ import annotations
@@ -173,6 +175,18 @@ def _ready(ctx: ServingContext, req: Request) -> Response:
     if _model_ready(ctx):
         return Response(200, None)
     return Response(503, None)
+
+
+@resource("GET", "/metrics")
+def _metrics(ctx: ServingContext, req: Request) -> Response:
+    """The process's metrics registry as JSON, with the scan kernels'
+    launches so far as ``kernels.<name>.launches`` gauges (the batch
+    and speed layers serve theirs on ``oryx.<layer>.ui.port``)."""
+    from oryx_tpu_torch.ops import streaming_topn
+
+    for name, count in streaming_topn.launch_counts().items():
+        metrics.registry.gauge(f"kernels.{name}.launches").set(count)
+    return Response(200, metrics.registry.snapshot(), content_type="application/json")
 
 
 def _model_ready(ctx: ServingContext) -> bool:

@@ -18,7 +18,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # (other than oryx_tpu_torch) fails: every module of the port imports,
 # the serving path answers over HTTP on the CPU, the k-means batch path
 # trains one generation on a file: bus and the speed layer folds points
-# into its model, and chip_smoke.py and scan_bench.py import.
+# into its model, ALS trains (packing in forked workers) and folds in, and
+# chip_smoke.py and scan_bench.py import.
 _ISOLATED = textwrap.dedent(
     r"""
     import importlib.abc, json, pkgutil, sys, time, urllib.request
@@ -123,6 +124,17 @@ _ISOLATED = textwrap.dedent(
         p.send(None, "10.0,0.0")
     assert speed.run_one_batch() == 1
     speed.close()
+    # ALS: packing through forked workers, training and a device fold-in
+    from oryx_tpu_torch.ops import als, packing
+    u = gen.integers(0, 50, 2000).astype(np.int32)
+    i = gen.integers(0, 30, 2000).astype(np.int32)
+    m = als.train_als(u, i, np.ones(2000, np.float32), 50, 30, features=4, lam=0.1,
+                      iterations=2, seed=1, packing=packing.PackingOptions(workers=2))
+    assert packing.last_pack_stats["workers"] == 2 and np.isfinite(m.x).all()
+    ok = np.ones(3, bool)
+    out = als.fold_in_batch(m.y.T @ m.y, m.x.T @ m.x, m.x[:3], ok, m.y[:3], ok,
+                            np.ones(3, np.float32), True, backend="device")
+    assert np.isfinite(out[0]).all() and out[0].shape == (3, 4)
     import chip_smoke  # the chip scripts import nothing of JAX either
     import scan_bench
     leaked = sorted(m for m in sys.modules
@@ -147,7 +159,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_chosen(monkeypatch):
     from oryx_tpu_torch.common import config
     from oryx_tpu_torch.lambda_.batch import BatchLayer
     from oryx_tpu_torch.lambda_.speed import SpeedLayer
-    from oryx_tpu_torch.ops import kmeans, pallas_kmeans, streaming_topn, topn
+    from oryx_tpu_torch.ops import als, kmeans, pallas_kmeans, streaming_topn, topn
     from oryx_tpu_torch.serving.layer import ServingLayer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -178,6 +190,13 @@ def test_entry_points_raise_without_cuda_unless_cpu_chosen(monkeypatch):
         kmeans.train_kmeans(y, 2, iterations=1)
     with pytest.raises(RuntimeError, match="set_device"):
         pallas_kmeans.lloyd(y, y[:2], 1)
+    with pytest.raises(RuntimeError, match="set_device"):
+        als.train_als(np.zeros(2, np.int32), np.zeros(2, np.int32), np.ones(2, np.float32),
+                      1, 1, features=2, lam=0.1, iterations=1, seed=1)
+    ok = np.ones(10, bool)
+    with pytest.raises(RuntimeError, match="set_device"):
+        als.fold_in_batch(np.eye(4), np.eye(4), y, ok, y, ok, np.ones(10, np.float32), True,
+                          backend="device")
     try:
         port_device.set_device("cpu")
         assert topn.upload(y).device.type == "cpu"

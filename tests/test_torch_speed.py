@@ -207,13 +207,28 @@ def test_speed_batch_continues_input_trace_and_feeds_freshness():
 @pytest.mark.parametrize("extra,error,match", [
     ('model-manager-class = "oryx_tpu.app.kmeans.speed:KMeansSpeedModelManager"', ValueError,
      "oryx_tpu_torch"),
-    ('model-manager-class = "oryx_tpu_torch.app.als.speed:ALSSpeedModelManager"',
-     NotYetPortedError, "ALS speed"),
     ('compute.profile-dir = "/tmp/profiles"', NotYetPortedError, "profile-dir"),
 ])
 def test_speed_layer_refuses_what_is_not_ported(extra, error, match):
     with pytest.raises(error, match=match):
         SpeedLayer(kmeans_config("inproc://refused", extra=extra))
+
+
+def test_als_speed_layer_constructs():
+    """The ALS speed manager is ported: a speed layer that names it starts
+    and folds nothing until a model arrives."""
+    from oryx_tpu_torch.app.als.speed import ALSSpeedModelManager
+
+    layer = SpeedLayer(kmeans_config(
+        "inproc://als-speed",
+        extra='model-manager-class = "oryx_tpu_torch.app.als.speed:ALSSpeedModelManager"',
+    ))
+    try:
+        assert isinstance(layer.manager, ALSSpeedModelManager)
+        assert layer.manager.model is None
+        assert list(layer.manager.build_updates([KeyMessage(None, "u1,i1,1.0,1")])) == []
+    finally:
+        layer.close()
 
 
 def test_cli_speed_command():

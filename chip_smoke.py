@@ -103,12 +103,49 @@ Phases, each printing one JSON line:
    layer published, and that vector the float64 fold-in of its events
    within 1e-4 relative; with the generation's seconds and phases, the
    held-out AUC, the micro-batch seconds and each wave's staleness;
-10. the table of the XLA-ported ALS ops (phase 8), then the kernel
-   table: launches on the main paths (ALS during phases 3-4, k-means
+10. rdf-train: random-forest training through ``ops/forest.py`` on the
+   card (PyTorch ops: the JAX package runs them through XLA, no Pallas
+   kernel): (a) tools/train_benchmark.py:215-248's configuration
+   (100,000 covtype-shaped rows plus 20,000 held out, numerics quantile-
+   binned to 32 bins, 20 trees, depth 10, entropy, seed 77) on the card
+   (device path, ``hist_mode = "auto"``) and on the CPU (host path)
+   through the same code: all 20 trees split for split with equal node
+   counts, or a first differing node whose two best candidate gains are
+   within 1e-6 relative on both sides (a near tie of the last bit of
+   ``log``); held-out accuracy within 0.005; the card's vote sums on the
+   CPU's forest bit for bit; one tree of depth 6 identical under the
+   matmul, scalar and reference formulations; a regression forest (a
+   function of features 0-3 plus noise) whose held-out RMSE is within
+   1% of the CPU's, with the share of agreeing splits; (b) covtype's
+   published size, 581,012 rows x 54 features, 7 classes, binned through
+   ``app/rdf/encode.build_binning`` (100 split candidates), with
+   conf/rdf-example.conf's model: 20 trees, depth 8, entropy,
+   min-node-size 16, min-info-gain 0.001: children summing to their
+   parents, init and iterate seconds, ms per level by stage
+   (histograms, split selection, routing; CUDA events) and each level's
+   formulation, rows x trees per second, peak memory (above what earlier
+   phases still hold), held-out accuracy,
+   and a 2-tree run against the CPU under the near-tie rule of (a);
+   ``--rdf-rows`` shrinks (a) and (b) for a quick call;
+11. rdf-lambda: the RDF lambda loop as three processes (``python -m
+   oryx_tpu_torch batch|speed|serving``) on one ``file:`` bus with
+   conf/rdf-example.conf's schema (55 columns, numerics 0-9, target 54)
+   and the port's class names: 100,000 covtype-shaped lines POSTed to
+   /train, one generation (20 trees, depth 8, test-fraction 0.1) whose
+   MiningModel's held-out accuracy is read from the batch log, the batch
+   process stopped; /predict on 1,000 held-out lines equal to the
+   published forest's own predictions; /feature/importance naming the 54
+   features, a rule's feature first; two waves of 2,000 labelled lines
+   at 10 probe points, the speed process restarted between them, each
+   followed by /classificationDistribution at every probe equal (1e-12)
+   to the published forest with every wave's leaf counts added; each
+   wave's staleness (last POST to the served answer);
+12. the tables of the XLA-ported ALS ops (phase 8) and RDF ops (phase
+   10), then the kernel table: launches on the main paths (ALS during phases 3-4, k-means
    during phase 6, each counted from zero just before; the scans also by
    batch rows, per path; and the als-lambda serving processes' own) and
    the numbers of phases 2 and 5;
-11. the card's name and power limit, then ``{"ok": true, "device": ...}``.
+13. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the exit code is not 0. Without CUDA, or run
 from a directory that holds no ``oryx_tpu_torch``, it exits 2 before
@@ -197,6 +234,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=7)
     p.add_argument("--als-iterations", type=int, default=ALS_SCALE_ITERATIONS,
                    help="iterations of the MovieLens-25M-shaped ALS run (phase 8)")
+    p.add_argument("--rdf-rows", type=int, default=RDF_ROWS,
+                   help="training rows of rdf-train's parity run and of rdf-lambda; "
+                        "rdf-train's covtype-size run scales with it (phases 10-11)")
     return p.parse_args(argv)
 
 
@@ -2094,6 +2134,640 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
     emit(out)
     return out
 
+# -- phases 10-11: random decision forests -------------------------------------------
+
+RDF_ROWS = 100_000  # bench_rdf's training rows (tools/train_benchmark.py:215-248)
+RDF_HELD_OUT = 20_000
+RDF_BINS = 32  # bench_rdf's quantile bins for the numerics
+COVTYPE_ROWS = 581_012  # UCI covtype's published size
+COVTYPE_CLASSES = 7
+RDF_NEAR_TIE_RTOL = 1e-6
+RDF_ACCURACY_TOL = 0.005
+RDF_RMSE_RTOL = 0.01
+RDF_LAMBDA_TREES = 20  # conf/rdf-example.conf
+RDF_LAMBDA_DEPTH = 8
+RDF_TRAIN_LINES = 10_000  # lines per POST /train
+RDF_PREDICT_LINES = 1_000
+RDF_PROBES = 10
+RDF_WAVE = 2_000
+
+
+def covtype_shape(n: int, seed: int = 23):
+    """tools/train_benchmark.py:196-212's covtype-shaped synthetic: 54
+    features (10 numeric + 44 binary, like covtype's one-hots), 7 classes
+    from axis-aligned rules, 10% label noise."""
+    gen = np.random.default_rng(seed)
+    num = gen.standard_normal((n, 10)).astype(np.float32)
+    binary = (gen.random((n, 44)) < 0.15).astype(np.float32)
+    x = np.concatenate([num, binary], axis=1)
+    yc = (
+        (num[:, 0] > 0).astype(int)
+        + 2 * (num[:, 1] > 0.5).astype(int)
+        + (binary[:, 3] > 0).astype(int)
+        + 2 * ((num[:, 2] + num[:, 3]) > 0).astype(int)
+    ) % 7
+    flip = gen.random(n) < 0.1
+    yc[flip] = gen.integers(0, 7, flip.sum())
+    return x, yc.astype(np.int32)
+
+
+def quantile_binner(xtr: np.ndarray, num_bins: int):
+    """bench_rdf's binning: the 10 numerics quantile-cut on the training
+    rows to num_bins bins, the binaries as they are."""
+    cuts = [np.quantile(xtr[:, j], np.linspace(0, 1, num_bins)[1:-1]) for j in range(10)]
+
+    def binize(m):
+        out = np.zeros(m.shape, np.int32)
+        for j in range(10):
+            out[:, j] = np.searchsorted(cuts[j], m[:, j], side="left")
+        out[:, 10:] = m[:, 10:].astype(np.int32)
+        return out
+
+    return binize
+
+
+class LevelTimer:
+    """``train_forest``'s stage hook: CUDA events (host clock on the CPU)
+    around every tree-level's "histograms", "splits" and "routing" work,
+    grouped by level (the chunk's trees run each level in turn)."""
+
+    def __init__(self, torch, trees: int, device: str):
+        self.torch, self.trees, self.cuda = torch, trees, device != "cpu"
+        self.events: list = []  # (stage, level, start, end)
+        self.calls: dict[str, int] = {}
+
+    def __call__(self, name: str):
+        import contextlib
+
+        level = self.calls.get(name, 0) // self.trees
+        self.calls[name] = self.calls.get(name, 0) + 1
+        torch, events, cuda = self.torch, self.events, self.cuda
+
+        @contextlib.contextmanager
+        def span():
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                yield
+                end.record()
+            else:
+                start = time.perf_counter()
+                yield
+                end = time.perf_counter()
+            events.append((name, level, start, end))
+
+        return span()
+
+    def ms(self) -> dict:
+        """{level: {stage: ms summed over the level's trees}}."""
+        if self.cuda:
+            self.torch.cuda.synchronize()
+        out: dict = {}
+        for name, level, start, end in self.events:
+            ms = start.elapsed_time(end) if self.cuda else (end - start) * 1e3
+            out.setdefault(level, {}).setdefault(name, 0.0)
+            out[level][name] += ms
+        return out
+
+
+def forest_parity(tf, card, cpu, binned, targets, kw: dict, num_bins: int, device: str) -> dict:
+    """Tree for tree: identical splits and node counts, or a first
+    differing node that is a near tie of the last bit of log: on each
+    side the two best candidates' gains within RDF_NEAR_TIE_RTOL, and the
+    other side's choice within RDF_NEAR_TIE_RTOL of the best. Below that
+    node nothing is compared."""
+    identical, ties = 0, []
+    for t in range(card.num_trees):
+        diff = np.nonzero((card.split_feature[t] != cpu.split_feature[t])
+                          | (card.split_bin[t] != cpu.split_bin[t]))[0]
+        if not len(diff):
+            if not np.array_equal(card.node_counts[t], cpu.node_counts[t]):
+                raise AssertionError(f"tree {t}: the same splits with other node counts")
+            identical += 1
+            continue
+        node = int(diff[0])
+        chosen = {side: int(f.split_feature[t, node]) * num_bins + int(f.split_bin[t, node])
+                  for side, f in (("card", card), ("cpu", cpu))}
+        seen, near = {}, True
+        for side, forest, dev, other in (("card", card, device, "cpu"),
+                                         ("cpu", cpu, "cpu", "card")):
+            gains, flats = tf.node_top_gains(binned, targets, forest, t, node, num_bins,
+                                             device=dev, **kw)
+            at = np.nonzero(flats == chosen[other])[0]
+            other_gain = float(gains[at[0]]) if len(at) else float("-inf")
+            seen[side] = {"top_gains": gains[:2].tolist(), "top_flats": flats[:2].tolist(),
+                          "chosen": chosen[side], "gain_of_other_choice": other_gain}
+            tol = RDF_NEAR_TIE_RTOL * abs(float(gains[0]))
+            near &= (len(gains) >= 2 and flats[0] == chosen[side]
+                     and float(gains[0] - gains[1]) <= tol and float(gains[0]) - other_gain <= tol)
+        tie = {"tree": t, "node": node, **seen}
+        ties.append(tie)
+        print(f"rdf: tree {t} differs first at node {node}: {json.dumps(tie)}", flush=True)
+        if not near:
+            raise AssertionError(f"tree {t} node {node}: not a near tie: {json.dumps(tie)}")
+    return {"trees": card.num_trees, "identical_trees": identical, "near_ties": ties}
+
+
+def split_agreement(a, b) -> float:
+    """Share of the nodes split on either side whose (feature, bin) agree."""
+    either = (a.split_feature >= 0) | (b.split_feature >= 0)
+    same = (a.split_feature == b.split_feature) & (a.split_bin == b.split_bin)
+    return float((same & either).sum() / max(1, either.sum()))
+
+
+def timed_train(torch, tf, binned, targets, device: str, host: bool = False, **kw):
+    """train_forest on ``device``: its device path, or with ``host`` the
+    CPU's host path (np.bincount histograms)."""
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forest = tf.train_forest(binned, targets, device=device, host_hist=host, **kw)
+    return forest, {"wall_s": time.perf_counter() - t0, **tf.last_phase_seconds}
+
+
+def rdf_ops_rows(n, p, bins, s, timer_ms: dict, formulations: list, trees: int) -> dict:
+    """Rows of the table of XLA-ported ops for one run: device ms summed
+    over the run's tree-levels, launches (tree-levels), and the bound as
+    ops_bound() counts it. A level histogram reads the binned rows, the
+    weights and the node ids and writes its [p, L, B, S] float32 tensor."""
+    rows = {}
+    for how in ("scalar", "matmul", "vector"):
+        levels = [d for d, f in enumerate(formulations) if f == how]
+        if not levels:
+            continue
+        moved = sum(n * p * 4 + n * 8 + p * (2 ** d) * bins * s * 4 for d in levels)
+        ops = sum((2.0 * n * (2 ** d) * s * p * bins) if how == "matmul" else n * p * s
+                  for d in levels)
+        rows[f"rdf_hist_{how}"] = {
+            "what": f"level histogram ({how}), {n} rows x {p} features x {bins} bins, "
+                    f"levels {levels}",
+            "ms": sum(timer_ms[d]["histograms"] for d in levels),
+            "launches": trees * len(levels),
+            "bound": ops_bound(trees * moved, trees * ops),
+        }
+    levels = list(range(len(formulations)))
+    cand = sum(p * (2 ** d) * bins for d in levels)
+    rows["rdf_split_selection"] = {
+        "what": f"split selection (cumsum, {s}-class entropy gains, argmax), levels 0-{levels[-1]}",
+        "ms": sum(timer_ms[d]["splits"] for d in levels),
+        "launches": trees * len(levels),
+        "bound": ops_bound(trees * (cand * s * 4 + sum((2 ** d) * p * 4 for d in levels)),
+                           trees * cand * (8 * s + 10)),
+    }
+    rows["rdf_routing"] = {
+        "what": f"routing (gather, compare, children), {n} rows, levels 0-{levels[-1]}",
+        "ms": sum(timer_ms[d]["routing"] for d in levels),
+        "launches": trees * len(levels),
+        "bound": ops_bound(trees * len(levels) * n * 12, trees * len(levels) * n * 4),
+    }
+    return rows
+
+
+def rdf_parity(torch, tf, seed: int, rows: int, device: str) -> tuple[dict, dict]:
+    """(a) bench_rdf's configuration on the card and on the CPU through
+    the same port code: splits tree for tree under the near-tie rule,
+    held-out accuracy, the card's vote sums on the CPU's forest bit for
+    bit; the three histogram formulations on one tree; a regression forest
+    at the same size. Returns (record, the matmul histogram's ops row)."""
+    x, y = covtype_shape(rows + RDF_HELD_OUT)
+    xtr, ytr, xte, yte = x[:rows], y[:rows], x[rows:], y[rows:]
+    binize = quantile_binner(xtr, RDF_BINS)
+    btr, bte = binize(xtr), binize(xte)
+    kw = dict(num_trees=20, max_depth=10, impurity="entropy", seed=77)
+    timer = LevelTimer(torch, kw["num_trees"], device)
+    card, secs_card = timed_train(torch, tf, btr, ytr, device, num_bins=RDF_BINS,
+                                  num_classes=COVTYPE_CLASSES, hist_mode="auto", stage=timer, **kw)
+    cpu, secs_cpu = timed_train(torch, tf, btr, ytr, "cpu", True, num_bins=RDF_BINS,
+                                num_classes=COVTYPE_CLASSES, **kw)
+    out = {"rows": rows, "held_out": RDF_HELD_OUT, "bins": RDF_BINS, **kw,
+           "seconds_card": secs_card, "seconds_cpu": secs_cpu}
+    out["parity"] = forest_parity(tf, card, cpu, btr, ytr, kw, RDF_BINS, device)
+    votes_card = tf.predict_forest_binned(card, bte, device=device)
+    votes_cpu = tf.predict_forest_binned(cpu, bte, device="cpu")
+    out["accuracy_card"] = acc_card = float((votes_card.argmax(axis=1) == yte).mean())
+    out["accuracy_cpu"] = acc_cpu = float((votes_cpu.argmax(axis=1) == yte).mean())
+    if abs(acc_card - acc_cpu) > RDF_ACCURACY_TOL:
+        raise AssertionError(f"held-out accuracy {acc_card} on the card, {acc_cpu} on the CPU")
+    if not np.array_equal(tf.predict_forest_binned(cpu, bte, device=device), votes_cpu):
+        raise AssertionError("the card's vote sums on the CPU's forest differ from the CPU's")
+    levels = 1 + int(np.log2(np.nonzero((card.split_feature >= 0).any(axis=0))[0].max() + 1)) + 1
+    forms = [tf.formulation(rows, btr.shape[1], COVTYPE_CLASSES, 2 ** d, RDF_BINS, "entropy",
+                            "auto") for d in range(min(levels, kw["max_depth"] + 1))]
+    out["formulations"] = forms
+    ops = rdf_ops_rows(rows, btr.shape[1], RDF_BINS, COVTYPE_CLASSES, timer.ms(), forms,
+                       kw["num_trees"])
+    matmul_row = {"rdf_hist_matmul": ops["rdf_hist_matmul"]} if "rdf_hist_matmul" in ops else {}
+
+    # the three formulations on one tree, depth 6
+    one = {}
+    for mode in ("matmul", "scalar", "reference"):
+        f, secs = timed_train(torch, tf, btr, ytr, device, num_bins=RDF_BINS,
+                              num_classes=COVTYPE_CLASSES, num_trees=1, max_depth=6,
+                              impurity="entropy", seed=77, hist_mode=mode)
+        one[mode] = (f, secs["iterate"])
+    ref = one["reference"][0]
+    for mode in ("matmul", "scalar"):
+        f = one[mode][0]
+        if not (np.array_equal(f.split_feature, ref.split_feature)
+                and np.array_equal(f.split_bin, ref.split_bin)
+                and np.array_equal(f.node_counts, ref.node_counts)):
+            raise AssertionError(f"hist_mode {mode} grew another tree than reference")
+    out["one_tree_depth6_iterate_s"] = {mode: secs for mode, (_, secs) in one.items()}
+
+    # regression: a numeric function of features 0-3 plus noise
+    noise = np.random.default_rng(seed + 700).standard_normal(len(x)).astype(np.float32)
+    yr = (2.0 * x[:, 0] + x[:, 1] * x[:, 2] - np.abs(x[:, 3]) + 0.3 * noise).astype(np.float32)
+    kwr = dict(num_trees=20, max_depth=10, impurity="variance", seed=77)
+    reg = []
+    for dev, host in ((device, False), ("cpu", True)):
+        f, secs = timed_train(torch, tf, btr, yr[:rows], dev, host, num_bins=RDF_BINS,
+                              num_classes=None, **kwr)
+        pooled = tf.predict_forest_binned(f, bte, device=dev)
+        rmse = float(np.sqrt(np.mean((pooled[:, 1] / pooled[:, 0] - yr[rows:]) ** 2)))
+        reg.append((f, rmse, secs))
+    (f_d, rmse_d, secs_d), (f_c, rmse_c, secs_c) = reg
+    out["regression"] = {"rmse_card": rmse_d, "rmse_cpu": rmse_c, "seconds_card": secs_d,
+                         "seconds_cpu": secs_c, "split_agreement": split_agreement(f_d, f_c)}
+    if not (np.isfinite(rmse_d) and abs(rmse_d - rmse_c) <= RDF_RMSE_RTOL * rmse_c):
+        raise AssertionError(f"regression RMSE {rmse_d} on the card, {rmse_c} on the CPU")
+    return out, matmul_row
+
+
+def covtype_binned(encode, schema, rows: int, seed: int):
+    """covtype's shape at ``rows`` (plus RDF_HELD_OUT) binned through the
+    port's encode.build_binning as RDFUpdate bins it: the 10 numerics
+    quantile-cut to max-split-candidates = 100, the 44 binaries
+    categorical, the target in its predictor slot. (binned train, targets,
+    binned held-out, held-out targets, num_bins)."""
+    x, y = covtype_shape(rows + RDF_HELD_OUT, seed=seed)
+    feats = np.concatenate([x.astype(np.float64), y[:, None].astype(np.float64)], axis=1)
+    binning = encode.build_binning(feats[:rows], y[:rows].astype(np.float64), schema, 100, True)
+    binned = encode.bin_features(feats, binning)
+    return binned[:rows], y[:rows], binned[rows:], y[rows:], binning.num_bins
+
+
+def rdf_schema_config(extra: str = "") -> str:
+    """conf/rdf-example.conf's schema: 55 columns, numerics 0-9, target 54."""
+    numerics = ", ".join(f'"{j}"' for j in range(10))
+    return f"""
+    oryx {{
+      input-schema {{
+        num-features = 55
+        numeric-features = [{numerics}]
+        target-feature = "54"
+      }}
+      {extra}
+    }}
+    """
+
+
+def rdf_scale(torch, tf, encode, seed: int, rows: int, device: str) -> tuple[dict, dict]:
+    """(b) covtype's published size with conf/rdf-example.conf's model and
+    the app defaults it inherits: 20 trees, depth 8, entropy, 100 split
+    candidates, min-node-size 16, min-info-gain 0.001; by-level times,
+    children summing to their parents, a 2-tree run against the CPU."""
+    from oryx_tpu_torch.app.schema import InputSchema
+    from oryx_tpu_torch.common import config
+
+    schema = InputSchema(config.get_default().with_overlay(rdf_schema_config()))
+    t0 = time.perf_counter()
+    btr, ytr, bte, yte, num_bins = covtype_binned(encode, schema, rows, seed + 800)
+    n, p = btr.shape
+    kw = dict(num_trees=20, max_depth=8, impurity="entropy", min_node_size=16.0,
+              min_info_gain=0.001, seed=seed, exclude_features={54})
+    out = {"rows": n, "predictors": p, "bins": num_bins, "data_s": time.perf_counter() - t0,
+           **{k: v for k, v in kw.items() if k != "exclude_features"}}
+    held = 0.0
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    timer = LevelTimer(torch, kw["num_trees"], device)
+    forest, secs = timed_train(torch, tf, btr, ytr, device, num_bins=num_bins,
+                               num_classes=COVTYPE_CLASSES, stage=timer, **kw)
+    by_level = timer.ms()
+    forms = [tf.formulation(n, p, COVTYPE_CLASSES, 2 ** d, num_bins, "entropy", "auto")
+             for d in sorted(by_level)]
+    out.update(seconds=secs, rows_x_trees_per_s=n * kw["num_trees"] / secs["iterate"],
+               ms_by_level={d: {"formulation": forms[d], **v} for d, v in by_level.items()},
+               peak_memory_gb=((torch.cuda.max_memory_allocated() - held) / 1e9
+                               if device != "cpu" else None))
+    # every split node's children partition its stats exactly
+    for t in range(forest.num_trees):
+        for node in np.nonzero(forest.split_feature[t] >= 0)[0]:
+            kids = forest.node_stats[t, 2 * node + 1] + forest.node_stats[t, 2 * node + 2]
+            if not np.array_equal(kids, forest.node_stats[t, node]):
+                raise AssertionError(f"tree {t} node {node}: children do not sum to the parent")
+    out["split_nodes"] = int((forest.split_feature >= 0).sum())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    votes = tf.predict_forest_binned(forest, bte, device=device)
+    predict_ms = (time.perf_counter() - t1) * 1e3
+    out["accuracy"] = float((votes.argmax(axis=1) == yte).mean())
+    out["predict_ms"] = predict_ms
+    # two trees, the same seed, against the host path at full size
+    kw2 = dict(kw, num_trees=2)
+    card2, secs2 = timed_train(torch, tf, btr, ytr, device, num_bins=num_bins,
+                               num_classes=COVTYPE_CLASSES, **kw2)
+    cpu2, secs2c = timed_train(torch, tf, btr, ytr, "cpu", True, num_bins=num_bins,
+                               num_classes=COVTYPE_CLASSES, **kw2)
+    out["two_trees"] = {"seconds_card": secs2, "seconds_cpu": secs2c,
+                        **forest_parity(tf, card2, cpu2, btr, ytr, kw2, num_bins, device)}
+
+    rows_ = rdf_ops_rows(n, p, num_bins, COVTYPE_CLASSES, by_level, forms, kw["num_trees"])
+    depth = kw["max_depth"]
+    nodes = forest.split_feature.shape[1]
+    rows_["predict_forest_binned"] = {
+        "what": f"predict_forest_binned, {len(bte)} rows x {kw['num_trees']} trees, depth "
+                f"{depth} (wall: upload, descent, read-back)",
+        "ms": predict_ms, "launches": 1,
+        "bound": ops_bound(len(bte) * p * 4 + kw["num_trees"] * nodes * (8 + COVTYPE_CLASSES * 4)
+                           + len(bte) * COVTYPE_CLASSES * 4,
+                           len(bte) * kw["num_trees"] * ((depth + 1) * 4 + COVTYPE_CLASSES)),
+    }
+    return out, rows_
+
+
+def phase_rdf_train(torch, seed: int, rows: int = RDF_ROWS, device: str = "cuda") -> dict:
+    """Phase 10 (rdf-train): random-forest training through
+    ``ops/forest.py`` on the card (PyTorch ops: the JAX package runs them
+    through XLA, no Pallas kernel): (a) bench_rdf's configuration against
+    the CPU, (b) covtype's published size (both scaled by rows / 100,000).
+    Returns the RDF ops rows for the table of XLA-ported ops."""
+    from oryx_tpu_torch.app.rdf import encode
+    from oryx_tpu_torch.ops import forest as tf
+
+    scale_rows = max(2_000, int(COVTYPE_ROWS * rows / RDF_ROWS))
+    record = {"phase": "rdf-train"}
+    record["parity"], matmul_row = rdf_parity(torch, tf, seed, rows, device)
+    record["scale"], rows_ = rdf_scale(torch, tf, encode, seed, scale_rows, device)
+    rows_.update(matmul_row)  # (b) takes no matmul level at covtype's size
+    for row in rows_.values():
+        row["bound_ms"], row["bound_by"] = row.pop("bound")
+    record["ops"] = rows_
+    emit(record)
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return rows_
+
+
+def rdf_lambda_conf(root: str, ports: dict, batch_interval: int) -> str:
+    """conf/rdf-example.conf with the port's class names, one file: bus
+    under root, 20 trees, depth 8, test-fraction 0.1, the metrics UIs."""
+    return rdf_schema_config(f"""
+      id = "ChipSmokeRDF"
+      input-topic.broker = "file:{root}/bus"
+      update-topic.broker = "file:{root}/bus"
+      rdf {{
+        num-trees = {RDF_LAMBDA_TREES}
+        hyperparams {{ max-depth = {RDF_LAMBDA_DEPTH}, impurity = "entropy" }}
+      }}
+      ml.eval.test-fraction = 0.1
+      batch {{
+        streaming.generation-interval-sec = {batch_interval}
+        update-class = "oryx_tpu_torch.app.rdf.update:RDFUpdate"
+        storage {{ data-dir = "{root}/data/", model-dir = "{root}/model/" }}
+        ui.port = {ports["batch"]}
+      }}
+      speed {{
+        streaming.generation-interval-sec = 1
+        model-manager-class = "oryx_tpu_torch.app.rdf.speed:RDFSpeedModelManager"
+        ui.port = {ports["speed"]}
+      }}
+      serving {{
+        api.port = {ports["serving"]}
+        model-manager-class = "oryx_tpu_torch.app.rdf.serving:RDFServingModelManager"
+        application-resources = "oryx_tpu_torch.app.rdf.serving"
+      }}
+    """)
+
+
+def covtype_lines(x: np.ndarray, y) -> list[str]:
+    """CSV lines of conf/rdf-example.conf's schema: 10 numerics (4
+    decimals), 44 binaries, then the class (or an empty target)."""
+    cols = [np.char.mod("%.4f", x[:, :10])] + [x[:, 10:].astype(np.int32).astype(str)]
+    target = np.asarray([""] * len(x)) if y is None else np.asarray(y).astype(str)
+    table = np.concatenate(cols + [target[:, None]], axis=1)
+    return [",".join(r) for r in table.tolist()]
+
+
+def post_train(base: str, lines: list[str]) -> float:
+    """POST /train in bodies of RDF_TRAIN_LINES lines; the monotonic time
+    the last answer came."""
+    for j in range(0, len(lines), RDF_TRAIN_LINES):
+        body = ("\n".join(lines[j : j + RDF_TRAIN_LINES]) + "\n").encode()
+        req = urllib.request.Request(base + "/train", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            if resp.status != 204:
+                raise AssertionError(f"POST /train answered {resp.status}")
+    return time.monotonic()
+
+
+def rdf_published(loc: str, schema):
+    """The last MODEL on the update topic as the port's forest: (forest,
+    encodings, the PMML's model element name)."""
+    from oryx_tpu_torch import bus
+    from oryx_tpu_torch.app import pmml as app_pmml
+    from oryx_tpu_torch.app.rdf import forest_pmml
+    from oryx_tpu_torch.common import pmml as pmml_io
+
+    consumer = bus.get_broker(loc).consumer("OryxUpdate", from_beginning=True)
+    last = None
+    try:
+        while True:
+            records = consumer.poll(10_000, 0.5)
+            if not records:
+                break
+            last = next((r for r in reversed(records) if r.key in ("MODEL", "MODEL-REF")), last)
+    finally:
+        consumer.close()
+    if last is None:
+        raise AssertionError("no MODEL on the update topic")
+    root = app_pmml.read_pmml_from_update_message(last.key, last.message)
+    kind = "MiningModel" if pmml_io.find(root, "MiningModel") is not None else "TreeModel"
+    forest, encodings = forest_pmml.pmml_to_forest(root, schema)
+    return forest, encodings, kind
+
+
+def phase_rdf_lambda(seed: int, rows: int = RDF_ROWS, device: str = "cuda",
+                     batch_interval: int = LAMBDA_BATCH_INTERVAL_S) -> dict:
+    """Phase 11 (rdf-lambda): the RDF lambda loop as three OS processes on
+    one file: bus (``python -m oryx_tpu_torch batch|speed|serving``):
+    ``rows`` covtype-shaped lines POSTed to /train, one generation (20
+    trees, depth 8, test-fraction 0.1), the batch process stopped; /predict
+    on held-out lines equal to the published forest's own predictions,
+    /feature/importance; two speed waves of labelled lines at fixed probe
+    points, the speed process restarted between them, after each the
+    served /classificationDistribution equal (1e-12) to the published
+    forest with every wave's leaf counts added."""
+    import signal
+    import tempfile
+
+    from oryx_tpu_torch.app.rdf.serving import RDFServingModel
+    from oryx_tpu_torch.app.schema import InputSchema
+    from oryx_tpu_torch.common import config
+
+    x, y = covtype_shape(rows + RDF_PREDICT_LINES, seed=seed + 900)
+    lines = covtype_lines(x[:rows], y[:rows])
+    held_out = covtype_lines(x[rows:], None)
+    gen = np.random.default_rng(seed + 901)
+    px, _ = covtype_shape(RDF_PROBES, seed=seed + 902)
+    probes = covtype_lines(px, None)
+    waves = []
+    for _ in range(2):
+        at = gen.integers(0, RDF_PROBES, RDF_WAVE)
+        labels = gen.integers(0, COVTYPE_CLASSES, RDF_WAVE)
+        waves.append([probes[a] + str(c) for a, c in zip(at.tolist(), labels.tolist())])
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-rdf-")
+    os.makedirs(os.path.join(root, "logs"))
+    ports = {name: free_port() for name in ("batch", "speed", "serving")}
+    conf = os.path.join(root, "oryx-rdf.conf")
+    with open(conf, "w") as f:
+        f.write(rdf_lambda_conf(root, ports, batch_interval))
+    schema = InputSchema(config.get_default().with_overlay(rdf_lambda_conf(root, ports, 1)))
+    loc = f"file:{root}/bus"
+    base = f"http://127.0.0.1:{ports['serving']}"
+    procs: dict = {}
+    logs: list[str] = []
+    out = {"phase": "rdf-lambda", "lines": rows, "trees": RDF_LAMBDA_TREES,
+           "depth": RDF_LAMBDA_DEPTH, "bus": "file:", "batch_interval_s": batch_interval,
+           "wave_lines": RDF_WAVE, "probes": RDF_PROBES}
+
+    def start(layer: str, run: int = 1):
+        procs[layer], path = start_layer(layer, conf, root, device, run)
+        logs.append(path)
+        return path
+
+    def stop(name: str) -> int:
+        procs[name].send_signal(signal.SIGTERM)
+        return procs.pop(name).wait(timeout=120)
+
+    def live():
+        return list(procs.items())
+
+    def post(path: str, body: str):
+        req = urllib.request.Request(base + path, data=body.encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+
+    try:
+        from oryx_tpu_torch import bus
+
+        start("serving")
+        batch_log = start("batch")
+        speed_log = start("speed")
+        wait_until("layers up", lambda: log_has(batch_log, "BatchLayer started")
+                   and log_has(speed_log, "SpeedLayer started")
+                   and status_of(base + "/ready") == 503, procs=live())
+        t_post = time.monotonic()
+        t_last = post_train(base, lines)
+        out["train_post_s"] = t_last - t_post
+        wait_until("the generation", lambda: status_of(base + "/ready") == 200, procs=live())
+        out["generation_staleness_s"] = time.monotonic() - t_last
+        metrics_batch = wait_until(
+            "the batch generation's end",
+            lambda: (m := scrape(ports["batch"])).get("batch.generations", {}).get("value", 0) >= 1
+            and m,
+            procs=live(),
+        )
+        input_broker = bus.get_broker(loc)
+        latest = input_broker.latest_offsets("OryxInput")
+        drained = input_broker.get_offsets("OryxGroup-batch-ChipSmokeRDF", "OryxInput")
+        if drained != latest or sum(latest.values()) != rows:
+            raise AssertionError(f"the generation drained {drained} of {latest} ({rows} posted)")
+        out["batch_generation_s"] = hist_summary(metrics_batch["batch.generation.seconds"])
+        out["batch_phase_s"] = {
+            name[len("batch.phase."):-len(".seconds")]: metrics_batch[name].get("sum")
+            for name in metrics_batch if name.startswith("batch.phase.")
+        }
+        with open(batch_log, errors="replace") as f:
+            text = f.read()
+        found = re.findall(r"best candidate eval=([-0-9.e+naN]+)", text)
+        out["held_out_accuracy"] = float(found[-1]) if found else None
+        trained = re.findall(r"forest of \d+ trees on \d+ rows: init ([0-9.]+) s, "
+                             r"iterate ([0-9.]+) s", text)
+        out["train_forest_s"] = ({"init": float(trained[-1][0]), "iterate": float(trained[-1][1])}
+                                 if trained else None)
+        if stop("batch") != 0:
+            raise AssertionError("the batch process did not stop cleanly")
+
+        forest, encodings, kind = rdf_published(loc, schema)
+        out["published"] = kind
+        if kind != "MiningModel" or len(forest.trees) != RDF_LAMBDA_TREES:
+            raise AssertionError(f"published a {kind} of {len(forest.trees)} trees")
+        local = RDFServingModel(forest, encodings, schema)
+        tfi = schema.target_feature_index
+
+        # /predict on held-out lines: the published forest's own answers
+        status, served = post("/predict", "\n".join(held_out))
+        want = [encodings.value_for(tfi, local.predict(d).most_probable_index) for d in held_out]
+        if status != 200 or served != want:
+            bad = sum(a != b for a, b in zip(served, want))
+            raise AssertionError(f"/predict: {bad} of {len(want)} lines differ from the forest")
+        out["predict_lines_checked"] = len(want)
+        status, body, _ = http_get(base + "/feature/importance")
+        importances = json.loads(body)
+        names = sorted(importances, key=lambda k: -importances[k])
+        if status != 200 or sorted(importances) != sorted(str(j) for j in range(54)):
+            raise AssertionError(f"/feature/importance named {sorted(importances)}")
+        out["top_features"] = names[:5]
+        if names[0] not in ("0", "1", "2", "3", "13"):
+            raise AssertionError(f"the most important feature is {names[0]}, not a rule's")
+
+        # two speed waves at the probe points, the speed process restarted
+        wait_until("the speed model", lambda: log_has(speed_log, "RDF speed model"), procs=live())
+        probe_rows = [local._features_from(d) for d in probes]
+        expected = forest  # the published trees; each wave's leaf counts are added to it
+        for w, wave in enumerate(waves, start=1):
+            if w == 2:
+                out["speed_batch_s"] = hist_summary(scrape(ports["speed"])["speed.batch.seconds"])
+                if stop("speed") != 0:
+                    raise AssertionError("the speed process did not stop cleanly")
+                speed_log = start("speed", run=2)
+                wait_until("the restarted speed model",
+                           lambda: log_has(speed_log, "RDF speed model"), procs=live())
+            for line in wave:
+                row = local._features_from(line)
+                cat = encodings.index_for(tfi, line.rsplit(",", 1)[1])
+                for tree in expected.trees:
+                    tree.find_terminal(row).update(cat, 1)
+            want = [{encodings.value_for(tfi, i): float(q)
+                     for i, q in enumerate(expected.predict(r).probabilities)}
+                    for r in probe_rows]
+            t_last = post_train(base, wave)
+
+            def served_right():
+                for datum, exp in zip(probes, want):
+                    status, body, _ = http_get(
+                        f"{base}/classificationDistribution/{urllib.request.quote(datum)}")
+                    got = json.loads(body) if status == 200 else {}
+                    if sorted(got) != sorted(exp) or any(
+                            abs(got[k] - exp[k]) > 1e-12 for k in exp):
+                        return False
+                return True
+
+            wait_until(f"wave {w} served", served_right, procs=live())
+            out[f"wave{w}_staleness_s"] = time.monotonic() - t_last
+        out.setdefault("speed_batch_s_run2", hist_summary(
+            scrape(ports["speed"])["speed.batch.seconds"]))
+        for name in list(procs):
+            if stop(name) != 0:
+                raise AssertionError(f"the {name} process did not stop cleanly")
+    except BaseException:
+        for path in logs:
+            with open(path, errors="replace") as f:
+                tail = f.read()[-3000:]
+            print(f"--- {path} (tail) ---\n{tail}", file=sys.stderr, flush=True)
+        raise
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait(timeout=60)
+    emit(out)
+    return out
+
 
 def main() -> int:
     args = parse_args()
@@ -2240,8 +2914,11 @@ def main() -> int:
         name: als_lam["serving_launches"].get(name, 0) + als_lam["int8_launches"].get(name, 0)
         for name in SOURCES
     }
+    rdf_rows = phase_rdf_train(torch, args.seed, args.rdf_rows)
+    phase_rdf_lambda(args.seed, args.rdf_rows)
 
     emit({"als_ops": [{"name": name, **row} for name, row in als_rows.items()]})
+    emit({"rdf_ops": [{"name": name, **row} for name, row in rdf_rows.items()]})
     table = []
     for name in SOURCES:
         if launches[name] <= 0:

@@ -8,9 +8,10 @@ ported path is a CUDA kernel written by hand for Hopper
 keeps as its own copies. The modules mirror ``oryx_tpu``'s layout and
 names, so each has an obvious counterpart.
 
-Ported so far: the ALS and k-means lambda loops, each as ``python -m
-oryx_tpu_torch batch|speed|serving`` on one ``file:`` bus: ALS training,
-fold-in and serving, k-means training, drift and serving.
+Ported so far: the ALS, k-means and random-decision-forest lambda
+loops, each as ``python -m oryx_tpu_torch batch|speed|serving`` on one
+``file:`` bus: ALS training, fold-in and serving, k-means training, drift
+and serving, forest training, leaf updates and serving.
 """
 
 __version__ = "0.1.0"

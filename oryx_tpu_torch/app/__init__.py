@@ -1,3 +1,3 @@
 """App tier (counterpart of ``oryx_tpu/app``): schema/PMML glue and the
-ALS serving application.
+ALS, k-means and random-decision-forest applications.
 """

@@ -13,8 +13,9 @@ file <- ``--set`` overrides. The config must name the port's classes,
 e.g. ``model-manager-class =
 "oryx_tpu_torch.app.als.serving_model:ALSServingModelManager"``,
 ``application-resources = "oryx_tpu_torch.app.als"``, ``update-class =
-"oryx_tpu_torch.app.kmeans.update:KMeansUpdate"`` or, for the speed
-layer, ``model-manager-class =
+"oryx_tpu_torch.app.kmeans.update:KMeansUpdate"`` (or
+``"oryx_tpu_torch.app.rdf.update:RDFUpdate"``) or, for the speed layer,
+``model-manager-class =
 "oryx_tpu_torch.app.kmeans.speed:KMeansSpeedModelManager"``; a name under
 ``oryx_tpu`` is refused.
 """

@@ -18,7 +18,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # (other than oryx_tpu_torch) fails: every module of the port imports,
 # the serving path answers over HTTP on the CPU, the k-means batch path
 # trains one generation on a file: bus and the speed layer folds points
-# into its model, ALS trains (packing in forked workers) and folds in, and
+# into its model, ALS trains (packing in forked workers) and folds in, an
+# RDF generation trains on a file: bus and answers /predict, and
 # chip_smoke.py and scan_bench.py import.
 _ISOLATED = textwrap.dedent(
     r"""
@@ -135,6 +136,43 @@ _ISOLATED = textwrap.dedent(
     out = als.fold_in_batch(m.y.T @ m.y, m.x.T @ m.x, m.x[:3], ok, m.y[:3], ok,
                             np.ones(3, np.float32), True, backend="device")
     assert np.isfinite(out[0]).all() and out[0].shape == (3, 4)
+    # RDF: one generation trained by the port's forest ops on a file:
+    # bus, served by the port's RDF serving layer
+    rdf_tmp = tempfile.mkdtemp()
+    rdf_cfg = config.get_default().with_overlay(f'''
+        oryx {{
+          id = "IsolatedRDF"
+          input-topic.broker = "file:{rdf_tmp}/bus"
+          update-topic.broker = "file:{rdf_tmp}/bus"
+          input-schema {{ num-features = 3, numeric-features = ["0", "1"], target-feature = "2" }}
+          rdf {{ num-trees = 3, hyperparams.max-depth = 3 }}
+          ml.eval.test-fraction = 0
+          batch.update-class = "oryx_tpu_torch.app.rdf.update:RDFUpdate"
+          batch.storage {{ data-dir = "{rdf_tmp}/data/", model-dir = "{rdf_tmp}/model/" }}
+          serving {{
+            api.port = 0
+            model-manager-class = "oryx_tpu_torch.app.rdf.serving:RDFServingModelManager"
+            application-resources = "oryx_tpu_torch.app.rdf.serving"
+          }}
+        }}''')
+    batch = BatchLayer(rdf_cfg)
+    batch.prepare()
+    with bus.get_broker(f"file:{rdf_tmp}/bus").producer("OryxInput") as p:
+        for j in range(60):
+            x0 = gen.uniform(-5, 5)
+            p.send(None, f"{x0:.3f},{gen.uniform(-5, 5):.3f},{'pos' if x0 > 0 else 'neg'}")
+    batch.run_one_generation(timestamp_ms=9)
+    batch.close()
+    rdf_serving = ServingLayer(rdf_cfg)
+    rdf_serving.start()
+    rdf_base = f"http://127.0.0.1:{rdf_serving.port}"
+    deadline = time.monotonic() + 30
+    while rdf_serving.model_manager.get_model() is None:
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+    with urllib.request.urlopen(rdf_base + "/predict/4.0,0.0,", timeout=10) as resp:
+        assert json.loads(resp.read()) == "pos"
+    rdf_serving.close()
     import chip_smoke  # the chip scripts import nothing of JAX either
     import scan_bench
     leaked = sorted(m for m in sys.modules

@@ -140,12 +140,40 @@ Phases, each printing one JSON line:
    followed by /classificationDistribution at every probe equal (1e-12)
    to the published forest with every wave's leaf counts added; each
    wave's staleness (last POST to the served answer);
-12. the tables of the XLA-ported ALS ops (phase 8) and RDF ops (phase
-   10), then the kernel table: launches on the main paths (ALS during phases 3-4, k-means
-   during phase 6, each counted from zero just before; the scans also by
-   batch rows, per path; and the als-lambda serving processes' own) and
-   the numbers of phases 2 and 5;
-13. the card's name and power limit, then ``{"ok": true, "device": ...}``.
+12. ivf-ops: the IVF tier (``ops/ivf.py``) at the reference load
+   benchmark's widest catalog, 250 features x 20,000,000 items clustered
+   around 4,096 centers (tests/ops/test_ivf_scan.py:69-82's mixture, made
+   on the card; 5,000,000 items, and the cut printed, when the host has
+   not the memory for it): ``build_ivf`` by stage (sample k-means,
+   assignment, quantize, upload, layout), the index's device bytes and
+   the build's B3 launches; B3 at the build's shape (200,000 x 250,
+   k = 4,472) against its plain version, with its times and bound;
+   recall@10 against the exact int8 scan over the same items (its planes
+   un-permuted from the index's on the card, checked bit for bit against
+   ``upload_streaming`` on 65,536 of them; B1 at b = 256, B2 at b = 512)
+   at probe-fraction 0.01 (at least 0.95) and 0.3 (at least 0.99), with
+   ms per batch beside the exact scan's; each batch on the device path
+   with one host round trip; full probe at 1,000,000 items against the
+   exact scan (ids equal but for near ties, within check_topk's rtol);
+13. ivf-serving: phase 3's serve() with ``oryx.serving.scan.ann.enabled``
+   on a ``file:`` bus: 250 features x 1,000,000 int8 items around 1,000
+   centers, 100,000 users near them; 64 concurrent /recommend (p50, p99,
+   recall@10 against the exact float32 top-10 at least 0.95, the first
+   request's seconds with the build); a second layer on the bus that
+   builds its own index; 10,000 item fold-ins (and a user pointing at
+   each) as UP lines, past the overlay's 4,096 slots: the spill wakes the
+   maintainer (interval 1 s), whose compaction publishes an index
+   generation under the model dir; the second layer adopts the INDEX-REF
+   (both on one generation); every folded item in its user's /recommend,
+   and both layers answering the 64 probe users alike;
+14. the tables of the XLA-ported ALS ops (phase 8), RDF ops (phase 10)
+   and IVF ops (phases 12-13), then the kernel table: launches on the
+   main paths (ALS during phases 3-4, k-means during phase 6, each
+   counted from zero just before; the scans also by batch rows, per path;
+   the als-lambda serving processes' own; and the IVF phases' builds and
+   serving) and the numbers of phases 2 and 5, B3's also at phase 12's
+   shape;
+15. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the exit code is not 0. Without CUDA, or run
 from a directory that holds no ``oryx_tpu_torch``, it exits 2 before
@@ -196,6 +224,11 @@ RTOL = 1e-5
 # _b_bucket, up to LOCAL_TOPK_BATCH), and one batch past them
 SCAN_BATCHES = (8, 16, 32, 64, 128, 256)
 CANDIDATES_BATCH = 512
+# phase 2 times the plain and library versions in these dot cases only
+# (the kernel table's); every case is checked and its kernel timed. All
+# 42 cases were once timed: cut to keep the run inside its limit with the
+# IVF phases (printed on the "cuts" line)
+PHASE2_TIMED = (256, CANDIDATES_BATCH)
 # the wide scans: feature counts past the 1,024 whose query pieces stay
 # resident in shared memory, on planes of this many items
 WIDE_FEATURES = (1056, 2048, 4096)
@@ -219,6 +252,28 @@ KMEANS_EXTRA_SHAPES = (
     (20_000, 16, 10_000),
 )
 
+# the IVF phases: the reference load benchmark's widest catalog
+# (BASELINE.md:25-31, 250 features x 20M items) clustered around this many
+# centers; probe fractions (the default, and the load benchmark's LSH
+# sampleRate 0.3 as tools/load_benchmark.py maps it) and batch rows (B1's
+# largest bucket, then B2); full probe held to the exact scan within
+# check_topk's rtol
+IVF_ITEMS = 20_000_000
+IVF_CENTERS = 4096
+IVF_PROBE_FRACTIONS = (0.01, 0.3)
+IVF_BATCHES = (256, 512)
+IVF_FULL_RTOL = 1e-5
+# ivf-serving: 1M items around as many centers as its 1,000 cells (with
+# more centers than cells a cell's centroid mixes several and a center's
+# items spread over many cells), users near the same centers, and
+# fold-ins past the overlay's 4,096 slots
+IVF_SERVING_CENTERS = 1000
+IVF_SERVING_USERS = 100_000
+IVF_FOLDS = 10_000
+# users and items that arrive as UP lines on the update topic in serve();
+# the rest go through the batched setters
+SERVE_TOPIC_ROWS = 256
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -232,7 +287,7 @@ def parse_args(argv=None):
     p.add_argument("--requests", type=int, default=256)
     p.add_argument("--concurrency", type=int, default=64)
     p.add_argument("--seed", type=int, default=7)
-    p.add_argument("--als-iterations", type=int, default=ALS_SCALE_ITERATIONS,
+    p.add_argument("--als-iterations", type=int, default=ALS_RUN_ITERATIONS,
                    help="iterations of the MovieLens-25M-shaped ALS run (phase 8)")
     p.add_argument("--rdf-rows", type=int, default=RDF_ROWS,
                    help="training rows of rdf-train's parity run and of rdf-lambda; "
@@ -429,19 +484,27 @@ def phase_kernels(torch, stn, y: np.ndarray, seed: int) -> dict:
                 run = lambda: scan(q, up.mat_t, aux, n, m, cosine, quantized)  # noqa: E731
                 ms = device_ms(torch, run, 10)
                 call_ms = time_ms(torch, run, 10)
-                plain_ms = time_ms(
-                    torch, lambda: plain(q, up.mat_t, aux, n, m, cosine, quantized), 3
-                )
-                qs, qw = q.to(sort_plane.dtype), q.to(work_plane.dtype)
-                library_ms = time_ms(torch, lambda: library_sort(torch, qs, sort_plane, m), 3)
-                library_topk_ms = time_ms(torch, lambda: library_topk(torch, qw, work_plane, m), 3)
+                # the plain and library times (each a [b, n] product and a
+                # sort) only where the kernel table reads them (PHASE2_TIMED)
+                plain_ms = library_ms = library_topk_ms = None
+                merge_plain_ms = merge_lib_ms = merge_topk_ms = None
                 merge_ms = device_ms(torch, lambda: stn.topn_merge(cv, ci, m), 10)
-                merge_plain_ms = time_ms(torch, lambda: stn.topn_merge_plain(cv, ci, m), 3)
-                flat = cv.permute(1, 0, 2).reshape(b, -1).contiguous()
-                merge_lib_ms = time_ms(
-                    torch, lambda: torch.sort(flat, dim=1, descending=True, stable=True), 10
-                )
-                merge_topk_ms = time_ms(torch, lambda: torch.topk(flat, m, dim=1), 10)
+                if not cosine and b in PHASE2_TIMED:
+                    plain_ms = time_ms(
+                        torch, lambda: plain(q, up.mat_t, aux, n, m, cosine, quantized), 3
+                    )
+                    qs, qw = q.to(sort_plane.dtype), q.to(work_plane.dtype)
+                    library_ms = time_ms(torch, lambda: library_sort(torch, qs, sort_plane, m), 3)
+                    library_topk_ms = time_ms(
+                        torch, lambda: library_topk(torch, qw, work_plane, m), 3
+                    )
+                    merge_plain_ms = time_ms(torch, lambda: stn.topn_merge_plain(cv, ci, m), 3)
+                    flat = cv.permute(1, 0, 2).reshape(b, -1).contiguous()
+                    merge_lib_ms = time_ms(
+                        torch, lambda: torch.sort(flat, dim=1, descending=True, stable=True), 10
+                    )
+                    merge_topk_ms = time_ms(torch, lambda: torch.topk(flat, m, dim=1), 10)
+                    del flat
                 cand_bytes = cv.numel() * 8
                 bound_ms, bound_by = kernel_bound(dtype, b, y.shape[1], n, cand_bytes)
                 merge_bound = (cand_bytes + b * m * 8) / HBM_BYTES_PER_S * 1e3
@@ -465,7 +528,7 @@ def phase_kernels(torch, stn, y: np.ndarray, seed: int) -> dict:
                             library_topk_ms=merge_topk_ms, bound_ms=merge_bound,
                             bound_by="bytes",
                         )
-                del cv, ci, kv, ki, pv, pi, mv, mi, flat
+                del cv, ci, kv, ki, pv, pi, mv, mi
         del up, sort_plane, work_plane
         torch.cuda.empty_cache()
     check_planted_ties(torch, stn, y, seed)
@@ -700,7 +763,7 @@ def http_get(url: str) -> tuple[int, bytes, float]:
 def exact_top(torch, stn, y_dev, x_rows: np.ndarray, k: int):
     """Exact float32 top-k on the card (plain scan, ties to the lowest
     id): (values, ids) as numpy."""
-    q = torch.from_numpy(np.ascontiguousarray(x_rows)).cuda()
+    q = torch.from_numpy(np.ascontiguousarray(x_rows)).to(y_dev.device)
     aux = y_dev.norms
     v, i = stn.topn_merge_plain(
         *stn.topn_scan_plain(q, y_dev.mat_t, aux, y_dev.n_items, k, False, False), k
@@ -708,18 +771,10 @@ def exact_top(torch, stn, y_dev, x_rows: np.ndarray, k: int):
     return v.cpu().numpy(), i.cpu().numpy()
 
 
-def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_users):
-    """Start the port's ServingLayer, feed it over the update topic and
-    the batched setters, fire the requests; returns (layer, model,
-    {user: ids}, {user: values}, latencies, statuses)."""
-    from oryx_tpu_torch import bus
-    from oryx_tpu_torch.app import pmml as app_pmml
-    from oryx_tpu_torch.common import config as config_utils, pmml as pmml_io
-    from oryx_tpu_torch.common.text import join_json
-    from oryx_tpu_torch.serving.layer import ServingLayer
+def serving_config(broker_loc: str, score_dtype: str, extra: str = ""):
+    from oryx_tpu_torch.common import config as config_utils
 
-    broker_loc = f"inproc://chip-smoke-{score_dtype}"
-    cfg = config_utils.get_default().with_overlay(
+    return config_utils.get_default().with_overlay(
         f"""
         oryx {{
           input-topic.broker = "{broker_loc}"
@@ -730,12 +785,28 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
             model-manager-class = "oryx_tpu_torch.app.als.serving_model:ALSServingModelManager"
             application-resources = "oryx_tpu_torch.app.als"
           }}
+          {extra}
         }}
         """
     )
-    layer = ServingLayer(cfg)
+
+
+def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_users,
+          broker_loc: str | None = None, extra: str = ""):
+    """Start the port's ServingLayer (on an inproc bus unless
+    ``broker_loc`` names one, ``extra`` added to its config), feed it over
+    the update topic and the batched setters, fire the requests; returns
+    (layer, model, {user: ids}, {user: values}, latencies, statuses)."""
+    from oryx_tpu_torch import bus
+    from oryx_tpu_torch.app import pmml as app_pmml
+    from oryx_tpu_torch.common import pmml as pmml_io
+    from oryx_tpu_torch.common.text import join_json
+    from oryx_tpu_torch.serving.layer import ServingLayer
+
+    broker_loc = broker_loc or f"inproc://chip-smoke-{score_dtype}"
+    layer = ServingLayer(serving_config(broker_loc, score_dtype, extra))
     layer.start()
-    n_topic = 256  # users and items that arrive as UP lines on the topic
+    n_topic = SERVE_TOPIC_ROWS
     root = pmml_io.build_skeleton_pmml()
     app_pmml.add_extension(root, "features", args.features)
     app_pmml.add_extension(root, "implicit", "true")
@@ -1111,7 +1182,10 @@ def phase_kmeans_batch(pk, seed: int, scale: float = 1.0) -> dict:
 
 LAMBDA_WAVE = 20_000  # points of waves 2 and 3
 LAMBDA_BODY_LINES = 4_000  # CSV lines per POST /add
-LAMBDA_BATCH_INTERVAL_S = 45  # the batch process's generation interval
+# the batch process's generation interval: once 45 s, cut to 30 s (the
+# three lambda phases wait it out) to keep the whole run inside its limit
+# with the IVF phases; printed as a cut
+LAMBDA_BATCH_INTERVAL_S = 30
 LAMBDA_TIMEOUT_S = 600  # the longest any one step may take
 
 
@@ -1444,6 +1518,9 @@ ML1M = (6_040, 3_706, 1_000_209)
 ML25M = (162_541, 59_047, 25_000_095)
 ALS_SCALE_RANK = 200  # BASELINE.json's MovieLens-25M configuration
 ALS_SCALE_ITERATIONS = 10  # reference.conf; bench_als_scale's 3 is the cut
+# the scale run's iterations by default: cut to 5 to keep the whole run
+# inside its limit with the IVF phases; the phase prints the cut
+ALS_RUN_ITERATIONS = 5
 ALS_CHECK_ROWS = 512  # user rows of the scale run solved again on the CPU
 ALS_FOLD_EVENTS = 100_000
 ALS_FOLD_RANKS = (50, 200)
@@ -2769,6 +2846,531 @@ def phase_rdf_lambda(seed: int, rows: int = RDF_ROWS, device: str = "cuda",
     return out
 
 
+# -- phases 12 and 13: the IVF tier ---------------------------------------------------
+
+
+def clustered_catalog(torch, n: int, f: int, n_centers: int, seed: int, queries: int,
+                      spread: float = 0.3, device: str = "cuda"):
+    """tests/ops/test_ivf_scan.py:69-82's mixture at scale, made on the
+    device from ``seed`` in blocks of 1M rows: (items [n, f] f32 on the
+    host, queries [queries, f] f32 near the same centers, centers)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    centers = torch.randn((n_centers, f), generator=g, device=device)
+    out = np.empty((n, f), np.float32)
+    host = torch.from_numpy(out)
+    for beg in range(0, n, 1 << 20):
+        m = min(1 << 20, n - beg)
+        lab = torch.randint(0, n_centers, (m,), generator=g, device=device)
+        host[beg : beg + m].copy_(centers[lab] + spread * torch.randn((m, f), generator=g, device=device))
+    lab = torch.randint(0, n_centers, (queries,), generator=g, device=device)
+    q = centers[lab] + spread * torch.randn((queries, f), generator=g, device=device)
+    return out, q.cpu().numpy(), centers.cpu().numpy()
+
+
+def mem_available_bytes() -> int:
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def tensor_bytes(torch, index) -> int:
+    """Device bytes of every tensor an IVFIndex holds."""
+    return sum(
+        v.numel() * v.element_size() for v in vars(index).values() if isinstance(v, torch.Tensor)
+    )
+
+
+def exact_from_ivf(torch, stn, index):
+    """The exact int8 scan's handle over the IVF index's items, its planes
+    un-permuted on the card: per-row codes are the same function of each
+    row in both layouts (checked against ``upload_streaming`` on a
+    sample by the caller)."""
+    n = index.n_items
+    n_pad = max(stn.BLOCK_N, stn._ceil_to(n, stn.BLOCK_N))
+    dev = index.device
+    slots = torch.from_numpy(index.id_to_slot.astype(np.int64)).to(dev)
+    kf = index.mat_t.shape[0]
+
+    def plane(src):
+        out = torch.zeros((kf, n_pad), dtype=torch.int8, device=dev)
+        out[:, :n] = src[:, slots]
+        return out
+
+    def row(src, fill):
+        out = torch.full((1, n_pad), fill, dtype=torch.float32, device=dev)
+        out[0, :n] = src[0, slots]
+        return out
+
+    return stn.StreamingItemMatrix(
+        mat_t=plane(index.mat_t), norms=row(index.norms, 0.0), n_items=n,
+        scales=row(index.scales, 1.0),
+        features=index.features if kf != index.features else None,
+        resid=plane(index.resid), resid_scales=row(index.resid_scales, 1.0),
+    )
+
+
+def check_exact_codes(torch, stn, exact, mat: np.ndarray, rows: int = 65_536) -> None:
+    """The un-permuted planes equal a fresh ``upload_streaming`` of the
+    first ``rows`` items, bit for bit."""
+    fresh = stn.upload_streaming(mat[:rows], dtype=torch.int8, device=exact.device)
+    for name in ("mat_t", "resid", "scales", "resid_scales", "norms"):
+        a = getattr(fresh, name)[:, :rows]
+        b = getattr(exact, name)[:, :rows]
+        if not torch.equal(a, b):
+            raise AssertionError(f"ivf-ops: the exact handle's {name} differs from upload_streaming")
+
+
+def recall_of(got: np.ndarray, want: np.ndarray) -> float:
+    return sum(len(set(g) & set(w)) for g, w in zip(got.tolist(), want.tolist())) / want.size
+
+
+def ivf_sweep_check(torch, pk, mat: np.ndarray, index) -> dict:
+    """B3 at the build's shape: the sweep of a 200,000-row sample (the
+    build's own draw) against the trained k = round(sqrt(n)) centers of
+    250 features, against its plain version, with its times and bound."""
+    n = min(200_000, len(mat))
+    rows = np.random.default_rng(0).choice(len(mat), n, replace=False) if len(mat) > n else slice(None)
+    dev = index.device
+    pts = torch.from_numpy(pk.pad_to_block(np.ascontiguousarray(mat[rows]))).to(dev)
+    k = index.n_cells
+    kp = pk.padded_k(k)
+    d = index.features
+    ctr = torch.zeros((kp, d), dtype=torch.float32, device=dev)
+    ctr[:k] = index.centroids_t[:d].T
+    got = pk.sweep(pts, ctr, n, k)
+    ref = pk.sweep_plain(pts, ctr, n, k)
+    torch.cuda.synchronize()
+    case = f"sweep n={n} d={d} k={k}"
+    cmp = check_sweep(torch, case, pts, ctr, n, k, got, ref)
+    del ref
+    run = lambda: pk.sweep(pts, ctr, n, k)  # noqa: E731
+    out = {
+        "case": case, "kp": kp, **cmp,
+        "plan": pk.sweep_plan(kp, d, n, dev)[1] if dev.type == "cuda" else None,
+        "ms": device_ms(torch, run, 5), "call_ms": time_ms(torch, run, 5),
+        "plain_ms": time_ms(torch, lambda: pk.sweep_plain(pts, ctr, n, k), 2),
+        "library_ms": time_ms(torch, lambda: library_sweep(torch, pts, ctr, n, k), 3),
+    }
+    out["bound_ms"], out["bound_by"] = sweep_bound(n, d, kp, k)
+    return out
+
+
+def ivf_op_rows(torch, stn, ivf, index, queries: np.ndarray, k: int, nprobe: int,
+                build_counts: dict, batch_counts: dict) -> dict:
+    """CUDA-event times of the tier's PyTorch ops at this run's shapes,
+    each beside its bound (ops_bound): one assignment block of the build,
+    one stage-1 piece (gather, convert, product, chunk max) of the first
+    query group, that group's two-plane rescore and its overlay scan at
+    full capacity."""
+    from oryx_tpu_torch.device import full_float32 as no_tf32
+
+    kf = index.mat_t.shape[0]
+    feat = index.features
+    cells = index.n_cells
+    dev = index.device
+    cents = index.centroids_t[:feat].T.contiguous()
+    blk = torch.randn((ivf._ASSIGN_BLOCK, feat), device=dev)
+    half = 0.5 * torch.sum(cents * cents, 1)[None, :]
+    cent_t = cents.T.contiguous()
+
+    def assign():
+        with no_tf32():
+            return torch.argmin(-(blk @ cent_t - half), dim=1)
+
+    q = ivf._padded_queries(index, queries[: ivf.QUERY_BLOCK])
+    cells_np = ivf._route_cells(index, q, nprobe, False).cpu().numpy()
+    tl = ivf._group_tile_lists(index, cells_np, len(q))[0]
+    ts = index.tile_chunks * index.chunk
+    per = max(1, ivf._PIECE_BYTES // (ts * kf * 4))
+    tiles = torch.from_numpy(tl[:per]).to(dev)
+    rows3 = index.mat_rows.view(-1, ts, kf)
+    scales_t = index.scales.view(-1, ts)
+    sids_t = index.slot_ids.view(-1, ts)
+
+    def stage1():
+        slab = rows3.index_select(0, tiles).reshape(-1, kf).float()
+        with no_tf32():
+            sc = slab @ q.T
+        sc = sc * scales_t.index_select(0, tiles).reshape(-1, 1)
+        sc = torch.where(sids_t.index_select(0, tiles).reshape(-1, 1) >= 0, sc, -math.inf)
+        return sc.view(-1, index.chunk, q.shape[0]).amax(dim=1)
+
+    kc = stn._chunk_k(k, ivf._pow2_ceil(len(tl)) * index.tile_chunks)
+    m = kc * index.chunk
+    iid = torch.randint(0, index.n_slots, (q.shape[0], m), device=dev)
+
+    def rescore():
+        return stn.gathered_pair_scores(
+            index.mat_t, index.resid, index.scales, index.resid_scales, index.norms,
+            q, None, iid, cosine=False,
+        )
+
+    ov = index.ov_rows
+
+    def overlay():
+        with no_tf32():
+            return q @ ov.T
+
+    g = q.shape[0]
+    piece_slots = len(tiles) * ts
+    return {
+        "ivf_assign": {
+            "what": f"assignment, one block of {ivf._ASSIGN_BLOCK} rows x {cells} cells x {feat}",
+            "ms": device_ms(torch, assign, 10), "launches": build_counts["assign_blocks"],
+            "bound": ops_bound(ivf._ASSIGN_BLOCK * feat * 4 + cells * feat * 4 + ivf._ASSIGN_BLOCK * 8,
+                               2.0 * ivf._ASSIGN_BLOCK * cells * feat),
+        },
+        "ivf_stage1": {
+            "what": f"stage-1 piece: {len(tiles)} tiles ({piece_slots} slots) x {g} queries, "
+                    f"gather + float32 + product + chunk max",
+            "ms": device_ms(torch, stage1, 10), "launches": batch_counts["pieces"],
+            "bound": ops_bound(piece_slots * (kf + 8) + piece_slots // index.chunk * g * 4,
+                               2.0 * piece_slots * kf * g),
+        },
+        "ivf_rescore": {
+            "what": f"two-plane rescore of {g} queries x {m} candidates (gathered_pair_scores)",
+            "ms": device_ms(torch, rescore, 10), "launches": batch_counts["groups"],
+            "bound": ops_bound(g * m * (2 * kf + 12) + g * m * 4, 4.0 * g * m * kf),
+        },
+        "ivf_overlay": {
+            "what": f"overlay scan, {g} queries x {ov.shape[0]} rows (full capacity)",
+            "ms": device_ms(torch, overlay, 10), "launches": batch_counts["groups"],
+            "bound": ops_bound(ov.numel() * 4 + g * ov.shape[0] * 4, 2.0 * g * ov.numel()),
+        },
+    }
+
+
+def phase_ivf_ops(torch, stn, pk, seed: int, items: int = IVF_ITEMS, features: int = 250,
+                  device: str = "cuda") -> dict:
+    """The IVF tier's ops at the reference load benchmark's widest shape
+    (BASELINE.md: 250 features x 20M items): build by stage, B3 at
+    k = round(sqrt(n)) against its plain version, recall@10 and ms per
+    batch against the exact int8 scan (B1 at b = 256, B2 at b = 512) at
+    probe-fraction 0.01 and 0.3, and full probe at 1M items against the
+    exact scan. Returns {"launches", "sweep", "ops"}."""
+    from oryx_tpu_torch.ops import ivf
+
+    need = items * features * 4 * 2.2  # the catalog, the build's transients, the yardstick
+    cut = None
+    if mem_available_bytes() < need:
+        cut = {"items": items, "to": 5_000_000, "mem_available_gb": mem_available_bytes() / 2**30}
+        items = 5_000_000
+        emit({"phase": "ivf-ops", "cut": cut})
+    t0 = time.perf_counter()
+    mat, queries, _ = clustered_catalog(
+        torch, items, features, IVF_CENTERS, seed + 900, 512, device=device
+    )
+    data_s = time.perf_counter() - t0
+    ivf.configure_ann(host_stage1=None)
+    pk.reset_launch_counts()
+    stn.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = ivf.build_ivf(mat, device=device)
+    build_s = time.perf_counter() - t0
+    build_launches = {**pk.launch_counts(), **stn.launch_counts()}
+    stages = dict(ivf.last_build_seconds)
+    out = {
+        "phase": "ivf-ops", "items": items, "features": features, "centers": IVF_CENTERS,
+        "cells": index.n_cells, "n_slots": index.n_slots, "data_s": data_s, "build_s": build_s,
+        "build_stages_s": stages, "index_device_bytes": tensor_bytes(torch, index),
+        "build_launches": build_launches,
+        "cell_items_min_median_max": [
+            int(c) for c in np.percentile(index.chunk_count_host * index.chunk, [0, 50, 100])
+        ],
+    }
+    if build_launches["kmeans_sweep.tc"] <= 0 and device == "cuda":
+        raise AssertionError("ivf-ops: the build launched no kmeans_sweep.tc")
+    if any(build_launches[n] for n in build_launches if n != "kmeans_sweep.tc"):
+        raise AssertionError(f"ivf-ops: the build launched {build_launches}")
+    sweep = ivf_sweep_check(torch, pk, mat, index)
+    emit({"phase": "ivf-ops", "b3": sweep})
+
+    exact = exact_from_ivf(torch, stn, index)
+    check_exact_codes(torch, stn, exact, mat)
+    runs = []
+    batch_counts = None
+    for pf in IVF_PROBE_FRACTIONS:
+        nprobe = max(1, int(round(pf * index.n_cells)))
+        for b in IVF_BATCHES:
+            q = queries[:b]
+            stn.reset_launch_counts()
+            ev, ei = stn.top_k_streaming_device(exact, q, 10)
+            exact_keys = {n: c for n, c in stn.launch_counts().items() if c}
+            if device != "cuda":  # the plain versions count no launch
+                exact_keys = {"topn_scan.tc" if b <= stn.LOCAL_TOPK_BATCH else "topn_candidates.tc": 1}
+            ivf.reset_counts()
+            _, ii = ivf.top_k_device(index, q, 10, nprobe=nprobe)
+            counts = ivf.counts()
+            if counts["device"] != 1 or counts["host"] or counts["route_syncs"] != 1:
+                raise AssertionError(f"ivf-ops: the batch took {counts}, not the device path once")
+            if pf == IVF_PROBE_FRACTIONS[0] and b == IVF_BATCHES[-1]:
+                batch_counts = counts
+            rec = recall_of(ii.cpu().numpy(), ei.cpu().numpy())
+            reps = 2 if pf > 0.1 else 5
+            run = {
+                "probe_fraction": pf, "nprobe": nprobe, "b": b, "recall_at_10": rec,
+                "groups": counts["groups"], "stage1_pieces": counts["pieces"],
+                "ms": time_ms(torch, lambda: ivf.top_k_device(index, q, 10, nprobe=nprobe), reps),
+                "exact_ms": time_ms(torch, lambda: stn.top_k_streaming_device(exact, q, 10), 5),
+                "exact_launch_keys": sorted(exact_keys),
+            }
+            runs.append(run)
+            emit({"phase": "ivf-ops", **run})
+            bar = 0.95 if pf < 0.1 else 0.99
+            if rec < bar:
+                raise AssertionError(f"ivf-ops: recall@10 {rec} at probe-fraction {pf}, b = {b}: below {bar}")
+    want = {256: "topn_scan.tc", 512: "topn_candidates.tc"}
+    for run in runs:
+        if want[run["b"]] not in run["exact_launch_keys"]:
+            raise AssertionError(f"ivf-ops: the exact scan at b = {run['b']} took {run['exact_launch_keys']}")
+    ops = ivf_op_rows(
+        torch, stn, ivf, index, queries, 10, max(1, int(round(IVF_PROBE_FRACTIONS[0] * index.n_cells))),
+        {"assign_blocks": -(-items // ivf._ASSIGN_BLOCK)}, batch_counts,
+    )
+    del exact, index
+    torch.cuda.empty_cache()
+
+    # full probe at 1M items: every item rescored, against the exact scan
+    n1 = min(1_000_000, items)
+    small = ivf.build_ivf(mat[:n1], device=device)
+    exact1 = stn.upload_streaming(mat[:n1], dtype=torch.int8, device=device)
+    del mat
+    q = queries[:64]
+    ivf.reset_counts()
+    fv, fi = ivf.top_k_device(small, q, 10, nprobe=small.n_cells)
+    if ivf.counts()["full"] != 1:
+        raise AssertionError(f"ivf-ops: full probe took {ivf.counts()}")
+    ev, ei = stn.top_k_streaming_device(exact1, q, 10)
+    err = check_topk("ivf full probe against the exact int8 scan", fv.cpu().numpy(), fi.cpu().numpy(),
+                     ev.cpu().numpy(), ei.cpu().numpy(), rtol=IVF_FULL_RTOL)
+    differ = int((fi.cpu().numpy() != ei.cpu().numpy()).sum())
+    out.update(cut=cut, runs=runs, full_probe={
+        "items": n1, "cells": small.n_cells, "queries": len(q), "max_abs_err": err,
+        "rtol": IVF_FULL_RTOL, "ids_differing_at_near_ties": differ,
+        "ms": time_ms(torch, lambda: ivf.top_k_device(small, q, 10, nprobe=small.n_cells), 2),
+    })
+    emit({k: v for k, v in out.items() if k != "runs"})
+    del small, exact1
+    torch.cuda.empty_cache()
+    return {"launches": build_launches, "sweep": sweep, "ops": ops}
+
+
+def ivf_serving_extra(root: str) -> str:
+    return f"""
+        batch.storage.model-dir = "{root}/model"
+        serving.scan.ann {{
+          enabled = true
+          maintain {{ enabled = true, interval-sec = 1.0, publish = true }}
+        }}
+    """
+
+
+def start_replica(broker_loc: str, extra: str, x: np.ndarray, y: np.ndarray):
+    """A second port ServingLayer on the same bus: it replays the MODEL
+    and UP lines there, then takes the bulk of the vectors through the
+    batched setters, as serve() loads its layer."""
+    from oryx_tpu_torch.serving.layer import ServingLayer
+
+    layer = ServingLayer(serving_config(broker_loc, "int8", extra))
+    layer.start()
+    deadline = time.monotonic() + 120
+    while True:
+        model = layer.model_manager.get_model() if layer.model_manager else None
+        if model is not None and model.y.size() >= SERVE_TOPIC_ROWS and model.x.size() >= SERVE_TOPIC_ROWS:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError("the replica never loaded the model")
+        time.sleep(0.05)
+    model.set_item_vectors([f"i{j}" for j in range(SERVE_TOPIC_ROWS, len(y))], y[SERVE_TOPIC_ROWS:])
+    model.set_user_vectors([f"u{j}" for j in range(SERVE_TOPIC_ROWS, len(x))], x[SERVE_TOPIC_ROWS:])
+    return layer, model
+
+
+def wait_for(what: str, pred, timeout: float) -> float:
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"ivf-serving: {what} within {timeout} s")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def phase_ivf_serving(torch, args, stn, pk, seed: int, items: int = 1_000_000,
+                      folds: int = IVF_FOLDS, device: str = "cuda") -> dict:
+    """Phase 3's serve() path with the IVF tier on: 250 features x 1M
+    clustered int8 items on a file: bus, 64 concurrent /recommend (p50,
+    p99, recall@10 against the exact float32 top-10, the first request's
+    seconds with the build), 10,000 item fold-ins past the overlay's 4,096
+    slots (spill, background compaction at a 1 s interval, every folded
+    item visible in /recommend), and a second layer on the bus adopting
+    the published INDEX-REF. Returns the launches of the serving path."""
+    import tempfile
+
+    from oryx_tpu_torch.ops import ivf
+    from oryx_tpu_torch.serving import maintain
+
+    users, f = min(IVF_SERVING_USERS, items // 10), args.features
+    n_centers = min(IVF_SERVING_CENTERS, items // 1000)
+    y, x, centers = clustered_catalog(torch, items, f, n_centers, seed + 901, users, device=device)
+    gen = np.random.default_rng(seed + 902)
+    probe = sorted(gen.choice(np.arange(SERVE_TOPIC_ROWS, users), size=args.concurrency, replace=False))
+    y_exact = stn.upload_streaming(y, dtype=torch.float32, device=device)
+    _, ref_i = exact_top(torch, stn, y_exact, x[probe], 10)
+    del y_exact
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip-smoke-ivf-")
+    broker_loc = f"file:{root}/bus"
+    extra = ivf_serving_extra(root)
+    ivf.reset_counts()
+    pk.reset_launch_counts()
+    stn.reset_launch_counts()
+    layer, model, bodies, statuses, lat, info = serve(
+        torch, args, "int8", x, y, probe, broker_loc=broker_loc, extra=extra
+    )
+    replica = None
+    try:
+        build_stages = dict(ivf.last_build_seconds)
+        index = model._ensure_y_matrix()[2]
+        if not isinstance(index, ivf.IVFIndex):
+            raise AssertionError(f"ivf-serving: the model serves {type(index).__name__}, not IVF")
+        if any(s != 200 for s in statuses):
+            raise AssertionError(f"ivf-serving: statuses {sorted(set(statuses))}")
+        recall = sum(
+            len({r["id"] for r in bodies[str(u)]} & {f"i{j}" for j in ref_i[row]})
+            for row, u in enumerate(probe)
+        ) / (10.0 * len(probe))
+        served = ivf.counts()
+        launches = {**pk.launch_counts(), **stn.launch_counts()}
+        out = {
+            "phase": "ivf-serving", "items": items, "users": users, "features": f,
+            "centers": n_centers, "cells": index.n_cells,
+            "nprobe": index.resolve_nprobe(), "requests": len(lat),
+            "concurrency": args.concurrency, "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))], "recall_at_10": recall,
+            "build_stages_s": build_stages, "ann_batches": served, "launches": launches, **info,
+        }
+        if recall < 0.95:
+            raise AssertionError(f"ivf-serving: recall@10 {recall}, below 0.95")
+        if served["device"] <= 0 or served["host"] or served["route_syncs"] != served["device"]:
+            raise AssertionError(f"ivf-serving: the scans took {served}")
+        if launches["kmeans_sweep.tc"] <= 0 and device == "cuda":
+            raise AssertionError("ivf-serving: the index build launched no kmeans_sweep.tc")
+
+        # the replica builds its own index first, as a fresh replica would
+        replica, rmodel = start_replica(broker_loc, extra, x, y)
+        rbase = f"http://127.0.0.1:{replica.port}"
+        status, _, out["replica_first_request_s"] = http_get(f"{rbase}/recommend/u{probe[0]}")
+        if status != 200:
+            raise AssertionError(f"ivf-serving: the replica answered {status}")
+
+        # fold-ins: items near the catalog's centers, scaled by 1.5, and a
+        # user pointing at each, over the update topic to both layers
+        n_fold = folds
+        lab = gen.integers(0, n_centers, n_fold)
+        folds = (1.5 * (centers[lab] + 0.3 * gen.standard_normal((n_fold, f)))).astype(np.float32)
+        from oryx_tpu_torch import bus
+        from oryx_tpu_torch.common.text import join_json
+
+        wait_for("the maintainer hooked the model", lambda: model._index_pressure_cb is not None, 60)
+        t0 = time.perf_counter()
+        lines = []
+        for j, vec in enumerate(folds.tolist()):
+            lines += [("UP", join_json(["Y", f"f{j}", vec])), ("UP", join_json(["X", f"v{j}", vec]))]
+        with bus.get_broker(broker_loc).producer("OryxUpdate") as p:
+            p.send_many(lines)
+        send_s = time.perf_counter() - t0
+        for m in (model, rmodel):
+            wait_for("the fold-ins arrived", lambda m=m: m.y.size() == items + n_fold
+                     and m.x.size() == users + n_fold, 300)
+        base = f"http://127.0.0.1:{layer.port}"
+        t_fold = time.monotonic()
+        # the refresh after the model's throttle folds them into the overlay
+        time.sleep(0.3)
+        http_get(f"{base}/recommend/u{probe[0]}")
+        folded = model._ensure_y_matrix()[2]
+        spilled = len(folded.pending_spill or {}) if isinstance(folded, ivf.IVFIndex) else None
+        wait_for("a compaction installed and published", lambda: model.index_generation is not None, 300)
+        published_s = time.monotonic() - t_fold
+        gid = model.index_generation
+        wait_for("the replica adopted the generation", lambda: rmodel.index_generation == gid, 300)
+        adopted_s = time.monotonic() - t_fold
+        stats = dict(layer._index_maintainer.last_stats or {})
+        stats.pop("born", None)
+        compacted = model._ensure_y_matrix()[2]
+        if compacted.pending_spill or compacted.ov_used:
+            raise AssertionError(
+                f"ivf-serving: {compacted.ov_used} overlay rows and "
+                f"{len(compacted.pending_spill)} spilled left after compaction"
+            )
+
+        # every folded item is visible: /recommend/v{j} holds f{j}
+        urls = [f"{base}/recommend/v{j}" for j in range(n_fold)]
+        with ThreadPoolExecutor(args.concurrency) as pool:
+            res = list(pool.map(http_get, urls))
+        missing, top1 = [], 0
+        for j, (status, body, _) in enumerate(res):
+            ids = [r["id"] for r in json.loads(body)] if status == 200 else []
+            if f"f{j}" not in ids:
+                missing.append(j)
+            top1 += bool(ids) and ids[0] == f"f{j}"
+        if missing:
+            raise AssertionError(f"ivf-serving: {len(missing)} folded items not visible, e.g. f{missing[0]}")
+
+        # both replicas on one generation answer alike
+        same = 0
+        for u in probe:
+            a = [r["id"] for r in json.loads(http_get(f"{base}/recommend/u{u}")[1])]
+            b = [r["id"] for r in json.loads(http_get(f"{rbase}/recommend/u{u}")[1])]
+            same += a == b
+        if same != len(probe):
+            raise AssertionError(f"ivf-serving: the replicas agree on {same} of {len(probe)} users")
+        out.update(
+            folds=n_fold, fold_send_s=send_s, spilled_at_refresh=spilled,
+            published_after_s=published_s, adopted_after_s=adopted_s, index_generation=gid,
+            compaction=stats, freshness_s=metrics_gauge(maintain.FRESHNESS_GAUGE),
+            folds_visible=n_fold - len(missing), folds_top1=top1, replicas_agree=same,
+            ann_batches=ivf.counts(), launches={**pk.launch_counts(), **stn.launch_counts()},
+        )
+        emit(out)
+        live = stats.get("live", 0) + stats.get("folded", 0)
+        kf = compacted.mat_t.shape[0]
+        compact_row = {
+            "what": f"compact_ivf of {stats.get('folded')} fold-ins into {live} items "
+                    f"(wall, host included)",
+            "ms": 1e3 * stats.get("compact_seconds", math.nan),
+            "launches": layer._index_maintainer.compactions,
+            # read back the live rows' planes, write the new layout
+            "bound": ops_bound(2.0 * live * (3 * kf + 16), 0.0),
+        }
+        return {"launches": {**pk.launch_counts(), **stn.launch_counts()},
+                "compact_row": compact_row}
+    finally:
+        if replica is not None:
+            replica.close()
+        layer.close()
+        torch.cuda.empty_cache()
+
+
+def metrics_gauge(name: str):
+    from oryx_tpu_torch.common.metrics import registry
+
+    return registry.gauge(name).value
+
+
+class PhaseClock:
+    """Prints each phase's wall seconds, and the run's so far."""
+
+    def __init__(self, start: float) -> None:
+        self.start = self.last = start
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        emit({"phase": "clock", "after": phase, "s": now - self.last, "total_s": now - self.start})
+        self.last = now
+
+
 def main() -> int:
     args = parse_args()
     if not os.path.isdir(os.path.join(HERE, "oryx_tpu_torch", "csrc")):
@@ -2812,16 +3414,23 @@ def main() -> int:
         "ptxas_kernels": ptxas_kernels(log),
     })
 
+    emit({"phase": "cuts", "lambda_batch_interval_s": [45, LAMBDA_BATCH_INTERVAL_S],
+          "als_scale_iterations": [ALS_SCALE_ITERATIONS, args.als_iterations],
+          "phase2_plain_and_library_times": f"dot, b in {PHASE2_TIMED} (once all cases)"})
+    clock = PhaseClock(t0)
     gen = np.random.default_rng(args.seed)
     y = factors(gen, args.items, args.features)
     x = factors(gen, args.users, args.features)
 
+    clock("card")
     kernels = phase_kernels(torch, stn, y, args.seed)
     missing = [name for name in SOURCES if name.startswith("topn") and name not in kernels]
     if missing:
         raise AssertionError(f"no phase-2 case took {missing}")
     check_widest_query_tile(torch, stn, args.items, args.seed)
+    clock("kernels")
     check_wide_scans(torch, stn, args.seed)
+    clock("wide-scans")
 
     probe = sorted(gen.choice(np.arange(256, args.users), size=args.concurrency, replace=False))
     y_exact = stn.upload_streaming(y, dtype=torch.float32, device="cuda")
@@ -2901,24 +3510,43 @@ def main() -> int:
     # the main path ends here
     del model, layer, y_exact
     torch.cuda.empty_cache()
+    clock("serving")
 
     kernels.update(phase_kmeans_kernels(torch, pk, args.seed))
+    clock("kmeans-kernels")
     launches.update(phase_kmeans_batch(pk, args.seed))
+    clock("kmeans-batch")
     torch.cuda.empty_cache()  # the lambda phase's batch process shares the card
     lam = phase_kmeans_lambda(args.seed)
+    clock("kmeans-lambda")
     if lam["batch_launches"].get("kmeans_sweep.tc", 0) <= 0:
         raise AssertionError(f"the batch process launched {lam['batch_launches']}")
     als_rows = phase_als_train(torch, args.seed, args.als_iterations)
+    clock("als-train")
     als_lam = phase_als_lambda(args.seed)
+    clock("als-lambda")
     als_launches = {
         name: als_lam["serving_launches"].get(name, 0) + als_lam["int8_launches"].get(name, 0)
         for name in SOURCES
     }
     rdf_rows = phase_rdf_train(torch, args.seed, args.rdf_rows)
+    clock("rdf-train")
     phase_rdf_lambda(args.seed, args.rdf_rows)
+    clock("rdf-lambda")
+    ivf_ops = phase_ivf_ops(torch, stn, pk, args.seed, features=args.features)
+    clock("ivf-ops")
+    ivf_srv = phase_ivf_serving(torch, args, stn, pk, args.seed)
+    clock("ivf-serving")
+    ivf_launches = {
+        name: ivf_ops["launches"].get(name, 0) + ivf_srv["launches"].get(name, 0)
+        for name in SOURCES
+    }
+    ivf_rows = dict(ivf_ops["ops"])
+    ivf_rows["ivf_compact"] = ivf_srv["compact_row"]
 
     emit({"als_ops": [{"name": name, **row} for name, row in als_rows.items()]})
     emit({"rdf_ops": [{"name": name, **row} for name, row in rdf_rows.items()]})
+    emit({"ivf_ops": [{"name": name, **row} for name, row in ivf_rows.items()]})
     table = []
     for name in SOURCES:
         if launches[name] <= 0:
@@ -2926,9 +3554,11 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "als_lambda_launches": als_launches[name],
-            "parity": "ok", "library_topk_ms": None,
+            "ivf_launches": ivf_launches[name], "parity": "ok", "library_topk_ms": None,
             **kernels[name],
         })
+        if name == "kmeans_sweep.tc":
+            table[-1]["ivf_sweep"] = ivf_ops["sweep"]
     emit({"kernels": table})
     print(smi, flush=True)
     emit({

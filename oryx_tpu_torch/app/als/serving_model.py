@@ -11,10 +11,17 @@ With the user matrix X staged on the card next to Y, ``/recommend`` for
 a known user ships an int32 row index instead of a query vector (index
 submit).
 
+With ``oryx.serving.scan.ann.enabled`` an int8 catalog of at least
+``min-items`` items is served by the IVF tier (``ops/ivf.py``) instead:
+the index is built at refresh, fold-ins go through its pending overlay
+(waking the background maintainer of ``serving/maintain.py`` when the
+overlay fills), the maintainer's compactions install with one pointer
+swap, and an ``INDEX-REF`` on the update topic makes the model adopt a
+published index generation.
+
 Not ported yet, and refused at construction: LSH candidate pruning
-(``sample-rate < 1``), the mesh-sharded item matrix (``shard-items``),
-the IVF tier (``oryx.serving.scan.ann.enabled``) and with it INDEX-REF
-index generations.
+(``sample-rate < 1``), the mesh-sharded item matrix (``shard-items``)
+and the tiered item store (``oryx.serving.store.tier.enabled``).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.lang import ReadWriteLock
 from oryx_tpu_torch.common.text import read_json
 from oryx_tpu_torch.common.vectormath import Solver, get_solver
+from oryx_tpu_torch.ops import ivf as ivf_ops
 from oryx_tpu_torch.ops import topn as topn_ops
 from oryx_tpu_torch.serving.batcher import score_default, score_indexed_default
 
@@ -105,11 +113,23 @@ class ALSServingModel(ServingModel):
         self._refresh_sec = refresh_sec
         self._y_ids: list[str] = []
         self._y_index: dict[str, int] = {}
-        self._y_matrix = None  # StreamingItemMatrix
+        self._y_matrix = None  # StreamingItemMatrix or IVFIndex
         # incremental refresh state: ids written since the last build, and
         # whether membership may have shrunk (rotation) forcing a rebuild
         self._dirty_ids: set[str] = set()
         self._y_full_rebuild = True
+        # IVF maintenance handshake (serving/maintain.py): the build epoch
+        # bumps on every full rebuild or index swap, so a compaction whose
+        # snapshot predates the current id space is discarded at install;
+        # the pressure callback wakes the maintainer when a fold-in batch
+        # crosses the overlay watermark or spills
+        self._y_build_epoch = 0
+        self._y_snapshot_epoch = -1
+        # bumps on every rotation: an index adoption built from a
+        # pre-rotation store snapshot is discarded
+        self._y_rotation_epoch = 0
+        self._index_pressure_cb = None
+        self._index_generation: str | None = None
         # card copy of X (query matrix for index-submitted /recommend)
         self._x_ids: list[str] = []
         self._x_index: dict[str, int] = {}
@@ -248,6 +268,7 @@ class ALSServingModel(ServingModel):
         with self._cache_lock:
             self._y_dirty = True
             self._y_full_rebuild = True  # membership may have shrunk
+            self._y_rotation_epoch += 1
 
     def retain_recent_and_known_items(self, user_ids: set[str]) -> None:
         with self._known_lock.write():
@@ -272,8 +293,13 @@ class ALSServingModel(ServingModel):
         if not np.all(valid):
             return False
         new_ids = [d for d in dirty if d not in self._y_index]
+        ivf = isinstance(self._y_matrix, ivf_ops.IVFIndex)
         if len(self._y_ids) + len(new_ids) > topn_ops.capacity(self._y_matrix):
-            return False
+            # an IVF index with a maintainer attached absorbs the growth:
+            # the overlay spills its oldest entries to the compaction queue
+            # instead of forcing a re-cluster on the request path
+            if not (ivf and self._index_pressure_cb is not None):
+                return False
         for d in new_ids:  # append into the padded region
             self._y_index[d] = len(self._y_ids)
             self._y_ids.append(d)
@@ -283,6 +309,9 @@ class ALSServingModel(ServingModel):
         self._y_matrix = topn_ops.update_rows(
             self._y_matrix, rows, vals, n_items=len(self._y_ids)
         )
+        cb = self._index_pressure_cb
+        if cb is not None and ivf and ivf_ops.needs_maintenance(self._y_matrix):
+            cb()
         return True
 
     def _ensure_y_matrix(self, force: bool = False):
@@ -300,12 +329,21 @@ class ALSServingModel(ServingModel):
                     ids, mat = self.y.to_matrix()
                     self._y_ids = ids
                     self._y_index = {id_: i for i, id_ in enumerate(ids)}
-                    self._y_matrix = (
-                        topn_ops.upload(mat, dtype=_SCORE_DTYPES[self.score_dtype])
-                        if len(ids)
-                        else None
-                    )
+                    if not len(ids):
+                        self._y_matrix = None
+                    elif self.score_dtype == "int8" and ivf_ops.ann_active(len(ids)):
+                        # the IVF tier: cluster the rebuilt item matrix;
+                        # fold-ins until the next rebuild go through the
+                        # index's pending overlay
+                        self._y_matrix = ivf_ops.attach_tiered_plane(ivf_ops.build_ivf(mat))
+                    else:
+                        self._y_matrix = topn_ops.upload(
+                            mat, dtype=_SCORE_DTYPES[self.score_dtype]
+                        )
                     self._y_full_rebuild = False
+                    # the id space changed: compaction snapshots in
+                    # flight are stale and are discarded at install
+                    self._y_build_epoch += 1
                 self._dirty_ids.clear()
                 self._y_dirty = False
                 self._y_built_at = now
@@ -530,6 +568,127 @@ class ALSServingModel(ServingModel):
             out.sort(key=lambda t: -t[1])
         return out[:how_many]
 
+    # -- IVF maintenance protocol (serving/maintain.py) ------------------------
+
+    def set_index_pressure_callback(self, cb) -> None:
+        """Wire the maintainer's wake-up: called (under the cache lock)
+        when a fold-in batch crosses the overlay watermark or spills."""
+        with self._cache_lock:
+            self._index_pressure_cb = cb
+
+    @property
+    def index_generation(self) -> str | None:
+        """The published index generation this model's layout came from,
+        or None when the clustering is locally built."""
+        return self._index_generation
+
+    def note_published_index(self, generation_id: str) -> None:
+        """This replica just published this generation (its installed
+        layout is the generation): its own INDEX-REF off the update topic
+        is then a duplicate."""
+        with self._cache_lock:
+            self._index_generation = str(generation_id)
+
+    def maintenance_snapshot(self, watermark: float = 0.5, force: bool = False):
+        """(index, pending snapshot) for one compaction pass, or None when
+        there is nothing to compact (no IVF index, a full rebuild pending,
+        or overlay pressure below the watermark). The snapshot copies the
+        overlay's raw rows under the cache lock: O(overlay), never
+        O(catalog)."""
+        with self._cache_lock:
+            idx = self._y_matrix
+            if not isinstance(idx, ivf_ops.IVFIndex) or self._y_full_rebuild:
+                return None
+            if not force and not ivf_ops.needs_maintenance(idx, watermark=watermark):
+                return None
+            snap = ivf_ops.snapshot_pending(idx)
+            self._y_snapshot_epoch = self._y_build_epoch
+            return idx, snap
+
+    def install_compacted(self, new_index, stats: dict) -> bool:
+        """Swap a compacted index in (one pointer write under the cache
+        lock). Fold-ins that landed after the snapshot (by their fold-in
+        time against the snapshot's) are replayed onto the new layout
+        first. False (result discarded) when a full rebuild or rotation
+        changed the id space during the compaction."""
+        with self._cache_lock:
+            cur = self._y_matrix
+            if (
+                not isinstance(cur, ivf_ops.IVFIndex)
+                or self._y_full_rebuild
+                or self._y_build_epoch != self._y_snapshot_epoch
+            ):
+                return False
+            snap_born = stats.get("born") or {}
+            feat = cur.features
+            replay_ids: list[int] = []
+            replay_rows: list[np.ndarray] = []
+            cur_born = cur.ov_born or {}
+            for item, slot in cur.ov_map.items():
+                b = cur_born.get(item, 0.0)
+                if item not in snap_born or b > snap_born[item]:
+                    replay_ids.append(int(item))
+                    replay_rows.append(cur.ov_raw_host[slot, :feat].copy())
+            for item, (raw, b) in (cur.pending_spill or {}).items():
+                if item not in snap_born or b > snap_born[item]:
+                    replay_ids.append(int(item))
+                    replay_rows.append(np.asarray(raw)[:feat].copy())
+            if replay_ids:
+                new_index = ivf_ops.update_rows(
+                    new_index, np.asarray(replay_ids, np.int64), np.stack(replay_rows),
+                    n_items=len(self._y_ids),
+                )
+                stats["replayed"] = len(replay_ids)
+            self._y_matrix = new_index
+            self._y_snapshot_epoch = -1  # consumed
+            return True
+
+    def apply_index_generation(self, ref: str) -> bool:
+        """Adopt a published index generation (INDEX-REF): rebuild the IVF
+        layout over this replica's item store seeded with the generation's
+        centroids, off-lock, and swap it in under the cache lock. True on
+        swap."""
+        from oryx_tpu_torch.serving import maintain as maintain_mod
+
+        loaded = maintain_mod.read_index_generation(ref)
+        if loaded is None:
+            return False
+        gid, manifest, cents = loaded
+        if self._index_generation == gid:
+            return False  # duplicate delivery
+        if int(manifest.get("features") or cents.shape[1]) != self.features:
+            log.warning(
+                "index generation %s features mismatch (%s != %d); skipped",
+                gid, manifest.get("features"), self.features,
+            )
+            return False
+        if self.score_dtype != "int8":
+            return False  # index generations only drive the IVF scan
+        with self._cache_lock:
+            rot0 = self._y_rotation_epoch
+            # ids dirty now are covered by the store snapshot below
+            dirty0 = set(self._dirty_ids)
+        ids, mat = self.y.to_matrix()
+        if not ivf_ops.ann_active(len(ids)):
+            return False
+        new = ivf_ops.attach_tiered_plane(ivf_ops.build_ivf(mat, centroids=cents))
+        with self._cache_lock:
+            if self._y_rotation_epoch != rot0:
+                return False  # a rotation raced the build: its rebuild wins
+            self._y_ids = list(ids)
+            self._y_index = {id_: i for i, id_ in enumerate(ids)}
+            self._y_matrix = new
+            self._y_full_rebuild = False
+            self._y_build_epoch += 1
+            self._y_snapshot_epoch = -1
+            self._y_built_at = time.monotonic()
+            # ids written after the store snapshot stay dirty: the next
+            # refresh folds them into the fresh overlay
+            self._dirty_ids.difference_update(dirty0)
+            self._y_dirty = bool(self._dirty_ids)
+            self._index_generation = gid
+        return True
+
     def all_item_ids(self) -> list[str]:
         return self.y.ids()
 
@@ -586,11 +745,7 @@ class ALSServingModelManager(AbstractServingModelManager):
             raise NotYetPortedError(
                 "oryx.als.serving.shard-items = true is not yet ported to oryx_tpu_torch"
             )
-        if config.get_optional_bool("oryx.serving.scan.ann.enabled"):
-            raise NotYetPortedError(
-                "oryx.serving.scan.ann.enabled = true (the IVF tier) is not yet "
-                "ported to oryx_tpu_torch"
-            )
+        ivf_ops.refuse_tier_store(config)
         self.rescorer_provider = _load_rescorer_providers(config)
         self.model: ALSServingModel | None = None
         self._consumed = 0
@@ -672,9 +827,16 @@ class ALSServingModelManager(AbstractServingModelManager):
                     )
                     self.model.set_expected(x_ids, y_ids)
             elif key == "INDEX-REF":
-                raise NotYetPortedError(
-                    "INDEX-REF (IVF index generations) is not yet ported to oryx_tpu_torch"
-                )
+                # an IVF index generation: rebuild this replica's layout
+                # seeded with the published centroids and swap it in; an
+                # unusable ref is dropped (the local layout keeps serving)
+                if self.model is not None:
+                    try:
+                        self.model.apply_index_generation(message)
+                    except Exception:
+                        log.warning(
+                            "dropped unusable index generation %r", message, exc_info=True
+                        )
             else:
                 raise ValueError(f"bad key {key}")
             self._consumed += 1

@@ -32,9 +32,11 @@
 //      its own tiles: the points are wgmma's M, the three-piece A fragment
 //      is built in registers from the staged f32 rows (split_pair), and six
 //      bf16 passes (hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid) per k16
-//      step go into one f32 accumulator over the center tile N (16-256;
-//      kp > 256 walks N tiles); |p|^2 comes from the same registers on the
-//      CUDA cores. The argmin runs over the accumulator fragment, then
+//      step go into a fresh f32 accumulator over the center tile N (16-128;
+//      kp > 128 walks N tiles), which the CUDA cores add to the tile's
+//      running sum (the tensor cores' accumulation rounds toward zero, a
+//      bias that grows with every add); |p|^2 comes from the same
+//      registers on the CUDA cores. The argmin runs over the accumulator fragment, then
 //      across the quad (a NaN distance ranks first, ties to the lower
 //      center). A whole tile's sums come from the staged copy, so each
 //      point is read once from device memory;
@@ -135,11 +137,12 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int align_up(int x, int a) { return (x + a - 1) / a * a; }
 
-// The center tile: N = the power of two >= kp from 16 to 256; kp > 256
-// walks ceil(kp / 256) tiles of 256.
+// The center tile: N = the power of two >= kp from 16 to 128; kp > 128
+// walks ceil(kp / 128) tiles of 128. (Two accumulators of N / 2 floats per
+// thread, the k16 step's and the tile's, fit the registers up to N = 128.)
 __host__ __device__ inline int center_tile(int kp) {
   int n = 16;
-  while (n < kp && n < 256) n <<= 1;
+  while (n < kp && n < 128) n <<= 1;
   return n;
 }
 
@@ -320,12 +323,14 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
          (static_cast<uint64_t>(256 >> 4) << 32);
 }
 
-// D[64 x N] += A[64 x 16] (registers, bf16) * B[16 x N] (shared memory, bf16)
+// D[64 x N] = A[64 x 16] (registers, bf16) * B[16 x N] (shared memory, bf16)
+// + (scale_d ? D : 0)
 template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b, int scale_d);
 
 template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t b) {
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t b,
+                                                    int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
@@ -333,11 +338,12 @@ __device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64
       "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t b) {
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t b,
+                                                    int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -346,11 +352,12 @@ __device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t b) {
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t b,
+                                                    int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -363,11 +370,12 @@ __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t b) {
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint64_t b,
+                                                    int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -387,46 +395,7 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 // keep the compiler from moving accumulator reads or writes across the
@@ -582,9 +551,8 @@ __device__ __forceinline__ void sort_rows(const float* bestd, const int* besti, 
 // [j_lo, j_hi) only, B runs' read-modify-writes of V adjacent columns
 // each (one 16-byte word for V = 2) in flight together (their centers
 // differ, so they cannot collide). Where the columns pair up the kernel
-// takes V = 2 with B = 8 at N = 256, else B = 4; else V = 1 with B = 8 at
-// N >= 128, else B = 4: the largest batches for which no instantiation
-// spills.
+// takes V = 2 with B = 4; else V = 1 with B = 8 at N = 128, else B = 4:
+// the largest batches for which no instantiation spilled.
 template <int B, int V>
 __device__ __forceinline__ void add_runs_to_slab(const float* tile, int ld, const int* key,
                                                  const int* order, const int* seg, int d,
@@ -868,9 +836,14 @@ __global__ void __launch_bounds__(kThreads, min_blocks<N>())
       float pn[2] = {0.f, 0.f}, bd[2] = {INFINITY, INFINITY};
       int bi[2] = {INT_MAX, INT_MAX};
       for (int nt = 0; nt < P.ntiles; ++nt) {
-        float acc[kAcc];
+        // acc: the tile's p.c, summed on the CUDA cores (round to nearest)
+        // from each k16 step's six passes in part: the tensor cores' own
+        // accumulation rounds toward zero, which over every step and pass
+        // (96 adds at d = 250) biased d^2 high by ~50 ulps of p.c, and
+        // tight clusters (d^2 << p.c) by 2.7e-5 of the cost
+        float acc[kAcc], part[kAcc];
 #pragma unroll
-        for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+        for (int j = 0; j < kAcc; ++j) acc[j] = part[j] = 0.f;
         // k16 steps over d; a new load (slot) at each chunk's first step:
         // the whole tile's for nt == 0 only, a chunk's for every nt
         int k0 = 0;  // the staged chunk's first feature
@@ -906,14 +879,16 @@ __global__ void __launch_bounds__(kThreads, min_blocks<N>())
             stage = cring + cs * cbytes;
           }
           const uint32_t at = smem_addr(stage);
-          fence_regs<kAcc>(acc);
+          fence_regs<kAcc>(part);
           asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-          for (int q = 0; q < 6; ++q)
-            wgmma_rs<N>(acc, a[point_piece(q)], b_desc(at + center_piece(q) * N * 32));
+          for (int q = 0; q < 6; ++q)  // the first pass overwrites the step's part
+            wgmma_rs<N>(part, a[point_piece(q)], b_desc(at + center_piece(q) * N * 32), q);
           asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
           asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-          fence_regs<kAcc>(acc);
+          fence_regs<kAcc>(part);
+#pragma unroll
+          for (int j = 0; j < kAcc; ++j) acc[j] += part[j];
           if (!P.resident) {
             mbar_arrive(&cempty[cs]);
             ++cit;
@@ -999,7 +974,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<N>())
             const int* order_q = order_s + (q - wg) * kRows;
             const int* seg_q = seg_s + (q - wg) * (kRows + 8);
             if (N >= 128 && d % 2 == 0 && half % 2 == 0)
-              add_runs_to_slab<N >= 256 ? 8 : 4, 2>(tq_tile, P.kc, key_q, order_q, seg_q, d,
+              add_runs_to_slab<4, 2>(tq_tile, P.kc, key_q, order_q, seg_q, d,
                                                     wg * half, j_hi, slab + k0, wt);
             else
               add_runs_to_slab<N >= 128 ? 8 : 4, 1>(tq_tile, P.kc, key_q, order_q, seg_q, d,
@@ -1095,8 +1070,6 @@ int with_tile(int n, F f) {
       return f(std::integral_constant<int, 64>{});
     case 128:
       return f(std::integral_constant<int, 128>{});
-    case 256:
-      return f(std::integral_constant<int, 256>{});
     default:
       return (int)cudaErrorInvalidValue;
   }

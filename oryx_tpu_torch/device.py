@@ -10,6 +10,8 @@ and no fallback.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 _chosen: torch.device | None = None
@@ -37,3 +39,16 @@ def default_device() -> torch.device:
 def resolve(device: str | torch.device | None = None) -> torch.device:
     """``device`` as a ``torch.device``, or the default when None."""
     return default_device() if device is None else torch.device(device)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Scope TF32 off for the float32 products inside: the JAX package
+    runs them at ``Precision.HIGHEST``, and a caller may have switched
+    TF32 on for its own matmuls."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -79,7 +79,7 @@ import torch
 
 from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.common import rng as rng_mod
-from oryx_tpu_torch.device import resolve
+from oryx_tpu_torch.device import full_float32, resolve
 
 # cap on one tree chunk's per-tree device-resident rows (weights+routing)
 _TREE_CHUNK_BUDGET_BYTES = 1 << 30
@@ -144,16 +144,6 @@ def formulation(n: int, p: int, s: int, num_level_nodes: int, num_bins: int,
     return "vector" if impurity == "variance" else "scalar"
 
 
-@contextlib.contextmanager
-def _full_float32():
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _level_histograms(
     binned,  # [n, p] int32
     w_act,  # [n] float32 example weights, 0 for inactive rows
@@ -170,16 +160,22 @@ def _level_histograms(
     s = chan.shape[1]
     L, B = num_level_nodes, num_bins
     how = formulation(n, p, s, L, B, impurity, hist_mode)
+    # regression's weighted y and y^2 sums in float64, rounded to float32
+    # once, as the host path's np.bincount adds them: float32 sums (float32
+    # atomics in the vector path, whose order changes from run to run)
+    # moved near-tie splits, so the card's forests changed between runs;
+    # classification sums integer weights, exact in float32
+    acc = torch.float64 if impurity == "variance" else torch.float32
     if how == "matmul":
         # ONE dense contraction: A[n, L*S] carries each row's weighted stat
         # channels at its node's slot, the bin one-hot [n, p*B] carries its
         # bin slot per feature, and A.T @ onehot yields every (node, stat,
         # feature, bin) sum.
-        nh = torch.nn.functional.one_hot(pos_c, L).to(torch.float32) * w_act[:, None]
-        a = (nh[:, :, None] * chan[:, None, :]).reshape(n, L * s)
-        ohb = torch.nn.functional.one_hot(binned.long(), B).to(torch.float32).reshape(n, p * B)
-        with _full_float32():
-            h = a.T @ ohb
+        nh = torch.nn.functional.one_hot(pos_c, L).to(acc) * w_act.to(acc)[:, None]
+        a = (nh[:, :, None] * chan.to(acc)[:, None, :]).reshape(n, L * s)
+        ohb = torch.nn.functional.one_hot(binned.long(), B).to(acc).reshape(n, p * B)
+        with full_float32():
+            h = (a.T @ ohb).float()
         return h.reshape(L, s, p, B).permute(2, 0, 3, 1)  # [p, L, B, S]
     if how == "scalar":
         # classification: fold the class channel into the segment id so
@@ -193,12 +189,12 @@ def _level_histograms(
         h = torch.zeros(p * size, dtype=torch.float32, device=binned.device)
         h.index_add_(0, seg.reshape(-1), w_act[:, None].expand(n, p).reshape(-1))
         return h.view(p, L, B, s)
-    w_stats = chan * w_act[:, None]  # [n, S]
-    out = torch.zeros((p, L * B, s), dtype=torch.float32, device=binned.device)
+    w_stats = chan.to(acc) * w_act.to(acc)[:, None]  # [n, S]
+    out = torch.zeros((p, L * B, s), dtype=acc, device=binned.device)
     base = pos_c * B
     for f in range(p):
         out[f].index_add_(0, base + binned[:, f], w_stats)
-    return out.view(p, L, B, s)
+    return out.float().view(p, L, B, s)
 
 
 def _candidate_gains(

@@ -60,6 +60,28 @@ def _gumbel(n: int, generator: torch.Generator, device) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+# bytes of one [rows, candidates] distance block of the device init: past
+# it the rows go in blocks (k = 4,472 at 200,000 points would otherwise
+# take 14 GB a round)
+_INIT_BLOCK_BYTES = 1 << 30
+
+
+def _nearest_new(points, pn, newpts, newv):
+    """(min squared distance clamped at 0, argmin) of every point over the
+    valid new candidates, in row blocks of at most _INIT_BLOCK_BYTES."""
+    c2 = torch.sum(newpts * newpts, dim=1)[None, :]
+    rows = max(1, _INIT_BLOCK_BYTES // (4 * max(1, newpts.shape[0])))
+    mins, args = [], []
+    for beg in range(0, points.shape[0], rows):
+        dn = pn[beg : beg + rows] - 2.0 * (points[beg : beg + rows] @ newpts.T) + c2
+        dn = torch.where(newv[None, :], dn, torch.inf)
+        args.append(torch.argmin(dn, dim=1))
+        mins.append(torch.clamp_min(torch.amin(dn, dim=1), 0.0))
+    if len(mins) == 1:
+        return mins[0], args[0]
+    return torch.cat(mins), torch.cat(args)
+
+
 def _kmeans_parallel_init_device(
     points: torch.Tensor, n_items: int, k: int, rounds: int, generator: torch.Generator
 ) -> torch.Tensor:
@@ -101,10 +123,7 @@ def _kmeans_parallel_init_device(
         base = 1 + r * cap_round
         cand[base : base + cap_round] = newpts
         cvalid[base : base + cap_round] = newv
-        dn = pn - 2.0 * (points @ newpts.T) + torch.sum(newpts * newpts, dim=1)[None, :]
-        dn = torch.where(newv[None, :], dn, torch.inf)
-        dn_arg = torch.argmin(dn, dim=1)
-        dn_min = torch.clamp_min(torch.amin(dn, dim=1), 0.0)
+        dn_min, dn_arg = _nearest_new(points, pn, newpts, newv)
         closer = dn_min < d2
         amin = torch.where(closer, base + dn_arg, amin)
         d2 = torch.where(mask & closer, dn_min, d2)

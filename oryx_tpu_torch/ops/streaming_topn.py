@@ -47,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from oryx_tpu_torch.device import resolve
+from oryx_tpu_torch.device import full_float32, resolve
 
 # Items per padding block: the plane's column count is a multiple of it
 # (pallas_topn.BLOCK_N), so capacity() agrees with the JAX package.
@@ -76,6 +76,20 @@ _INT8_FEAT_MULTIPLE = 32
 
 # items per CTA tile of the scan in csrc/topn.cu
 _TC_TILE_ITEMS = 128
+
+# Chunk width of the IVF tier's candidate selection (ops/ivf.py): its
+# probed scan reduces scores to per-chunk maxes, the top chunks by max
+# contain the top items, and only those chunks' columns are rescored
+# (pallas_topn._CHUNK's default; a layout constant here, not a knob)
+_CHUNK = 32
+
+# How many chunks that selection keeps per query: a modest factor over k
+# (pallas_topn.CHUNK_OVERSAMPLE)
+CHUNK_OVERSAMPLE = 1.25
+
+
+def _chunk_k(k: int, chunks: int) -> int:
+    return min(max(int(round(CHUNK_OVERSAMPLE * k)), k + 2), chunks)
 
 
 def configure_scan(*, oversample: int | None = None) -> None:
@@ -275,7 +289,8 @@ def _rescore_topk(vals, idxs, q, qn, resid, resid_scales, norms, *, k, cosine):
     ii = torch.gather(idxs, 1, order).long()  # [b, m] ascending ids
     vv = torch.gather(vals, 1, order)
     cand = resid[:, ii].float()  # [kf, b, m]
-    corr = torch.einsum("bf,fbm->bm", q, cand)
+    with full_float32():
+        corr = torch.einsum("bf,fbm->bm", q, cand)
     aux2 = resid_scales[0]
     if cosine:
         aux2 = aux2 / torch.clamp_min(norms[0], 1e-12)
@@ -288,6 +303,23 @@ def _rescore_topk(vals, idxs, q, qn, resid, resid_scales, norms, *, k, cosine):
     return v, torch.gather(ii, 1, pos).to(torch.int32)
 
 
+def gathered_pair_scores(mat_t, resid, scales, resid_scales, norms, q, qn, iid, *, cosine):
+    """Two-plane scores ``d1*s1 + d2*s2`` in float32 for an explicit
+    candidate column set ``iid`` [b, m] (``pallas_topn._gathered_pair_scores``):
+    both int8 planes are gathered for just those columns. The IVF tier's
+    probed-cell rescore and its full probe share this arithmetic. Cosine
+    divides by ``max(norm * |q|, 1e-12)``, ``qn`` being [b, 1]."""
+    c1 = mat_t[:, iid].float()  # [kf, b, m]
+    c2 = resid[:, iid].float()
+    with full_float32():
+        d1 = torch.einsum("bf,fbm->bm", q, c1)
+        d2 = torch.einsum("bf,fbm->bm", q, c2)
+    sc = d1 * scales[0][iid] + d2 * resid_scales[0][iid]
+    if cosine:
+        sc = sc / torch.clamp_min(norms[0][iid] * qn, 1e-12)
+    return sc
+
+
 def _materialized_topk(up: StreamingItemMatrix, queries: torch.Tensor, k: int, cosine: bool):
     """Large-k scan (k > MAX_KERNEL_K) over the same layout: materialize
     [b, n] scores once, then one stable sort. Quantized handles sum both
@@ -297,11 +329,12 @@ def _materialized_topk(up: StreamingItemMatrix, queries: torch.Tensor, k: int, c
     if not quantized:
         q = q.to(up.mat_t.dtype).float()  # bf16 planes score bf16 queries
     q = _pad_queries(q, up.mat_t.shape[0])
-    scores = q @ up.mat_t.float()
-    if quantized:
-        scores = scores * up.scales
-        if up.resid is not None:
-            scores = scores + (q @ up.resid.float()) * up.resid_scales
+    with full_float32():
+        scores = q @ up.mat_t.float()
+        if quantized:
+            scores = scores * up.scales
+            if up.resid is not None:
+                scores = scores + (q @ up.resid.float()) * up.resid_scales
     if cosine:
         qn = torch.linalg.vector_norm(queries.float(), dim=1, keepdim=True)
         scores = scores / torch.clamp_min(up.norms * qn, 1e-12)

@@ -1,10 +1,11 @@
 """Top-N scoring facade: upload, incremental update and async submit
 (counterpart of ``oryx_tpu/ops/topn.py``).
 
-Every handle is the feature-major :class:`StreamingItemMatrix`, for
-every score dtype (float32, bfloat16, int8 two-plane), so the serving
-scans always run the hand-written kernels of
-:mod:`oryx_tpu_torch.ops.streaming_topn`.
+A handle is the feature-major :class:`StreamingItemMatrix`, for every
+score dtype (float32, bfloat16, int8 two-plane), whose scans run the
+hand-written kernels of :mod:`oryx_tpu_torch.ops.streaming_topn`, or an
+:class:`~oryx_tpu_torch.ops.ivf.IVFIndex` (the IVF tier over int8 codes),
+which every entry point here routes to :mod:`oryx_tpu_torch.ops.ivf`.
 
 ``submit_top_k`` and its multi-group forms are asynchronous: the scan is
 launched on a dedicated CUDA stream, its results are copied into pinned
@@ -14,8 +15,8 @@ collects on another, so the handle synchronises on its own event, never
 on whatever stream happens to be current. On the CPU (the tests) the
 same calls run synchronously.
 
-Not ported yet: the IVF tier, ``upload_sharded`` / ``top_k_sharded``
-and ``upload_random``.
+Not ported yet: ``upload_sharded`` / ``top_k_sharded`` and
+``upload_random``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import numpy as np
 import torch
 
 from oryx_tpu_torch.device import resolve
+from oryx_tpu_torch.ops import ivf as ivf_ops
+from oryx_tpu_torch.ops.ivf import IVFIndex
 from oryx_tpu_torch.ops.streaming_topn import (
     StreamingItemMatrix,
     _quantize_residual,
@@ -46,36 +49,43 @@ def upload(matrix: np.ndarray, dtype=None, device=None) -> StreamingItemMatrix:
     return upload_streaming(matrix, dtype=torch_dtype(dtype), device=device)
 
 
-def top_k_scores(uploaded: StreamingItemMatrix, query: np.ndarray, k: int, cosine: bool = False):
+def top_k_scores(uploaded, query: np.ndarray, k: int, cosine: bool = False):
     """(indices, scores) of the k best items for one query vector."""
-    idx, vals = top_k_streaming(uploaded, query, k, cosine=cosine)
+    if isinstance(uploaded, IVFIndex):
+        idx, vals = ivf_ops.top_k(uploaded, query, k, cosine=cosine)
+    else:
+        idx, vals = top_k_streaming(uploaded, query, k, cosine=cosine)
     return idx[0], vals[0]
 
 
-def top_k_scores_batch(
-    uploaded: StreamingItemMatrix, queries: np.ndarray, k: int, cosine: bool = False
-):
+def top_k_scores_batch(uploaded, queries: np.ndarray, k: int, cosine: bool = False):
     """Batched top-k for [b, k] query vectors; b > 256 takes the
     candidates kernel."""
+    if isinstance(uploaded, IVFIndex):
+        return ivf_ops.top_k(uploaded, queries, k, cosine=cosine)
     return top_k_streaming(uploaded, queries, k, cosine=cosine)
 
 
-def capacity(uploaded: StreamingItemMatrix) -> int:
+def capacity(uploaded) -> int:
     """Row capacity of the handle (padding included); rows beyond
-    ``n_items`` can be appended with :func:`update_rows`."""
+    ``n_items`` can be appended with :func:`update_rows`. For an IVF
+    handle, the built catalog plus the free overlay slots."""
+    if isinstance(uploaded, IVFIndex):
+        return ivf_ops.capacity(uploaded)
     return uploaded.mat_t.shape[1]
 
 
-def update_rows(
-    uploaded: StreamingItemMatrix, rows: np.ndarray, values: np.ndarray, n_items: int | None = None
-) -> StreamingItemMatrix:
+def update_rows(uploaded, rows: np.ndarray, values: np.ndarray, n_items: int | None = None):
     """Scatter ``values`` [len(rows), k] into ``rows`` of a new handle —
     the incremental-refresh path. ``n_items`` may grow into the padded
     capacity. int8 rows requantize on the host with the upload's own
-    functions, so a touched row is bit-identical to a fresh upload.
+    functions, so a touched row is bit-identical to a fresh upload. An
+    IVF handle folds the rows in through its pending overlay.
 
     The handle is copied, not updated in place: scans already in flight
     on the scan stream may still be reading the old planes."""
+    if isinstance(uploaded, IVFIndex):
+        return ivf_ops.update_rows(uploaded, rows, values, n_items=n_items)
     rows = np.asarray(rows, dtype=np.int64)
     values = np.ascontiguousarray(values, dtype=np.float32)
     if len(rows) == 0:
@@ -206,7 +216,7 @@ def _scan_stream(device: torch.device) -> torch.cuda.Stream:
         return s
 
 
-def _submit(run, uploaded: StreamingItemMatrix, make_handle, keep=()):
+def _submit(run, uploaded, make_handle, keep=()):
     """Run ``run()`` -> (vals, idxs) asynchronously: on the card, on the
     scan stream, with a non-blocking copy into pinned host buffers and an
     event behind it; on the CPU, in place."""
@@ -227,11 +237,15 @@ def _submit(run, uploaded: StreamingItemMatrix, make_handle, keep=()):
     return make_handle(host_v, host_i, event, (vals, idxs, uploaded) + tuple(keep))
 
 
-def submit_top_k(
-    uploaded: StreamingItemMatrix, queries: np.ndarray, k: int, cosine: bool = False
-) -> TopNHandle:
+def submit_top_k(uploaded, queries: np.ndarray, k: int, cosine: bool = False) -> TopNHandle:
     """Enqueue a batched top-k without waiting."""
     q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+    if isinstance(uploaded, IVFIndex):
+        return _submit(
+            lambda: ivf_ops.top_k_device(uploaded, q, k, cosine=cosine),
+            uploaded,
+            lambda v, i, ev, keep: TopNHandle(v, i, ev, keep),
+        )
     dl = _auto_download_dtype(uploaded)
     return _submit(
         lambda: top_k_streaming_device(uploaded, q, k, cosine=cosine, download_dtype=dl),
@@ -241,15 +255,22 @@ def submit_top_k(
 
 
 def submit_top_k_multi(
-    uploaded: StreamingItemMatrix,
+    uploaded,
     queries: np.ndarray,
     k: int,
     cosine: bool = False,
     scan_batch: int = 256,
 ) -> MultiTopNHandle:
     """ceil(n / scan_batch) full-matrix scans submitted at once; one
-    handle collects them all."""
+    handle collects them all. An IVF handle takes the whole batch at once
+    (it groups the queries itself)."""
     q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+    if isinstance(uploaded, IVFIndex):
+        return _submit(
+            lambda: ivf_ops.top_k_device(uploaded, q, k, cosine=cosine),
+            uploaded,
+            lambda v, i, ev, keep: MultiTopNHandle(v, i, q.shape[0], ev, keep),
+        )
     q_kb, n = _group_pad(q, scan_batch)
     dl = _auto_download_dtype(uploaded)
     return _submit(
@@ -260,7 +281,7 @@ def submit_top_k_multi(
 
 
 def submit_top_k_multi_indexed(
-    uploaded: StreamingItemMatrix,
+    uploaded,
     x_dev: torch.Tensor,
     indices: np.ndarray,
     k: int,
@@ -271,6 +292,13 @@ def submit_top_k_multi_indexed(
     host ships int32 row indices into ``x_dev`` and the gather runs on
     the card ahead of the scans."""
     idx = np.atleast_1d(np.asarray(indices, dtype=np.int32))
+    if isinstance(uploaded, IVFIndex):
+        return _submit(
+            lambda: ivf_ops.top_k_device_indexed(uploaded, x_dev, idx, k, cosine=cosine),
+            uploaded,
+            lambda v, i, ev, keep: MultiTopNHandle(v, i, len(idx), ev, keep),
+            keep=(x_dev,),
+        )
     idx_kb, n = _group_pad(idx, scan_batch)
     dl = _auto_download_dtype(uploaded)
     return _submit(

@@ -26,8 +26,8 @@ The queue is bounded as in the JAX package
 
 Not ported yet: tenancy (the deficit-round-robin queue serves the single
 default tenant, and no tenant's share of the bound is kept), the rest of
-overload control (no admission ladder, no reduced-probe override: there
-is no IVF tier to probe) and the tiered-store prefetch.
+overload control (no admission ladder, no reduced-probe override of the
+IVF tier's nprobe) and the tiered-store prefetch.
 """
 
 from __future__ import annotations

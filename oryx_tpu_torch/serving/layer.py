@@ -16,11 +16,20 @@ The batcher's queue is bounded by ``oryx.serving.overload.max-queue``;
 a request that finds it full is answered 429 with ``Retry-After``
 (``oryx.serving.overload.retry-after-s``), as in the JAX package.
 
+``oryx.serving.scan.ann.*`` reaches the IVF tier (``ops/ivf.py``) and
+``oryx.serving.scan.ann.maintain.*`` the background index maintainer
+(``serving/maintain.py``), which ``start()`` runs when it is enabled and
+``close()`` stops. With ``maintain.publish`` and a model dir
+(``oryx.batch.storage.model-dir``), each compaction is written there as
+an index generation and announced as ``INDEX-REF`` on the update topic,
+through one lazily opened producer.
+
 Not ported yet: tenancy and online experiments (a config that declares
 enabled tenants or sets ``oryx.serving.ab.fraction`` above 0 is refused
-at construction), the model registry and rollback, MODEL-REF restage,
-the rest of overload control (the admission ladder), the native HTTP
-front, TLS and auth (a config that sets a key file or credentials is
+at construction), the tiered item store (``oryx.serving.store.tier.enabled``
+is refused at construction), the registry's routes and rollback,
+MODEL-REF restage, the rest of overload control (the admission ladder),
+the native HTTP front, TLS and auth (a config that sets a key file or credentials is
 refused at construction), ``/healthz``, ``/readyz``, tracing export
 routes and profiling. ``/metrics`` serves the metrics registry (with the
 scan kernels' launch counts), without the JAX package's per-instance
@@ -46,6 +55,7 @@ from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
 from oryx_tpu_torch.device import default_device
+from oryx_tpu_torch.ops.ivf import refuse_tier_store
 from oryx_tpu_torch.serving.batcher import BatcherOverloadedError
 from oryx_tpu_torch.serving.web import (
     OryxServingException,
@@ -180,12 +190,15 @@ def _ready(ctx: ServingContext, req: Request) -> Response:
 @resource("GET", "/metrics")
 def _metrics(ctx: ServingContext, req: Request) -> Response:
     """The process's metrics registry as JSON, with the scan kernels'
-    launches so far as ``kernels.<name>.launches`` gauges (the batch
-    and speed layers serve theirs on ``oryx.<layer>.ui.port``)."""
-    from oryx_tpu_torch.ops import streaming_topn
+    launches so far as ``kernels.<name>.launches`` gauges and the IVF
+    tier's batches by path as ``serving.ann.<path>`` (the batch and speed
+    layers serve theirs on ``oryx.<layer>.ui.port``)."""
+    from oryx_tpu_torch.ops import ivf, streaming_topn
 
     for name, count in streaming_topn.launch_counts().items():
         metrics.registry.gauge(f"kernels.{name}.launches").set(count)
+    for name, count in ivf.counts().items():
+        metrics.registry.gauge(f"serving.ann.{name}").set(count)
     return Response(200, metrics.registry.snapshot(), content_type="application/json")
 
 
@@ -217,6 +230,37 @@ def _refuse_tls_and_auth(config: Config) -> None:
             )
 
 
+def _configure_ann(config: Config) -> None:
+    """Push oryx.serving.scan.ann.* and its maintain block into the IVF
+    tier's and the maintainer's knobs."""
+    from oryx_tpu_torch.ops.ivf import configure_ann
+    from oryx_tpu_torch.serving.maintain import configure_maintain
+
+    ann = "oryx.serving.scan.ann."
+    configure_ann(
+        enabled=config.get_optional_bool(ann + "enabled"),
+        cells=config.get_optional_int(ann + "cells"),
+        nprobe=config.get_optional_int(ann + "nprobe"),
+        probe_fraction=config.get_optional_float(ann + "probe-fraction"),
+        min_items=config.get_optional_int(ann + "min-items"),
+        overlay_capacity=config.get_optional_int(ann + "overlay-capacity"),
+        query_block=config.get_optional_int(ann + "query-block"),
+        tile_chunks=config.get_optional_int(ann + "tile-chunks"),
+        # "auto" (or unset) leaves the choice to where the index lives
+        host_stage1={"true": True, "false": False}.get(
+            str(config.get_optional_string(ann + "host-stage1")).lower()
+        ),
+    )
+    configure_maintain(
+        enabled=config.get_optional_bool(ann + "maintain.enabled"),
+        interval_sec=config.get_optional_float(ann + "maintain.interval-sec"),
+        watermark=config.get_optional_float(ann + "maintain.watermark"),
+        split_max_items=config.get_optional_int(ann + "maintain.split-max-items"),
+        merge_min_items=config.get_optional_int(ann + "maintain.merge-min-items"),
+        publish=config.get_optional_bool(ann + "maintain.publish"),
+    )
+
+
 def _refuse_tenancy_and_experiments(config: Config) -> None:
     """Tenancy and online experiments are not ported: a config that
     declares tenants (the JAX package serves them when
@@ -240,6 +284,7 @@ class ServingLayer:
         default_device()  # the port serves from the card: fail now, not per request
         _refuse_tls_and_auth(config)
         _refuse_tenancy_and_experiments(config)
+        refuse_tier_store(config)
         self.config = config
         tracing.configure_from(config)
         self.port = config.get_int("oryx.serving.api.port")
@@ -267,6 +312,19 @@ class ServingLayer:
         )
         self.retry_after_s = config.get_optional_int("oryx.serving.overload.retry-after-s") or 1
         configure_scan(oversample=config.get_optional_int("oryx.serving.scan.oversample"))
+        _configure_ann(config)
+
+        # the model registry over the batch model dir: index generations
+        # are written under it
+        from oryx_tpu_torch.registry.store import RegistryStore
+
+        model_dir = config.get_optional_string("oryx.batch.storage.model-dir")
+        self.registry_store = RegistryStore(model_dir) if model_dir else None
+        # the update-topic producer, opened on first use (an index
+        # generation's INDEX-REF)
+        self._update_producer = None
+        self._update_producer_lock = threading.Lock()
+        self._index_maintainer = None
 
         self.model_manager = None
         self.input_producer = None
@@ -333,6 +391,7 @@ class ServingLayer:
                 self.health.consume_thread = self._consume_thread
                 self._consume_thread.start()
 
+        self._start_index_maintainer(update_broker_loc, update_topic)
         ctx = ServingContext(self.model_manager, self.input_producer, self.config, self.health)
         threads = cfg.get_optional_int("oryx.serving.api.threads") or 64
         self._server = _PooledHTTPServer(("0.0.0.0", self.port), _make_handler(self, ctx), threads)
@@ -344,6 +403,43 @@ class ServingLayer:
         self._server_thread.start()
         ledger.register("thread", self._server_thread, live=threading.Thread.is_alive)
         log.info("ServingLayer listening on :%d%s", self.port, self.context_path or "/")
+
+    def _start_index_maintainer(self, update_broker_loc, update_topic) -> None:
+        """The background IVF compaction loop, for a manager whose models
+        speak the maintenance protocol (ALS); with ``maintain.publish`` and
+        a registry, each compaction goes out as an index generation."""
+        from oryx_tpu_torch.serving import maintain as maintain_mod
+
+        if not (
+            self.model_manager is not None
+            and maintain_mod.maintain_enabled()
+            and hasattr(self.model_manager, "get_model")
+        ):
+            return
+        publish_fn = None
+        if (
+            maintain_mod.MAINTAIN_PUBLISH
+            and self.registry_store is not None
+            and update_broker_loc
+            and update_topic
+        ):
+
+            def publish_fn(index, stats):
+                ref = maintain_mod.write_index_generation(
+                    self.registry_store.model_dir, index, stats=stats
+                )
+                with self._update_producer_lock:
+                    if self._update_producer is None:
+                        self._update_producer = get_broker(update_broker_loc).producer(
+                            update_topic
+                        )
+                    self._update_producer.send(maintain_mod.INDEX_REF_KEY, ref)
+                return ref
+
+        self._index_maintainer = maintain_mod.IndexMaintainer(
+            self.model_manager.get_model, publish_fn=publish_fn
+        )
+        self._index_maintainer.start()
 
     def _consume_updates(self) -> None:
         self.model_manager.consume_blocks(self._health_blocks())
@@ -383,10 +479,16 @@ class ServingLayer:
             self._consume_thread.join(timeout=5)
             if self._consume_thread.is_alive():
                 log.warning("serving thread %r still alive after 5s join", self._consume_thread.name)
+        if self._index_maintainer is not None:
+            self._index_maintainer.close()
         if self.model_manager is not None:
             self.model_manager.close()
         if self.input_producer is not None:
             self.input_producer.close()
+        with self._update_producer_lock:
+            if self._update_producer is not None:
+                self._update_producer.close()
+                self._update_producer = None
         if self._batcher_retained:
             self._batcher_retained = False
             from oryx_tpu_torch.serving.batcher import release_default_batcher

@@ -207,6 +207,31 @@ def test_level_histograms_formulations_equal_jax():
         np.testing.assert_array_equal(got.numpy(), want, err_msg=mode)
 
 
+@pytest.mark.parametrize("mode", ["matmul", "reference"])
+def test_regression_histograms_equal_the_host_bincount(mode):
+    """Regression's device formulations sum w, w*y and w*y^2 in float64
+    and round once, as the host path's np.bincount does, so a level's
+    histograms are the host's bit for bit (float32 sums, and on the card
+    float32 atomics in a changing order, made the forests differ between
+    runs)."""
+    gen = np.random.default_rng(5)
+    n, p, B, L = 4000, 3, 8, 4
+    binned = gen.integers(0, B, (n, p)).astype(np.int32)
+    y = (100.0 * gen.standard_normal(n)).astype(np.float32)
+    chan = np.stack([np.ones(n, np.float32), y, y * y], axis=1)
+    w = gen.poisson(1.0, n).astype(np.float32)
+    pos = gen.integers(0, L, n)
+    want = tf._host_level_hists(
+        np.ascontiguousarray(binned.T), w.astype(np.float64), None,
+        (chan[:, 1].astype(np.float64), chan[:, 2].astype(np.float64)), pos, L, B, 3,
+    )
+    got = tf._level_histograms(
+        torch.from_numpy(binned), torch.from_numpy(w), torch.zeros(n, dtype=torch.int32),
+        torch.from_numpy(chan), torch.from_numpy(pos), L, B, "variance", mode,
+    )
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_formulation_budget_is_the_jax_packages():
     assert tf._MM_FLOP_BUDGET == jf._MM_FLOP_BUDGET
     assert tf._MM_ELEM_BUDGET == jf._MM_ELEM_BUDGET

@@ -453,7 +453,7 @@ def test_index_and_vector_paths_agree_with_jax(dtype):
 @pytest.mark.parametrize("extra", [
     "als.sample-rate = 0.5",
     "als.serving.shard-items = true",
-    "serving.scan.ann.enabled = true",
+    "serving.store.tier.enabled = true",
 ])
 def test_unported_settings_raise(extra):
     with pytest.raises(tsm.NotYetPortedError):
@@ -541,11 +541,6 @@ def test_full_batcher_queue_answers_429(monkeypatch):
 
 
 def test_index_ref_and_other_buses_raise():
-    mgr = tsm.ALSServingModelManager(serving_config("torch", "inproc://unused3"))
-    mgr.consume(iter([KeyMessage("MODEL", model_message("torch", ["U0"], ["I0"]))]))
-    with pytest.raises(tsm.NotYetPortedError):
-        mgr.consume(iter([KeyMessage("INDEX-REF", "file:/nowhere")]))
-    mgr.close()
     # the file bus is ported; the shm, tcp, kafka and fault buses are not
     for loc in ("shm:/tmp/nowhere", "tcp://localhost:1", "kafka://localhost:1",
                 "fault+inproc://x?drop=0.1"):

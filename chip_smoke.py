@@ -5,8 +5,10 @@
 
 Phases, each printing one JSON line:
 
-1. card and build: the card, torch and CUDA versions, and the seconds
-   ``nvcc`` took to build the kernels from ``oryx_tpu_torch/csrc``;
+1. card and build: the card, torch and CUDA versions, the seconds
+   ``nvcc`` took to build the kernels from ``oryx_tpu_torch/csrc``, and
+   those ``g++`` took, beside it, to build the native HTTP front
+   (``oryx_tpu_torch/native/httpfront.cpp``);
 2. kernels: every kernel of the serving path (``topn_scan`` and
    ``topn_candidates`` on the tensor cores for every plane type,
    ``topn_merge``) against its plain PyTorch version on the same inputs,
@@ -16,7 +18,7 @@ Phases, each printing one JSON line:
    come back in lowest-id order; the widest query tile (N = 128) at
    b = 128 and 256 on a 50-feature plane (bfloat16, int8) and a
    10-feature one (float32); wide planes of 1,056, 2,048 and 4,096
-   features x 262,144 items, whose query pieces stream beside the items,
+   features x 131,072 items, whose query pieces stream beside the items,
    every plane type, topn_scan at b = 8 and 256 and topn_candidates at
    b = 512, dot and cosine, on the ``tc`` / ``tc_f32`` launch keys; the
    merge bit for bit on synthetic lists
@@ -63,7 +65,8 @@ Phases, each printing one JSON line:
 7. kmeans-lambda: the k-means lambda loop as three OS processes
    (``python -m oryx_tpu_torch batch|speed|serving``) on one ``file:``
    bus: wave 1, the phase-6 training set (200,000 x 20, k = 10), POSTed
-   to serving's /add and trained by the batch process (which must have
+   to serving's /add with the batch group's offsets committed first, then
+   trained by the batch process, started after the POST (which must have
    launched ``kmeans_sweep.tc``, read from its metrics UI), served as in
    phase 6; the batch process is then stopped, so that its next
    generation cannot replace the speed layer's folds; wave 2, 20,000
@@ -156,7 +159,8 @@ Phases, each printing one JSON line:
    with one host round trip; full probe at 1,000,000 items against the
    exact scan (ids equal but for near ties, within check_topk's rtol);
 13. ivf-serving: phase 3's serve() with ``oryx.serving.scan.ann.enabled``
-   on a ``file:`` bus: 250 features x 1,000,000 int8 items around 1,000
+   (and overload control off: the admission ladder would answer at
+   fewer probes under this load) on a ``file:`` bus: 250 features x 1,000,000 int8 items around 1,000
    centers, 100,000 users near them; 64 concurrent /recommend (p50, p99,
    recall@10 against the exact float32 top-10 at least 0.95, the first
    request's seconds with the build); a second layer on the bus that
@@ -166,14 +170,31 @@ Phases, each printing one JSON line:
    generation under the model dir; the second layer adopts the INDEX-REF
    (both on one generation); every folded item in its user's /recommend,
    and both layers answering the 64 probe users alike;
-14. the tables of the XLA-ported ALS ops (phase 8), RDF ops (phase 10)
+14. serving-front: the JAX package's default request path (the
+   admission ladder with the reference's overload defaults, the native
+   HTTP front) over phase 13's catalog on an inproc bus, the MODEL
+   carrying a generation; clients in another process (``client_main``),
+   threads over keep-alive connections: (a) 64 clients, 4,096
+   /recommend over 256 users, through the stdlib front and then the
+   native one (p50, p99, requests per second, recall@10 against the
+   exact float32 top-10 at least 0.95, every answer 200, the native
+   front's own request count), then /healthz, /readyz, /ready and one
+   /recommend equal byte for byte between the fronts (less Date, and
+   /healthz's staleness seconds); (b) the native front under 16, 256 and
+   16 clients for 10, 15 and 10 s, /healthz's shed_stage sampled every
+   100 ms: no 5xx, 429s with Retry-After 1 in the overload step, at
+   least one reduced-probe answer (each value x_u . y_id within 1e-4 of
+   the answer's largest) and one stale answer (an earlier full answer's
+   bytes), IVF batches below the full nprobe, back at full within 10 x
+   hold-s of the last step and every answer full from then on;
+15. the tables of the XLA-ported ALS ops (phase 8), RDF ops (phase 10)
    and IVF ops (phases 12-13), then the kernel table: launches on the
    main paths (ALS during phases 3-4, k-means during phase 6, each
    counted from zero just before; the scans also by batch rows, per path;
-   the als-lambda serving processes' own; and the IVF phases' builds and
-   serving) and the numbers of phases 2 and 5, B3's also at phase 12's
-   shape;
-15. the card's name and power limit, then ``{"ok": true, "device": ...}``.
+   the als-lambda serving processes' own; the IVF phases' builds and
+   serving; and phase 14's) and the numbers of phases 2 and 5, B3's also
+   at phase 12's shape;
+16. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the exit code is not 0. Without CUDA, or run
 from a directory that holds no ``oryx_tpu_torch``, it exits 2 before
@@ -189,6 +210,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -232,7 +254,9 @@ PHASE2_TIMED = (256, CANDIDATES_BATCH)
 # the wide scans: feature counts past the 1,024 whose query pieces stay
 # resident in shared memory, on planes of this many items
 WIDE_FEATURES = (1056, 2048, 4096)
-WIDE_ITEMS = 262_144
+# (262,144 until the serving-front phase joined the run: halved to keep
+# the whole run inside its limit; printed on the "cuts" line)
+WIDE_ITEMS = 131_072
 WIDE_RUNS = ((8, "topn_scan"), (256, "topn_scan"), (CANDIDATES_BATCH, "topn_candidates"))
 # the merge check's synthetic shapes: lists (1221 = the candidates kernel's
 # blocks at 20M items), list length and rows
@@ -792,11 +816,13 @@ def serving_config(broker_loc: str, score_dtype: str, extra: str = ""):
 
 
 def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_users,
-          broker_loc: str | None = None, extra: str = ""):
+          broker_loc: str | None = None, extra: str = "", generation: str | None = None):
     """Start the port's ServingLayer (on an inproc bus unless
     ``broker_loc`` names one, ``extra`` added to its config), feed it over
-    the update topic and the batched setters, fire the requests; returns
-    (layer, model, {user: ids}, {user: values}, latencies, statuses)."""
+    the update topic (the MODEL carrying ``generation`` as the batch
+    layer's do, when given) and the batched setters, fire the requests;
+    returns (layer, model, {user: ids}, {user: values}, latencies,
+    statuses)."""
     from oryx_tpu_torch import bus
     from oryx_tpu_torch.app import pmml as app_pmml
     from oryx_tpu_torch.common import pmml as pmml_io
@@ -810,6 +836,8 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
     root = pmml_io.build_skeleton_pmml()
     app_pmml.add_extension(root, "features", args.features)
     app_pmml.add_extension(root, "implicit", "true")
+    if generation is not None:
+        app_pmml.add_extension(root, "generation", generation)
     app_pmml.add_extension_content(root, "XIDs", [f"u{j}" for j in range(n_topic)])
     app_pmml.add_extension_content(root, "YIDs", [f"i{j}" for j in range(n_topic)])
     with bus.get_broker(broker_loc).producer("OryxUpdate") as p:
@@ -1262,16 +1290,34 @@ def log_has(path: str, text: str, count: int = 1) -> bool:
         return f.read().count(text) >= count
 
 
-def post_lines(base: str, lines: list[str]) -> float:
-    """POST /add in bodies of LAMBDA_BODY_LINES lines; the monotonic time
-    the last answer came."""
-    for i in range(0, len(lines), LAMBDA_BODY_LINES):
-        body = "\n".join(lines[i : i + LAMBDA_BODY_LINES]).encode()
-        req = urllib.request.Request(base + "/add", data=body, method="POST")
-        with urllib.request.urlopen(req, timeout=300) as resp:
+# the native HTTP front's body ceiling (oryx.serving.native.max-body-bytes,
+# reference.conf's default): it answers a larger body 413
+MAX_BODY_BYTES = 1 << 20
+
+
+def post_bodies(url: str, lines: list[str], max_lines: int) -> float:
+    """POST ``lines`` to ``url`` in bodies of at most ``max_lines`` lines
+    and MAX_BODY_BYTES bytes, each answered 204; the monotonic time the
+    last answer came."""
+    bodies, body, size = [], [], 0
+    for line in lines:
+        n = len(line.encode()) + 1
+        if body and (len(body) == max_lines or size + n > MAX_BODY_BYTES):
+            bodies.append(body)
+            body, size = [], 0
+        body.append(line)
+        size += n
+    bodies.append(body)
+    for body in bodies:
+        req = urllib.request.Request(url, data=("\n".join(body) + "\n").encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
             if resp.status != 204:
-                raise AssertionError(f"POST /add answered {resp.status}")
+                raise AssertionError(f"POST {url} answered {resp.status}")
     return time.monotonic()
+
+
+def post_lines(base: str, lines: list[str]) -> float:
+    return post_bodies(base + "/add", lines, LAMBDA_BODY_LINES)
 
 
 def hist_summary(snapshot: dict) -> dict:
@@ -1352,8 +1398,9 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
                         batch_interval: int = LAMBDA_BATCH_INTERVAL_S) -> dict:
     """The k-means lambda loop as three OS processes on one file: bus
     (``python -m oryx_tpu_torch batch|speed|serving``): wave 1, the
-    training set, through serving's /add; the batch process's
-    generation, served exactly; wave 2 folded by the speed process and
+    training set, through serving's /add; the batch process, started
+    after it at offsets committed before it, trains one generation on all
+    of it, served exactly; wave 2 folded by the speed process and
     served as the float64 running mean; the speed process restarted;
     wave 3 folded with no record consumed twice or lost. Returns the
     phase's record, the batch process's kernel launches included."""
@@ -1407,16 +1454,24 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
         from oryx_tpu_torch import bus
 
         start("serving")
-        batch_log = start("batch")
         speed_log = start("speed")
         # consumer groups start at the topic's end: wave 1 waits until the
-        # batch and speed layers have attached theirs
-        wait_until("layers up", lambda: log_has(batch_log, "BatchLayer started")
-                   and log_has(speed_log, "SpeedLayer started")
+        # speed layer has attached its group, and until the batch group's
+        # offsets are committed at the end of the (empty) input topic
+        wait_until("layers up", lambda: log_has(speed_log, "SpeedLayer started")
                    and status_of(base + "/ready") == 503, procs=live())
+        input_broker = bus.get_broker(loc)
+        batch_group = "OryxGroup-batch-ChipSmokeLambda"
+        attach = input_broker.consumer("OryxInput", group=batch_group)
+        attach.commit()
+        attach.close()
         t_post = time.monotonic()
         t_last = post_lines(base, lines[0])
         out["wave1_post_s"] = t_last - t_post
+        # the batch process starts after wave 1 is in and resumes at the
+        # committed offsets: its first generation drains all of wave 1,
+        # wherever its interval timer falls against the POST
+        start("batch")
 
         # wave 1: the batch process's generation, served exactly
         wait_until("generation 1", lambda: http_get(base + "/ready")[0] == 200, procs=live())
@@ -1429,9 +1484,8 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
             and m,
             procs=live(),
         )
-        input_broker = bus.get_broker(loc)
         latest = input_broker.latest_offsets("OryxInput")
-        drained = input_broker.get_offsets("OryxGroup-batch-ChipSmokeLambda", "OryxInput")
+        drained = input_broker.get_offsets(batch_group, "OryxInput")
         if drained != latest or sum(latest.values()) != n:
             raise AssertionError(f"generation 1 drained {drained} of {latest} ({n} posted)")
         out["batch_generation_s"] = hist_summary(metrics_batch["batch.generation.seconds"])
@@ -1910,15 +1964,7 @@ def als_lambda_conf(root: str, ports: dict, batch_interval: int, score_dtype: st
 
 
 def post_ingest(base: str, lines: list[str]) -> float:
-    """POST /ingest in bodies of ALS_INGEST_LINES lines; the monotonic time
-    the last answer came."""
-    for j in range(0, len(lines), ALS_INGEST_LINES):
-        body = ("\n".join(lines[j : j + ALS_INGEST_LINES]) + "\n").encode()
-        req = urllib.request.Request(base + "/ingest", data=body, method="POST")
-        with urllib.request.urlopen(req, timeout=600) as resp:
-            if resp.status != 204:
-                raise AssertionError(f"POST /ingest answered {resp.status}")
-    return time.monotonic()
+    return post_bodies(base + "/ingest", lines, ALS_INGEST_LINES)
 
 
 def als_topic_state(loc: str, start: int = 0):
@@ -2630,15 +2676,7 @@ def covtype_lines(x: np.ndarray, y) -> list[str]:
 
 
 def post_train(base: str, lines: list[str]) -> float:
-    """POST /train in bodies of RDF_TRAIN_LINES lines; the monotonic time
-    the last answer came."""
-    for j in range(0, len(lines), RDF_TRAIN_LINES):
-        body = ("\n".join(lines[j : j + RDF_TRAIN_LINES]) + "\n").encode()
-        req = urllib.request.Request(base + "/train", data=body, method="POST")
-        with urllib.request.urlopen(req, timeout=600) as resp:
-            if resp.status != 204:
-                raise AssertionError(f"POST /train answered {resp.status}")
-    return time.monotonic()
+    return post_bodies(base + "/train", lines, RDF_TRAIN_LINES)
 
 
 def rdf_published(loc: str, schema):
@@ -3158,8 +3196,12 @@ def phase_ivf_ops(torch, stn, pk, seed: int, items: int = IVF_ITEMS, features: i
 
 
 def ivf_serving_extra(root: str) -> str:
+    # the phase holds the tier's full-probe answers (every fold-in
+    # visible under 64 concurrent requests): overload control, which trades
+    # probes for latency at that load, is the serving-front phase's
     return f"""
         batch.storage.model-dir = "{root}/model"
+        serving.overload.enabled = false
         serving.scan.ann {{
           enabled = true
           maintain {{ enabled = true, interval-sec = 1.0, publish = true }}
@@ -3188,11 +3230,11 @@ def start_replica(broker_loc: str, extra: str, x: np.ndarray, y: np.ndarray):
     return layer, model
 
 
-def wait_for(what: str, pred, timeout: float) -> float:
+def wait_for(what: str, pred, timeout: float, phase: str = "ivf-serving") -> float:
     t0 = time.monotonic()
     while not pred():
         if time.monotonic() - t0 > timeout:
-            raise AssertionError(f"ivf-serving: {what} within {timeout} s")
+            raise AssertionError(f"{phase}: {what} within {timeout} s")
         time.sleep(0.05)
     return time.monotonic() - t0
 
@@ -3353,6 +3395,391 @@ def phase_ivf_serving(torch, args, stn, pk, seed: int, items: int = 1_000_000,
         torch.cuda.empty_cache()
 
 
+# -- phase 14: serving-front, the default request path -----------------------------
+
+# each front's closed loop (a): clients and requests
+FRONT_CLIENTS = 64
+FRONT_REQUESTS = 4096
+# the ladder's load (b), from the client process: (clients, seconds) per
+# step: below budget, overload (in flight above engage-shed x
+# inflight-target = 1.3 x 64), back below
+LADDER_STEPS = ((16, 10.0), (256, 15.0), (16, 10.0))
+# the URL set of (a) and (b): /recommend of this many users, drawn from
+# the catalog's 100,000 (16 times the stale rung's 256 cached answers)
+FRONT_USERS = 4096
+FRONT_GENERATION = "1700000000000"  # the MODEL's generation extension
+STAGE_SAMPLE_S = 0.1  # /healthz's shed_stage, sampled by the client process
+# reduced-probe answers against x_u . y_id in float64: the two-plane int8
+# rescore's error, relative to the largest score of the answer
+FRONT_VALUE_RTOL = 1e-4
+
+
+def client_main(spec_path: str, out_path: str) -> None:
+    """The load of the serving-front phase, run in a process of its own
+    so that its clients do not share the server's interpreter lock:
+    closed-loop threads over keep-alive ``http.client`` connections, one
+    step after another, each response recorded as [step, start s,
+    latency ms, status, X-Oryx-Shed-Stage, Retry-After, body]; with
+    ``sample``, a thread reads that path every ``sample_s`` and records
+    [s, status, shed_stage]."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    host = urlsplit(spec["base"])
+    paths = spec["paths"]
+    t_zero = time.perf_counter()
+    records, samples, lock = [], [], threading.Lock()
+    stop_sampling = threading.Event()
+
+    def connect():
+        return http.client.HTTPConnection(host.hostname, host.port, timeout=120)
+
+    def sampler():
+        conn = connect()
+        while not stop_sampling.is_set():
+            t = time.perf_counter() - t_zero
+            try:
+                conn.request("GET", spec["sample"])
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                samples.append([t, resp.status, body.get("shed_stage")])
+            except (OSError, http.client.HTTPException, ValueError):
+                conn.close()
+                conn = connect()
+                samples.append([t, -1, None])
+            stop_sampling.wait(max(0.0, spec["sample_s"] - (time.perf_counter() - t_zero - t)))
+        conn.close()
+
+    def client(step: int, slot: int, deadline, budget):
+        conn = connect()
+        i = slot
+        local = []
+        while True:
+            if deadline is not None and time.perf_counter() >= deadline:
+                break
+            if budget is not None:
+                with lock:
+                    if budget[0] <= 0:
+                        break
+                    budget[0] -= 1
+            path = paths[i % len(paths)]
+            i += 7
+            t0 = time.perf_counter()
+            try:
+                conn.request("GET", path)
+                resp = conn.getresponse()
+                body = resp.read().decode("utf-8", "replace")
+                local.append([step, t0 - t_zero, 1e3 * (time.perf_counter() - t0), resp.status,
+                              resp.getheader("X-Oryx-Shed-Stage"), resp.getheader("Retry-After"),
+                              path, body])
+            except (OSError, http.client.HTTPException) as e:
+                local.append([step, t0 - t_zero, 1e3 * (time.perf_counter() - t0), -1, None,
+                              None, path, repr(e)])
+                conn.close()
+                conn = connect()
+        conn.close()
+        with lock:
+            records.extend(local)
+
+    sampling = None
+    if spec.get("sample"):
+        sampling = threading.Thread(target=sampler, daemon=True)
+        sampling.start()
+    starts = []
+    for step, st in enumerate(spec["steps"]):
+        starts.append(time.perf_counter() - t_zero)
+        deadline = None if st.get("seconds") is None else time.perf_counter() + st["seconds"]
+        budget = None if st.get("requests") is None else [st["requests"]]
+        threads = [
+            threading.Thread(target=client, args=(step, c * 7919, deadline, budget))
+            for c in range(st["clients"])
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    stop_sampling.set()
+    if sampling is not None:
+        sampling.join()
+    with open(out_path, "w") as f:
+        json.dump({"step_starts": starts, "end": time.perf_counter() - t_zero,
+                   "records": records, "samples": samples}, f)
+
+
+def run_clients(spec: dict, timeout: float) -> dict:
+    """client_main in a child process; its records."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-clients-") as tmp:
+        spec_path, out_path = os.path.join(tmp, "spec.json"), os.path.join(tmp, "out.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+                f"chip_smoke.client_main({spec_path!r}, {out_path!r})")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=HERE, timeout=timeout,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"the client process failed:\n{proc.stderr[-3000:]}")
+        with open(out_path) as f:
+            return json.load(f)
+
+
+def latency_summary(records: list, seconds: float) -> dict:
+    lat = sorted(r[2] for r in records)
+    return {"requests": len(lat), "p50_ms": lat[len(lat) // 2],
+            "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+            "rps": len(lat) / seconds}
+
+
+def raw_fetch(port: int, path: str) -> bytes:
+    """One GET on its own connection, the response's bytes as sent."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        s.sendall(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\n\r\n".encode())
+        chunks = []
+        while True:
+            b = s.recv(65536)
+            if not b:
+                break
+            chunks.append(b)
+    return b"".join(chunks)
+
+
+def masked(resp: bytes) -> bytes:
+    """A response's bytes less the Date header, and for /healthz the
+    staleness seconds (and the Content-Length they move): the two layers
+    read their clocks at different instants, as in the JAX package's
+    native-front parity tests."""
+    resp = re.sub(rb"\r\nDate: [^\r\n]+", b"\r\nDate: -", resp)
+    if b'"staleness_seconds"' in resp:
+        resp = re.sub(rb'"staleness_seconds": [0-9.eE+-]+', b'"staleness_seconds": 0', resp)
+        resp = re.sub(rb"\r\nContent-Length: \d+", b"\r\nContent-Length: -", resp)
+    return resp
+
+
+def stage_runs(samples: list) -> list:
+    """The /healthz samples as runs: [shed_stage, first s, last s, samples]."""
+    runs = []
+    for t, _, stage in samples:
+        if runs and runs[-1][0] == stage:
+            runs[-1][2] = t
+            runs[-1][3] += 1
+        else:
+            runs.append([stage, t, t, 1])
+    return [[st, round(a, 3), round(b, 3), n] for st, a, b, n in runs]
+
+
+def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
+                        device: str = "cuda") -> dict:
+    """The JAX package's default request path in the port: the IVF tier
+    behind the admission ladder, served (a) by the pooled stdlib front and
+    by the native front in turn, 64 clients in another process each, then
+    (b) the native front under LADDER_STEPS, the reference's overload
+    defaults unchanged. Returns the path's kernel launches."""
+    from oryx_tpu_torch.common.metrics import registry
+    from oryx_tpu_torch.ops import ivf
+    from oryx_tpu_torch.serving import overload
+
+    users, f = min(IVF_SERVING_USERS, items // 10), args.features
+    n_centers = min(IVF_SERVING_CENTERS, items // 1000)
+    y, x, _ = clustered_catalog(torch, items, f, n_centers, seed + 1001, users, device=device)
+    gen = np.random.default_rng(seed + 1002)
+    probe = sorted(gen.choice(np.arange(SERVE_TOPIC_ROWS, users), size=FRONT_USERS, replace=False))
+    y_exact = stn.upload_streaming(y, dtype=torch.float32, device=device)
+    _, ref_i = exact_top(torch, stn, y_exact, x[probe], 10)
+    del y_exact
+    torch.cuda.empty_cache()
+    exact = {f"/recommend/u{u}": {f"i{j}" for j in ref_i[row]} for row, u in enumerate(probe)}
+    paths = list(exact)
+
+    def recall(records) -> float:
+        hits = sum(len({r["id"] for r in json.loads(rec[7])} & exact[rec[6]]) for rec in records)
+        return hits / (10.0 * max(1, len(records)))
+
+    def by_stage(records) -> dict:
+        out = {}
+        for rec in records:
+            key = str(rec[3]) if rec[3] != 200 else (rec[4] or "full")
+            out[key] = out.get(key, 0) + 1
+        return out
+
+    pk.reset_launch_counts()  # this slice's path starts here
+    stn.reset_launch_counts()
+    out = {"phase": "serving-front", "items": items, "users": users, "features": f,
+           "centers": n_centers, "url_users": FRONT_USERS}
+    layers, native_full = {}, []
+    try:
+        for front, enabled in (("stdlib", "false"), ("native", '"true"')):
+            extra = f"serving.scan.ann.enabled = true\nserving.native.enabled = {enabled}"
+            layer, model, _, statuses, _, info = serve(
+                torch, args, "int8", x, y, probe[: args.concurrency],
+                broker_loc=f"inproc://chip-smoke-front-{front}", extra=extra,
+                generation=FRONT_GENERATION,
+            )
+            layers[front] = layer
+            if any(s != 200 for s in statuses):
+                raise AssertionError(f"serving-front ({front}): warm-up statuses {set(statuses)}")
+            if (layer._native_front is not None) != (front == "native"):
+                raise AssertionError(f"serving-front: the {front} layer serves through "
+                                     f"{type(layer._native_front).__name__}")
+            if not isinstance(model._ensure_y_matrix()[2], ivf.IVFIndex):
+                raise AssertionError("serving-front: the model does not serve from IVF")
+            if layer.health.live_generation != FRONT_GENERATION:
+                raise AssertionError(f"serving-front: live generation {layer.health.live_generation}")
+            # each front's loop starts from a settled ladder: serve()'s
+            # warm-up may leave it engaged (the stdlib layer's ladder moves
+            # only on requests or an evaluation)
+            wait_for("the ladder back at full",
+                     lambda: layer.admission.evaluate() == overload.STAGE_FULL, 60,
+                     phase="serving-front")
+            before = registry.counter("serving.http.requests").value
+            ivf.reset_counts()
+            launched_before = {**pk.launch_counts(), **stn.launch_counts()}
+            res = run_clients({
+                "base": f"http://127.0.0.1:{layer.port}", "paths": paths,
+                "steps": [{"clients": FRONT_CLIENTS, "requests": FRONT_REQUESTS}],
+                "sample": "/healthz", "sample_s": STAGE_SAMPLE_S,
+            }, timeout=600)
+            recs = res["records"]
+            launched = {**pk.launch_counts(), **stn.launch_counts()}
+            row = {**latency_summary(recs, res["end"] - res["step_starts"][0]),
+                   "served": by_stage(recs), "stage_timeline": stage_runs(res["samples"]),
+                   "ann_batches": ivf.counts(),
+                   "nprobe_batches": {str(k): v for k, v in sorted(ivf.nprobe_counts().items())},
+                   "launches": {k: v - launched_before[k] for k, v in launched.items()}, **info}
+            bad = sorted({r[3] for r in recs if r[3] != 200})
+            if bad or len(recs) != FRONT_REQUESTS:
+                emit({"phase": "serving-front", front: row})
+                raise AssertionError(f"serving-front ({front}): statuses {bad}, "
+                                     f"{len(recs)} of {FRONT_REQUESTS} answered")
+            row["recall_at_10"] = recall(recs)
+            if layer._native_front is not None:
+                layer._native_front.push_control()  # drains the native stats
+                row["native_http_requests"] = registry.counter("serving.http.requests").value - before
+                if row["native_http_requests"] < FRONT_REQUESTS:
+                    raise AssertionError(f"serving-front: the native front counted {row}")
+            out[front] = row
+            if front == "native":  # earlier full answers for the stale rung's check
+                native_full = [r for r in recs if r[4] is None]
+            if row["recall_at_10"] < 0.95:
+                raise AssertionError(f"serving-front ({front}): recall@10 {row['recall_at_10']}")
+
+        # byte parity, with both ladders at full (the stdlib layer's ladder
+        # moves only on requests or an evaluation)
+        def ladders_full():
+            for layer in layers.values():
+                layer.admission.evaluate()
+            return all(layer.admission.stage == overload.STAGE_FULL for layer in layers.values())
+
+        wait_for("both ladders back at full", ladders_full, 60, phase="serving-front")
+        layers["native"]._native_front.push_control()
+        parity = {}
+        for path in ("/healthz", "/readyz", "/ready", paths[0]):
+            got = {front: raw_fetch(layer.port, path) for front, layer in layers.items()}
+            if masked(got["native"]) != masked(got["stdlib"]):
+                raise AssertionError(f"serving-front: {path} differs between the fronts:\n"
+                                     f"native {got['native'][:600]!r}\nstdlib {got['stdlib'][:600]!r}")
+            parity[path] = len(got["native"])
+        layers["native"]._native_front.push_control()
+        snapshots = registry.counter("serving.http.native-answered.snapshot").value
+        if snapshots <= 0:
+            raise AssertionError("serving-front: the native front answered no snapshot")
+        out["parity_bytes"] = parity
+        out["native_answered_snapshots"] = snapshots
+        layers.pop("stdlib").close()
+
+        # (b) the ladder on the native front
+        layer = layers["native"]
+        out["overload"] = vars(layer.overload_config)
+        index = layer.model_manager.get_model()._ensure_y_matrix()[2]
+        full_nprobe = index.resolve_nprobe()
+        ivf.reset_counts()
+        res = run_clients({
+            "base": f"http://127.0.0.1:{layer.port}", "paths": paths,
+            "steps": [{"clients": c, "seconds": s} for c, s in LADDER_STEPS],
+            "sample": "/healthz", "sample_s": STAGE_SAMPLE_S,
+        }, timeout=600)
+        recs, starts, samples = res["records"], res["step_starts"], res["samples"]
+        nprobes = ivf.nprobe_counts()
+        steps = []
+        for i, (clients, seconds) in enumerate(LADDER_STEPS):
+            sr = [r for r in recs if r[0] == i]
+            steps.append({"clients": clients, "seconds": seconds, **latency_summary(sr, seconds),
+                          "served": by_stage(sr)})
+        out["ladder"] = {"steps": steps, "stage_timeline": stage_runs(samples),
+                         "nprobe_batches": {str(k): v for k, v in sorted(nprobes.items())},
+                         "full_nprobe": full_nprobe}
+        emit(out)
+        server_errors = [r for r in recs if r[3] >= 500 or r[3] < 0]
+        if server_errors:
+            raise AssertionError(f"serving-front: {len(server_errors)} 5xx or failed requests, "
+                                 f"e.g. {server_errors[0][3:]}")
+        shed = [r for r in recs if r[0] == 1 and r[3] == 429]
+        if not shed or any(r[4] != "shed" or r[5] != "1" for r in shed):
+            raise AssertionError(f"serving-front: the overload step shed {len(shed)} requests")
+        other = [r for r in recs if r[3] not in (200, 429)]
+        if other:
+            raise AssertionError(f"serving-front: statuses {sorted({r[3] for r in other})}")
+        reduced = [r for r in recs if r[3] == 200 and r[4] == "reduced-probe"]
+        stale = [r for r in recs if r[3] == 200 and r[4] == "stale"]
+        if not reduced or not stale:
+            raise AssertionError(f"serving-front: {len(reduced)} reduced-probe and "
+                                 f"{len(stale)} stale answers")
+        worst = 0.0
+        for rec in reduced:
+            xu = x[int(rec[6].rsplit("/u", 1)[1])].astype(np.float64)
+            got = json.loads(rec[7])
+            want = np.array([y[int(r["id"][1:])].astype(np.float64) @ xu for r in got])
+            err = np.abs(np.array([r["value"] for r in got]) - want) / max(1e-12, np.abs(want).max())
+            worst = max(worst, float(err.max()))
+        if worst > FRONT_VALUE_RTOL:
+            raise AssertionError(f"serving-front: a reduced-probe value is {worst} off x_u . y_id")
+        # a stale body must be a full answer that came earlier: in (a), or
+        # in (b) before this one ended
+        full = {}
+        for r in native_full:
+            full.setdefault(r[6], []).append((-math.inf, r[7]))
+        for r in recs:
+            if r[3] == 200 and r[4] is None:
+                full.setdefault(r[6], []).append((r[1] + r[2] / 1e3, r[7]))
+        for rec in stale:
+            end = rec[1] + rec[2] / 1e3
+            if not any(body == rec[7] and t <= end for t, body in full.get(rec[6], ())):
+                raise AssertionError(f"serving-front: a stale answer to {rec[6]} is no earlier "
+                                     "full answer")
+        if not any(k < full_nprobe for k in nprobes):
+            raise AssertionError(f"serving-front: no IVF batch below nprobe {full_nprobe}: {nprobes}")
+        if not any(s[2] == "shed" for s in samples if starts[1] <= s[0] < starts[2]):
+            raise AssertionError("serving-front: /healthz never showed shed in the overload step")
+        last = [s for s in samples if s[0] >= starts[2]]
+        tail = next((i for i in range(len(last)) if all(s[2] == "full" for s in last[i:])), None)
+        if tail is None or last[tail][0] - starts[2] > 10 * layer.overload_config.hold_s:
+            raise AssertionError(f"serving-front: not back at full within 10 x hold-s: {stage_runs(last)}")
+        t_full = last[tail][0]
+        late = [r for r in recs if r[1] >= t_full and (r[3] != 200 or r[4] is not None)]
+        if late:
+            raise AssertionError(f"serving-front: {len(late)} answers below full after {t_full} s")
+        launches = {**pk.launch_counts(), **stn.launch_counts()}
+        result = {
+            "reduced_probe_answers": len(reduced), "stale_answers": len(stale),
+            "reduced_probe_recall_at_10": recall(reduced),
+            "full_recall_at_10": recall([r for r in recs if r[3] == 200 and r[4] is None]),
+            "reduced_value_max_rel_err": worst, "back_at_full_after_s": t_full - starts[2],
+            "launches": launches,
+        }
+        emit({"phase": "serving-front-checks", **result})
+        if device == "cuda" and launches["kmeans_sweep.tc"] <= 0:
+            raise AssertionError("serving-front: the index builds launched no kmeans_sweep.tc")
+        return launches
+    finally:
+        for layer in layers.values():
+            layer.close()
+        torch.cuda.empty_cache()
+
+
 def metrics_gauge(name: str):
     from oryx_tpu_torch.common.metrics import registry
 
@@ -3393,8 +3820,23 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
+    # the native HTTP front's g++ build runs beside the kernels' nvcc
+    native_build = {}
+
+    def build_native():
+        from oryx_tpu_torch import native
+
+        t = time.perf_counter()
+        native_build["ok"] = native.get_library() is not None
+        native_build["s"] = time.perf_counter() - t
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     _build.build()
     build_s = time.perf_counter() - t0
+    native_thread.join()
+    if not native_build.get("ok"):
+        raise AssertionError("the native HTTP front did not build (g++)")
     # the build log: spills, and ptxas warnings (a serialised wgmma is
     # C7510-C7520)
     log = [
@@ -3406,6 +3848,7 @@ def main() -> int:
         "phase": "card", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "build_s": build_s,
+        "native_front_build_s": native_build["s"],
         "ptxas_spills": sorted({
             f"{name}: {line}" for name, line in log
             if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
@@ -3416,7 +3859,8 @@ def main() -> int:
 
     emit({"phase": "cuts", "lambda_batch_interval_s": [45, LAMBDA_BATCH_INTERVAL_S],
           "als_scale_iterations": [ALS_SCALE_ITERATIONS, args.als_iterations],
-          "phase2_plain_and_library_times": f"dot, b in {PHASE2_TIMED} (once all cases)"})
+          "phase2_plain_and_library_times": f"dot, b in {PHASE2_TIMED} (once all cases)",
+          "wide_scan_items": [262_144, WIDE_ITEMS]})
     clock = PhaseClock(t0)
     gen = np.random.default_rng(args.seed)
     y = factors(gen, args.items, args.features)
@@ -3537,6 +3981,8 @@ def main() -> int:
     clock("ivf-ops")
     ivf_srv = phase_ivf_serving(torch, args, stn, pk, args.seed)
     clock("ivf-serving")
+    front_launches = phase_serving_front(torch, args, stn, pk, args.seed)
+    clock("serving-front")
     ivf_launches = {
         name: ivf_ops["launches"].get(name, 0) + ivf_srv["launches"].get(name, 0)
         for name in SOURCES
@@ -3554,7 +4000,8 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "als_lambda_launches": als_launches[name],
-            "ivf_launches": ivf_launches[name], "parity": "ok", "library_topk_ms": None,
+            "ivf_launches": ivf_launches[name], "front_launches": front_launches.get(name, 0),
+            "parity": "ok", "library_topk_ms": None,
             **kernels[name],
         })
         if name == "kmeans_sweep.tc":

@@ -3,12 +3,12 @@
 
 The JAX package formats vectors and speed-layer update messages in C++
 when its native library is built, and falls back to Python when it is
-not (``oryx_tpu/native/store.py:235-247``, ``:448-454``). The port has
-no native library yet, so it takes those Python paths: vectors are
-``json.dumps`` text (the native formatter writes ``%.9g``; the float32
-values read back equal) and the store is the pure-Python
-``FeatureVectors`` of ``app/als/common.py``. The C++ store, the parser
-and the HTTP front are not ported.
+not (``oryx_tpu/native/store.py:235-247``, ``:448-454``). The port's
+native library holds only the HTTP front so far, so this module takes
+those Python paths: vectors are ``json.dumps`` text (the native
+formatter writes ``%.9g``; the float32 values read back equal) and the
+store is the pure-Python ``FeatureVectors`` of ``app/als/common.py``.
+The C++ store and parser are not ported.
 """
 
 from __future__ import annotations

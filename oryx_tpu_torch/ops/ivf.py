@@ -102,6 +102,9 @@ _SEG_ITEMS = 8192
 # batches by path, host round trips of the routing result, and the device
 # path's query groups and stage-1 pieces
 COUNTS = {"device": 0, "host": 0, "full": 0, "route_syncs": 0, "groups": 0, "pieces": 0}
+# batches by the probe count they ran at (the overload ladder's
+# reduced-probe rung shows up as a smaller nprobe)
+NPROBE_COUNTS: dict[int, int] = {}
 _counts_lock = threading.Lock()
 # wall seconds of the most recent build_ivf, by stage (kmeans, assign,
 # quantize, upload, layout); overwritten per build
@@ -117,6 +120,13 @@ def reset_counts() -> None:
     with _counts_lock:
         for name in COUNTS:
             COUNTS[name] = 0
+        NPROBE_COUNTS.clear()
+
+
+def nprobe_counts() -> dict[int, int]:
+    """Batches by probe count since the last ``reset_counts``."""
+    with _counts_lock:
+        return dict(NPROBE_COUNTS)
 
 
 def counts() -> dict[str, int]:
@@ -743,6 +753,8 @@ def top_k_device(index: IVFIndex, queries, k: int, *, nprobe: int | None = None,
     """(vals [n, k] f32, ids [n, k] int32) tensors on the index's device;
     ids are ORIGINAL item row indices (-1 pads starved windows)."""
     np_ = index.resolve_nprobe(nprobe)
+    with _counts_lock:
+        NPROBE_COUNTS[np_] = NPROBE_COUNTS.get(np_, 0) + 1
     kk = max(1, int(k))
     q = _padded_queries(index, queries)
     n = q.shape[0]

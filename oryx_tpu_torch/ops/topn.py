@@ -237,12 +237,16 @@ def _submit(run, uploaded, make_handle, keep=()):
     return make_handle(host_v, host_i, event, (vals, idxs, uploaded) + tuple(keep))
 
 
-def submit_top_k(uploaded, queries: np.ndarray, k: int, cosine: bool = False) -> TopNHandle:
-    """Enqueue a batched top-k without waiting."""
+def submit_top_k(
+    uploaded, queries: np.ndarray, k: int, cosine: bool = False, nprobe: int | None = None
+) -> TopNHandle:
+    """Enqueue a batched top-k without waiting. ``nprobe`` overrides an
+    IVF index's probe count for this call (the overload ladder's
+    reduced-probe rung); the exact scan ignores it."""
     q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
     if isinstance(uploaded, IVFIndex):
         return _submit(
-            lambda: ivf_ops.top_k_device(uploaded, q, k, cosine=cosine),
+            lambda: ivf_ops.top_k_device(uploaded, q, k, cosine=cosine, nprobe=nprobe),
             uploaded,
             lambda v, i, ev, keep: TopNHandle(v, i, ev, keep),
         )
@@ -260,14 +264,15 @@ def submit_top_k_multi(
     k: int,
     cosine: bool = False,
     scan_batch: int = 256,
+    nprobe: int | None = None,
 ) -> MultiTopNHandle:
     """ceil(n / scan_batch) full-matrix scans submitted at once; one
     handle collects them all. An IVF handle takes the whole batch at once
-    (it groups the queries itself)."""
+    (it groups the queries itself), at ``nprobe`` when given."""
     q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
     if isinstance(uploaded, IVFIndex):
         return _submit(
-            lambda: ivf_ops.top_k_device(uploaded, q, k, cosine=cosine),
+            lambda: ivf_ops.top_k_device(uploaded, q, k, cosine=cosine, nprobe=nprobe),
             uploaded,
             lambda v, i, ev, keep: MultiTopNHandle(v, i, q.shape[0], ev, keep),
         )
@@ -287,6 +292,7 @@ def submit_top_k_multi_indexed(
     k: int,
     cosine: bool = False,
     scan_batch: int = 256,
+    nprobe: int | None = None,
 ) -> MultiTopNHandle:
     """submit_top_k_multi with the query vectors already on the card: the
     host ships int32 row indices into ``x_dev`` and the gather runs on
@@ -294,7 +300,9 @@ def submit_top_k_multi_indexed(
     idx = np.atleast_1d(np.asarray(indices, dtype=np.int32))
     if isinstance(uploaded, IVFIndex):
         return _submit(
-            lambda: ivf_ops.top_k_device_indexed(uploaded, x_dev, idx, k, cosine=cosine),
+            lambda: ivf_ops.top_k_device_indexed(
+                uploaded, x_dev, idx, k, cosine=cosine, nprobe=nprobe
+            ),
             uploaded,
             lambda v, i, ev, keep: MultiTopNHandle(v, i, len(idx), ev, keep),
             keep=(x_dev,),

@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``oryx_tpu/registry``): per-generation
-manifests, the CHAMPION pointer and retention GC (``store``), and the
-champion/challenger gate (``gate``). Serving-side generation tracking
-and rollback are not ported yet.
+manifests, the CHAMPION pointer and retention GC (``store``), the
+champion/challenger gate (``gate``) and serving-side generation tracking
+with duplicate-MODEL suppression (``tracking``). Rollback is not ported
+yet.
 """
 
 from oryx_tpu_torch.registry.gate import ChampionGate, GateDecision

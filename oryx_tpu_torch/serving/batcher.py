@@ -19,15 +19,19 @@ depth and the batch ceiling, and while every inflight slot is taken the
 dispatcher keeps absorbing arrivals in 1 ms waits so one full batch goes
 out where several padded fragments would have.
 
-The queue is bounded as in the JAX package
-(``oryx.serving.overload.max-queue``): an entry past the bound raises
+Overload control as in the JAX package: the queue is bounded
+(``oryx.serving.overload.max-queue``: an entry past the bound raises
 :class:`BatcherOverloadedError` at once and counts
-``serving.batcher.queue.rejected``, and the serving layer answers 429.
+``serving.batcher.queue.rejected``, and the serving layer answers 429);
+a second EWMA, of each group's worst wait from enqueue to dispatch (an
+inflight slot held), is the admission controller's pressure signal
+(:func:`default_batcher_signals`); and a request's reduced-probe
+fraction (``serving/overload.probe_override``) rides its entry, keys its
+dispatch group, and scales an IVF index's ``nprobe`` for that group.
 
 Not ported yet: tenancy (the deficit-round-robin queue serves the single
-default tenant, and no tenant's share of the bound is kept), the rest of
-overload control (no admission ladder, no reduced-probe override of the
-IVF tier's nprobe) and the tiered-store prefetch.
+default tenant, and no tenant's share of the bound is kept) and the
+tiered-store prefetch.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import numpy as np
 from oryx_tpu_torch.common import tracing
 from oryx_tpu_torch.common.metrics import registry as _metrics
 from oryx_tpu_torch.ops import topn as topn_ops
+from oryx_tpu_torch.serving.overload import active_probe_fraction
 
 log = logging.getLogger(__name__)
 
@@ -56,6 +61,14 @@ MIN_ADAPTIVE_BATCH = 256  # one full scan group
 MAX_ADAPTIVE_BATCH = 4096
 MIN_INFLIGHT = 2  # always enough to overlap host prep with card work
 MAX_INFLIGHT = 32
+
+# Queue-wait EWMA (the admission controller's pressure signal): smoothing
+# factor per dispatch, plus an idle decay so the signal fades once the
+# queue goes quiet — without it a burst's last reading would pin the shed
+# ladder engaged long after the overload passed.
+WAIT_EWMA_ALPHA = 0.3
+WAIT_DECAY_GRACE_S = 0.25
+WAIT_DECAY_HALF_LIFE_S = 0.5
 
 
 class BatcherClosedError(RuntimeError):
@@ -87,6 +100,13 @@ class _Entry:
     t_enqueue: float = 0.0
     t_dispatch: float = 0.0
     t_submit: float = 0.0
+    # overload control: monotonic enqueue stamp feeding the queue-wait
+    # EWMA (always set, unlike the tracing stamps), plus the request's
+    # reduced-probe override, snapshotted from the admission contextvar on
+    # the request thread so it rides the entry to the dispatcher
+    t_q: float = 0.0
+    probe_fraction: float | None = None
+    nprobe_applied: int | None = None
 
 
 def _k_bucket(k: int) -> int:
@@ -101,8 +121,19 @@ def _b_bucket(n: int) -> int:
 
 def _record_entry_spans(e: _Entry, t_done: float) -> None:
     """One request's batching lifecycle as three sibling spans under the
-    request span: queue-wait, assemble (grouping + submit), scan."""
+    request span: queue-wait, assemble (grouping + submit), scan; the
+    scan carries the IVF probe count when the handle is an IVF index."""
     ctx = e.trace_ctx
+    attrs = None
+    if e.nprobe_applied is not None:
+        attrs = {"nprobe": e.nprobe_applied, "probe_fraction": e.probe_fraction}
+    else:
+        resolve_nprobe = getattr(e.uploaded, "resolve_nprobe", None)
+        if resolve_nprobe is not None:
+            try:
+                attrs = {"nprobe": int(resolve_nprobe())}
+            except Exception:
+                attrs = None
     tracing.record_span(
         "serving.queue-wait", ctx.child(), ctx.span_id,
         e.t_enqueue, e.t_dispatch - e.t_enqueue,
@@ -113,7 +144,7 @@ def _record_entry_spans(e: _Entry, t_done: float) -> None:
     )
     tracing.record_span(
         "serving.scan", ctx.child(), ctx.span_id,
-        e.t_submit, t_done - e.t_submit,
+        e.t_submit, t_done - e.t_submit, attrs,
     )
 
 
@@ -217,6 +248,10 @@ class TopNBatcher:
         self.max_batch = MIN_ADAPTIVE_BATCH if max_batch is None else int(max_batch)
         self._inflight_cap = MIN_INFLIGHT + 2 if max_inflight is None else int(max_inflight)
         self._ewma_ms: float | None = None
+        # queue-wait EWMA (the admission controller's primary pressure
+        # signal); guarded by _flight_cv like the dispatch EWMA
+        self._queue_wait_ewma_ms = 0.0
+        self._last_wait_obs = time.monotonic()
         # queued entries past this raise BatcherOverloadedError; None = unbounded
         self._max_queue = None if max_queue is None else int(max_queue)
         self._queue = _FairQueue()
@@ -260,6 +295,10 @@ class TopNBatcher:
             if ctx is not None and ctx.sampled:
                 e.trace_ctx = ctx
                 e.t_enqueue = time.time()
+        # the admission controller's reduced-probe override, read here on
+        # the request thread that carries the contextvar
+        e.probe_fraction = active_probe_fraction()
+        e.t_q = time.monotonic()
         with self._state_lock:  # an entry can never land after the sentinel
             if self._closed:
                 raise BatcherClosedError("batcher is closed")
@@ -319,14 +358,18 @@ class TopNBatcher:
             if batch is None:
                 self._pending.put(None)
                 return
-            # group by (matrix snapshot, cosine, query-matrix snapshot):
-            # indices are only meaningful against the snapshots the caller
-            # captured, and vector entries never mix with index entries
+            # group by (matrix snapshot, cosine, query-matrix snapshot,
+            # probe override): indices are only meaningful against the
+            # snapshots the caller captured, vector entries never mix with
+            # index entries, and a reduced-probe request must not widen a
+            # full-probe neighbour's scan (or the other way round)
             groups: dict[tuple, list[_Entry]] = {}
             for e in batch:
                 xk = id(e.x_dev) if e.row is not None else None
-                groups.setdefault((id(e.uploaded), e.cosine, xk), []).append(e)
-            for (_, cosine, _xk), entries in groups.items():
+                groups.setdefault(
+                    (id(e.uploaded), e.cosine, xk, e.probe_fraction), []
+                ).append(e)
+            for (_, cosine, _xk, _pf), entries in groups.items():
                 self._submit_group(entries, cosine)
 
     def _acquire_slot(self) -> None:
@@ -366,12 +409,63 @@ class TopNBatcher:
                 self.max_batch *= 2
             self.max_batch = max(MIN_ADAPTIVE_BATCH, min(self.max_batch, MAX_ADAPTIVE_BATCH))
 
+    def _group_nprobe(self, entries: list[_Entry]) -> int | None:
+        """Resolve a reduced-probe override into a concrete ``nprobe`` for
+        one group (its entries share one probe fraction by group key).
+        None when the group runs at full quality or the handle is not an
+        IVF index."""
+        pf = entries[0].probe_fraction
+        if pf is None:
+            return None
+        resolve = getattr(entries[0].uploaded, "resolve_nprobe", None)
+        if resolve is None:
+            return None
+        try:
+            nprobe = max(1, int(resolve() * pf))
+        except Exception:
+            return None
+        for e in entries:
+            e.nprobe_applied = nprobe
+        return nprobe
+
+    def _observe_queue_wait(self, entries: list[_Entry]) -> None:
+        """EWMA the worst enqueue-to-dispatch wait of the group — the
+        admission controller's primary pressure signal."""
+        now = time.monotonic()
+        wait_ms = max(now - e.t_q for e in entries) * 1000.0
+        with self._flight_cv:
+            self._queue_wait_ewma_ms = (
+                WAIT_EWMA_ALPHA * wait_ms
+                + (1.0 - WAIT_EWMA_ALPHA) * self._queue_wait_ewma_ms
+            )
+            self._last_wait_obs = now
+            _metrics.gauge("serving.batcher.queue.wait-ewma-ms").set(
+                self._queue_wait_ewma_ms
+            )
+
+    def queue_wait_ewma_ms(self) -> float:
+        """The queue-wait EWMA with idle decay: while no dispatch happens
+        (the queue went quiet) the signal halves every
+        ``WAIT_DECAY_HALF_LIFE_S``, so the shed ladder can release though
+        nothing flows to refresh the EWMA."""
+        now = time.monotonic()
+        with self._flight_cv:
+            idle = now - self._last_wait_obs
+            ewma = self._queue_wait_ewma_ms
+        if idle <= WAIT_DECAY_GRACE_S:
+            return ewma
+        return ewma * 0.5 ** ((idle - WAIT_DECAY_GRACE_S) / WAIT_DECAY_HALF_LIFE_S)
+
     def _submit_group(self, entries: list[_Entry], cosine: bool) -> None:
         self._acquire_slot()
+        # queue-wait ends here: the entries have a dispatcher AND an
+        # inflight slot (waiting for a slot is backpressure, still queueing)
+        self._observe_queue_wait(entries)
         for e in entries:
             if e.trace_ctx is not None:
                 e.t_dispatch = time.time()
         try:
+            nprobe = self._group_nprobe(entries)
             kk = _k_bucket(max(e.k for e in entries))
             if entries[0].row is not None:
                 rows = np.asarray([e.row for e in entries], dtype=np.int32)
@@ -380,7 +474,7 @@ class TopNBatcher:
                     rows = np.concatenate([rows, np.zeros(pad, np.int32)])
                 handle = topn_ops.submit_top_k_multi_indexed(
                     entries[0].uploaded, entries[0].x_dev, rows, kk,
-                    cosine=cosine, scan_batch=self.MULTI_THRESHOLD,
+                    cosine=cosine, scan_batch=self.MULTI_THRESHOLD, nprobe=nprobe,
                 )
                 _metrics.counter("serving.batcher.submitted.indexed").inc(len(entries))
             else:
@@ -389,7 +483,7 @@ class TopNBatcher:
                     # multi-scan: pads to a multiple of scan_batch internally
                     handle = topn_ops.submit_top_k_multi(
                         entries[0].uploaded, queries, kk,
-                        cosine=cosine, scan_batch=self.MULTI_THRESHOLD,
+                        cosine=cosine, scan_batch=self.MULTI_THRESHOLD, nprobe=nprobe,
                     )
                 else:
                     pad_rows = _b_bucket(len(entries)) - len(entries)
@@ -397,7 +491,9 @@ class TopNBatcher:
                         queries = np.concatenate(
                             [queries, np.zeros((pad_rows, queries.shape[1]), queries.dtype)]
                         )
-                    handle = topn_ops.submit_top_k(entries[0].uploaded, queries, kk, cosine=cosine)
+                    handle = topn_ops.submit_top_k(
+                        entries[0].uploaded, queries, kk, cosine=cosine, nprobe=nprobe
+                    )
                 _metrics.counter("serving.batcher.submitted.vector").inc(len(entries))
             for e in entries:
                 if e.trace_ctx is not None:
@@ -471,6 +567,18 @@ def configure_scheduler(
         _default_init["max_queue"] = max_queue
         if latency_budget_ms is not None:
             LATENCY_BUDGET_MS = float(latency_budget_ms)
+
+
+def default_batcher_signals() -> tuple[float, int]:
+    """(queue_wait_ewma_ms, queue_depth) of the live default batcher, or
+    zeros when none is running — the admission controller polls this on
+    its control interval, so it must stay cheap and must never create a
+    batcher."""
+    with _default_lock:
+        b = _default
+    if b is None or b._closed:
+        return 0.0, 0
+    return b.queue_wait_ewma_ms(), b._queue.qsize()
 
 
 def get_default_batcher() -> TopNBatcher:

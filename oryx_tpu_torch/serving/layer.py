@@ -4,17 +4,33 @@
 On start it creates the input-topic producer (unless read-only), loads
 the configured ServingModelManager, starts a supervised daemon thread
 replaying the update topic from the beginning into the manager, and
-serves the registered resources over a pooled stdlib HTTP server with a
-context path, gzip and ``/ready`` readiness gating. ``oryx.serving.scan.*``
-reaches the batcher's scheduler and the scan before either starts.
+serves the registered resources with a context path, gzip, ``/ready``
+readiness gating and the ``/healthz`` / ``/readyz`` probes.
+``oryx.serving.scan.*`` reaches the batcher's scheduler and the scan
+before either starts.
+
+Two fronts serve the same ``_dispatch_parsed`` core, as in the JAX
+package: the native epoll front (``serving/native_front.py`` over
+``native/httpfront.cpp``, built by ``g++`` at first use) whenever
+``oryx.serving.native.enabled`` allows it and the library builds, and
+the pooled stdlib server otherwise. Either returns the same bytes.
 
 The port runs on CUDA: constructing a layer raises when no CUDA device
 is present, unless the caller chose the CPU
 (``oryx_tpu_torch.device.set_device("cpu")``).
 
-The batcher's queue is bounded by ``oryx.serving.overload.max-queue``;
-a request that finds it full is answered 429 with ``Retry-After``
-(``oryx.serving.overload.retry-after-s``), as in the JAX package.
+Overload control is the JAX package's (``serving/overload.py``): with
+``oryx.serving.overload.enabled`` an admission controller reads the
+batcher's queue-wait EWMA, its queue depth and the requests in flight
+and walks the shed ladder full -> reduced-probe (the IVF tier scans a
+fraction of its cells) -> stale (the last full answer of the live
+generation) -> shed (fast 429 with ``Retry-After``); the served stage
+rides the ``X-Oryx-Shed-Stage`` header. The batcher's queue is bounded
+by ``oryx.serving.overload.max-queue`` whether or not the controller
+runs: a request that finds it full is answered 429. A generation
+tracker (``registry/tracking.py``) follows the update topic's MODEL
+records: it names the live generation for ``/healthz`` and the stale
+rung, and drops a second delivery of the live generation's MODEL.
 
 ``oryx.serving.scan.ann.*`` reaches the IVF tier (``ops/ivf.py``) and
 ``oryx.serving.scan.ann.maintain.*`` the background index maintainer
@@ -26,14 +42,13 @@ through one lazily opened producer.
 
 Not ported yet: tenancy and online experiments (a config that declares
 enabled tenants or sets ``oryx.serving.ab.fraction`` above 0 is refused
-at construction), the tiered item store (``oryx.serving.store.tier.enabled``
-is refused at construction), the registry's routes and rollback,
-MODEL-REF restage, the rest of overload control (the admission ladder),
-the native HTTP front, TLS and auth (a config that sets a key file or credentials is
-refused at construction), ``/healthz``, ``/readyz``, tracing export
-routes and profiling. ``/metrics`` serves the metrics registry (with the
-scan kernels' launch counts), without the JAX package's per-instance
-and model-state entries.
+at construction, so the per-tenant ladders and the experiment arm stay
+out), the tiered item store (``oryx.serving.store.tier.enabled`` is
+refused at construction), ``/model/generations`` and rollback, MODEL-REF
+restage, TLS and auth (a config that sets a key file or credentials is
+refused at construction), tracing export routes and profiling.
+``/metrics`` serves the metrics registry (with the scan kernels' launch
+counts), without the JAX package's per-instance and model-state entries.
 """
 
 from __future__ import annotations
@@ -54,8 +69,11 @@ from oryx_tpu_torch.common import ledger, metrics, tracing
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
+from oryx_tpu_torch.tenancy import context as _tenancy
 from oryx_tpu_torch.device import default_device
 from oryx_tpu_torch.ops.ivf import refuse_tier_store
+from oryx_tpu_torch.registry.tracking import GenerationTracker
+from oryx_tpu_torch.serving import overload as _overload
 from oryx_tpu_torch.serving.batcher import BatcherOverloadedError
 from oryx_tpu_torch.serving.web import (
     OryxServingException,
@@ -140,20 +158,43 @@ def _import_recursively(module_name: str) -> None:
 
 
 class ServingHealth:
-    """Update-stream and drain state the consume thread and /ready share."""
+    """Liveness and readiness state of the serving layer: the update
+    stream's health, the time of the last applied update, the drain
+    flag, and the live (and challenger) generation the tracker names.
 
-    def __init__(self) -> None:
+    The update-stream consumer reports in: every successful poll marks the
+    stream healthy, every poll error marks it down. When the stream is
+    down the layer keeps answering from the last good model — *degraded*,
+    not dead — and `staleness()` says how old that model's last delta is.
+    `stream_healthy` is None until the first poll (or when no update topic
+    is configured), which readiness treats as "not known to be down".
+    """
+
+    def __init__(self, clock=time.time) -> None:
+        self._clock = clock
+        # one lock over every flag: the consume thread writes the stream
+        # marks and generation ids, the shutdown path flips draining, and
+        # HTTP handler threads read all of them
         self._mu = threading.Lock()
         self._stream_healthy: bool | None = None
         self._last_update_time: float | None = None
-        self._draining = False
         self.consume_thread: SupervisedThread | None = None
+        self._draining: bool = False
+        self._live_generation: str | None = None
+        self._challenger_generation: str | None = None
 
     @property
     def stream_healthy(self) -> bool | None:
         with self._mu:
             return self._stream_healthy
 
+    @property
+    def last_update_time(self) -> float | None:
+        with self._mu:
+            return self._last_update_time
+
+    # drain-aware shutdown: once True, /ready and /readyz answer 503 so
+    # load balancers stop routing here, while in-flight requests complete
     @property
     def draining(self) -> bool:
         with self._mu:
@@ -164,17 +205,66 @@ class ServingHealth:
         with self._mu:
             self._draining = bool(value)
 
+    # generation id of the live model (set by the GenerationTracker as
+    # MODEL/MODEL-REF records flow past); None until one arrives or
+    # when models carry no generation identity
+    @property
+    def live_generation(self) -> str | None:
+        with self._mu:
+            return self._live_generation
+
+    @live_generation.setter
+    def live_generation(self, value: str | None) -> None:
+        with self._mu:
+            self._live_generation = value
+
+    # generation id of an online experiment's challenger arm; always None
+    # in the port, which refuses experiments
+    @property
+    def challenger_generation(self) -> str | None:
+        with self._mu:
+            return self._challenger_generation
+
+    @challenger_generation.setter
+    def challenger_generation(self, value: str | None) -> None:
+        with self._mu:
+            self._challenger_generation = value
+
     def mark_stream_ok(self) -> None:
         with self._mu:
             self._stream_healthy = True
+        metrics.registry.gauge("serving.update-stream.healthy").set(1)
 
     def mark_stream_down(self) -> None:
         with self._mu:
             self._stream_healthy = False
+        metrics.registry.gauge("serving.update-stream.healthy").set(0)
 
     def mark_update(self) -> None:
         with self._mu:
-            self._last_update_time = time.time()
+            self._last_update_time = self._clock()
+
+    def staleness(self) -> float | None:
+        """Seconds since the last model update was applied, or None if no
+        update has ever arrived. Also published as a gauge."""
+        with self._mu:
+            last = self._last_update_time
+        if last is None:
+            return None
+        s = self._clock() - last
+        metrics.registry.gauge("serving.model.staleness-seconds").set(s)
+        return s
+
+    @property
+    def alive(self) -> bool:
+        """False only once the supervised consume thread exhausted its
+        restart policy — the layer can no longer recover by itself."""
+        t = self.consume_thread
+        return t is None or not t.gave_up
+
+    @property
+    def degraded(self) -> bool:
+        return self.stream_healthy is False
 
 
 @resource("GET", "/ready")
@@ -185,6 +275,55 @@ def _ready(ctx: ServingContext, req: Request) -> Response:
     if _model_ready(ctx):
         return Response(200, None)
     return Response(503, None)
+
+
+@resource("GET", "/healthz")
+def _healthz(ctx: ServingContext, req: Request) -> Response:
+    """Liveness + degraded-mode report. 200 while the process can serve —
+    including degraded (update stream down, answering from the last good
+    model); 503 only when the update consumer has given up for good.
+
+    ``status`` folds the two degraded notions (last-good-model serving,
+    and the shed ladder's reduced-quality stages) into one word:
+    down > draining > degraded > ok; ``shed_stage`` names the ladder rung
+    currently serving answers."""
+    health = ctx.health
+    if health is None:
+        return Response(200, {"alive": True}, content_type="application/json")
+    stage = ctx.admission.stage if ctx.admission is not None else _overload.STAGE_FULL
+    if not health.alive:
+        status = "down"
+    elif health.draining:
+        status = "draining"
+    elif health.degraded or stage > _overload.STAGE_FULL:
+        status = "degraded"
+    else:
+        status = "ok"
+    body = {
+        "alive": health.alive,
+        "degraded": health.degraded or stage > _overload.STAGE_FULL,
+        "status": status,
+        "shed_stage": _overload.STAGE_NAMES[stage],
+        "stream_healthy": health.stream_healthy,
+        "staleness_seconds": health.staleness(),
+        "live_generation": health.live_generation,
+        "challenger_generation": health.challenger_generation,
+    }
+    return Response(200 if health.alive else 503, body, content_type="application/json")
+
+
+@resource("GET", "/readyz")
+def _readyz(ctx: ServingContext, req: Request) -> Response:
+    """Strict readiness for load balancers: the model must be loaded AND
+    the update stream must not be known-down AND the instance must not be
+    draining. Degraded/draining instances keep /healthz green but drop
+    out of /readyz rotation."""
+    ready = _model_ready(ctx)
+    stream_ok = ctx.health is None or ctx.health.stream_healthy is not False
+    draining = ctx.health is not None and ctx.health.draining
+    body = {"model_ready": ready, "stream_ok": stream_ok, "draining": draining}
+    ok = ready and stream_ok and not draining
+    return Response(200 if ok else 503, body, content_type="application/json")
 
 
 @resource("GET", "/metrics")
@@ -288,6 +427,10 @@ class ServingLayer:
         self.config = config
         tracing.configure_from(config)
         self.port = config.get_int("oryx.serving.api.port")
+        # refused above; the native front's decline reads them as the
+        # JAX package's does
+        self.use_tls = False
+        self.user_name = None
         self.context_path = config.get_string("oryx.serving.api.context-path").rstrip("/")
         self.read_only = config.get_bool("oryx.serving.api.read-only")
         self.no_init_topics = config.get_optional_bool("oryx.serving.no-init-topics") or False
@@ -310,7 +453,6 @@ class ServingLayer:
             # a full queue sheds at once (429) instead of queueing without bound
             max_queue=config.get_optional_int("oryx.serving.overload.max-queue"),
         )
-        self.retry_after_s = config.get_optional_int("oryx.serving.overload.retry-after-s") or 1
         configure_scan(oversample=config.get_optional_int("oryx.serving.scan.oversample"))
         _configure_ann(config)
 
@@ -332,12 +474,32 @@ class ServingLayer:
         self._consume_thread: SupervisedThread | None = None
         self._server: HTTPServer | None = None
         self._server_thread: threading.Thread | None = None
+        self._native_front = None  # serving/native_front.NativeFront | None
         self._stop_event = threading.Event()
         self._batcher_retained = False
         self.health = ServingHealth()
         self.retry_policy = RetryPolicy.from_config(config, "oryx.serving.retry")
+        self._inflight = 0
+        self._inflight_cond = threading.Condition()
         self._close_lock = threading.Lock()
         self._close_done = False
+        # live generation and duplicate-MODEL suppression on the update stream
+        self.generation_tracker = GenerationTracker(self.health)
+
+        # adaptive overload control: the admission controller watches the
+        # batcher's queue-wait EWMA, its queue depth and the requests in
+        # flight against the oryx.serving.overload.* budget and walks the
+        # shed ladder; None when disabled, so the request path pays nothing
+        self.overload_config = _overload.OverloadConfig.from_config(config)
+        self.admission = (
+            _overload.AdmissionController(
+                self.overload_config,
+                signals=self._overload_signals,
+                generation_fn=lambda: self.health.live_generation,
+            )
+            if self.overload_config.enabled
+            else None
+        )
 
         self.router = Router()
         for mod in self.app_resources or []:
@@ -348,9 +510,14 @@ class ServingLayer:
     # -- lifecycle -------------------------------------------------------------
 
     def start(self) -> None:
+        from oryx_tpu_torch.serving import native_front as _native_mod
         from oryx_tpu_torch.serving.batcher import retain_default_batcher
 
-        if self._server is not None or self._update_consumer is not None:
+        if (
+            self._server is not None
+            or self._native_front is not None
+            or self._update_consumer is not None
+        ):
             raise RuntimeError("ServingLayer.start() called twice")
         retain_default_batcher()
         self._batcher_retained = True
@@ -392,17 +559,36 @@ class ServingLayer:
                 self._consume_thread.start()
 
         self._start_index_maintainer(update_broker_loc, update_topic)
-        ctx = ServingContext(self.model_manager, self.input_producer, self.config, self.health)
-        threads = cfg.get_optional_int("oryx.serving.api.threads") or 64
-        self._server = _PooledHTTPServer(("0.0.0.0", self.port), _make_handler(self, ctx), threads)
-        if self.port == 0:
-            self.port = self._server.server_address[1]
-        self._server_thread = threading.Thread(
-            target=self._server.serve_forever, name="ServingHTTP", daemon=True
+        ctx = ServingContext(
+            self.model_manager, self.input_producer, self.config, self.health,
+            admission=self.admission,
         )
-        self._server_thread.start()
-        ledger.register("thread", self._server_thread, live=threading.Thread.is_alive)
-        log.info("ServingLayer listening on :%d%s", self.port, self.context_path or "/")
+        threads = cfg.get_optional_int("oryx.serving.api.threads") or 64
+        # the native front when oryx.serving.native.* allows it and g++
+        # builds it; None on any decline, and the stdlib server serves
+        self._native_front = _native_mod.maybe_start(self, ctx, threads)
+        if self._native_front is not None:
+            self.port = self._native_front.port
+            ledger.register(
+                "thread", self._native_front.poll_thread, live=threading.Thread.is_alive
+            )
+        else:
+            self._server = _PooledHTTPServer(
+                ("0.0.0.0", self.port), _make_handler(self, ctx), threads
+            )
+            if self.port == 0:
+                self.port = self._server.server_address[1]
+            self._server_thread = threading.Thread(
+                target=self._server.serve_forever, name="ServingHTTP", daemon=True
+            )
+            self._server_thread.start()
+            ledger.register("thread", self._server_thread, live=threading.Thread.is_alive)
+        log.info(
+            "ServingLayer listening on :%d%s%s",
+            self.port,
+            self.context_path or "/",
+            " (native front)" if self._native_front is not None else "",
+        )
 
     def _start_index_maintainer(self, update_broker_loc, update_topic) -> None:
         """The background IVF compaction loop, for a manager whose models
@@ -455,12 +641,73 @@ class ServingLayer:
                 self.health.mark_stream_down()
                 raise
             self.health.mark_stream_ok()
+            # track the live generation and drop a second delivery of its
+            # MODEL before the manager sees the block
+            block = self.generation_tracker.filter_block(block)
             if block is not None and len(block) > 0:
                 yield block
                 self.health.mark_update()
+                if self._native_front is not None and _block_has_model(block):
+                    # a MODEL apply flips readiness and the live generation
+                    # now: the native snapshots do not wait for the next tick
+                    self._native_front.push_snapshots()
+
+    # -- in-flight requests and drain ----------------------------------------
+
+    def _request_began(self) -> None:
+        with self._inflight_cond:
+            self._inflight += 1
+
+    def _request_ended(self) -> None:
+        with self._inflight_cond:
+            self._inflight -= 1
+            if self._inflight <= 0:
+                self._inflight_cond.notify_all()
+
+    @property
+    def inflight_requests(self) -> int:
+        with self._inflight_cond:
+            return self._inflight
+
+    def _overload_signals(self) -> tuple[float, int, int]:
+        """(queue_wait_ewma_ms, queue_depth, http_inflight) for the
+        admission controller; the batcher half reads the process-wide
+        default batcher without ever creating one."""
+        from oryx_tpu_torch.serving.batcher import default_batcher_signals
+
+        queue_wait_ms, depth = default_batcher_signals()
+        return queue_wait_ms, depth, self.inflight_requests
+
+    def begin_drain(self) -> None:
+        """Refuse new traffic at the readiness level: /ready and /readyz
+        answer 503 so load balancers stop sending here, while requests in
+        flight complete."""
+        self.health.draining = True
+        if self._native_front is not None:
+            # the native /readyz snapshot flips now, not at the next tick
+            self._native_front.push_snapshots()
+        log.info("ServingLayer :%d draining (readiness now 503)", self.port)
+
+    def drain(self, timeout: float = 10.0) -> bool:
+        """Block until no request is in flight (or timeout); True when the
+        instance is idle and safe to close."""
+        deadline = time.monotonic() + timeout
+        with self._inflight_cond:
+            while self._inflight > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._inflight_cond.wait(remaining)
+        return True
 
     def await_termination(self, timeout: float | None = None) -> None:
-        if self._server_thread is not None:
+        """Block until the front stops serving (``close()``). The JAX
+        package joins only the stdlib server's thread, so its serving
+        command returns at once behind the native front; the port joins
+        whichever front serves."""
+        if self._native_front is not None:
+            self._native_front.poll_thread.join(timeout)
+        elif self._server_thread is not None:
             self._server_thread.join(timeout)
 
     def close(self) -> None:
@@ -469,6 +716,8 @@ class ServingLayer:
                 return
             self._close_done = True
         self.health.draining = True
+        if self._native_front is not None:
+            self._native_front.close()
         if self._server is not None:
             self._server.shutdown()
             self._server.server_close()
@@ -503,10 +752,120 @@ class ServingLayer:
         self.close()
 
 
+def _block_has_model(block) -> bool:
+    keys = getattr(block, "keys", None)
+    if keys is None:
+        return False
+    return bool((keys == b"MODEL").any() or (keys == b"MODEL-REF").any())
+
+
+def _shed_response(retry_after_s: int) -> Response:
+    """Fast 429 for the top ladder rung: tiny JSON body, Retry-After so
+    well-behaved clients back off instead of hammering the retry path."""
+    return Response(
+        429,
+        {"error": "overloaded", "retry_after_s": retry_after_s},
+        content_type="application/json",
+        headers={"Retry-After": str(retry_after_s)},
+    )
+
+
+def _admit_and_route(layer: ServingLayer, ctx: ServingContext, req, cache_key, sp):
+    """Route one request through the shed ladder.
+
+    The admission decision picks the *intended* stage; this function
+    reports the stage the request was *actually* served at — a stale-rung
+    request that misses the answer cache falls through to a reduced-probe
+    scan, and a full-quality request that finds the batcher queue full is
+    shed at the door. The served stage is stamped on the response header,
+    the request span and the per-stage counters."""
+    tenant = _tenancy.current_tenant()
+    admission = layer.admission
+    decision = (
+        admission.decide(req.method, req.path, tenant=tenant)
+        if admission is not None
+        else None
+    )
+
+    def _champion_generation():
+        # the generation stale-cache entries are stamped with and checked
+        # against: the tracker's live one
+        return admission.generation() if admission is not None else None
+
+    served = None  # stage name actually used; None = full quality
+    response = None
+    if decision is not None and decision.stage >= _overload.STAGE_SHED:
+        served = "shed"
+        response = _shed_response(decision.retry_after_s)
+    elif (
+        decision is not None
+        and decision.stage >= _overload.STAGE_STALE
+        and req.method == "GET"
+    ):
+        cached = admission.cache.get(cache_key, _champion_generation())
+        if cached is not None:
+            served = "stale"
+            response = Response(cached.status, cached.payload, cached.content_type)
+    if response is None:
+        try:
+            if decision is not None and decision.probe_fraction is not None:
+                with _overload.probe_override(decision.probe_fraction):
+                    response = layer.router.dispatch(ctx, req)
+                if getattr(response, "status", 200) == 200:
+                    served = "reduced-probe"
+            else:
+                response = layer.router.dispatch(ctx, req)
+        except BatcherOverloadedError:
+            # bounded-queue rejection (oryx.serving.overload.max-queue):
+            # an immediate shed instead of unbounded queueing, taken even
+            # when the admission controller is disabled
+            served = "shed"
+            response = _shed_response(layer.overload_config.retry_after_s)
+        else:
+            if (
+                decision is not None
+                and decision.stage == _overload.STAGE_FULL
+                and req.method == "GET"
+                and getattr(response, "status", 200) == 200
+                and _champion_generation() is not None
+            ):
+                # feed the stale-answer cache with full-quality answers
+                # only, stamped with the champion generation
+                admission.cache.put(
+                    cache_key,
+                    _overload.CachedAnswer(
+                        _champion_generation(),
+                        response.status,
+                        response.body,
+                        response.content_type,
+                    ),
+                )
+    if served is not None:
+        _overload.count_shed(served, tenant=tenant)
+        headers = getattr(response, "headers", None)
+        if headers is not None:
+            headers[_overload.SHED_HEADER] = served
+        if sp is not None:
+            sp.set("shed_stage", served)
+    return response
+
+
+def gzip_compress(body: bytes) -> bytes:
+    """Deterministic response gzip (mtime pinned): the same body always
+    gives the same bytes, which keeps the native and stdlib fronts
+    byte-equal across the gzip rung."""
+    return gzip.compress(body, mtime=0)
+
+
 def _dispatch_parsed(layer: ServingLayer, ctx: ServingContext, method: str, raw_path: str,
                      headers, body: bytes):
-    """Everything between a parsed request and a rendered (status,
-    payload, content-type, extra headers) tuple."""
+    """The front-agnostic request core: everything between a parsed
+    request and a rendered (status, payload, content-type, extra headers)
+    tuple. The stdlib handler and the native front's dispatch workers
+    (``serving/native_front.py``) both call it, so admission, tracing
+    and rendering cannot drift between fronts. ``headers`` needs a
+    case-insensitive ``get`` and ``items()`` (``email.Message`` and
+    ``native_front._Headers`` both qualify)."""
     split = urlsplit(raw_path)
     path = split.path
     if layer.context_path:
@@ -523,39 +882,30 @@ def _dispatch_parsed(layer: ServingLayer, ctx: ServingContext, method: str, raw_
         headers={k: v for k, v in headers.items()},
         body=body,
     )
+    # answer-cache key: path + raw query, the whole identity of a GET the
+    # stale rung serves
+    cache_key = path + ("?" + split.query if split.query else "")
     attrs = {"path": path, "method": req.method}
     incoming = tracing.parse_traceparent(headers.get("traceparent"))
-    if incoming is not None and incoming.sampled:
-        with tracing.use(incoming):
-            with tracing.span("serving.request", attrs=attrs) as sp:
-                response = _route(layer, ctx, req)
-                sp.set("status", response.status)
-    else:
-        with tracing.span("serving.request", attrs=attrs, root=True) as sp:
-            response = _route(layer, ctx, req)
-            sp.set("status", response.status)
+    # untenanted: the port refuses declared tenants
+    with _tenancy.tenant_scope(None):
+        if incoming is not None and incoming.sampled:
+            with tracing.use(incoming):
+                with tracing.span("serving.request", attrs=attrs) as sp:
+                    response = _admit_and_route(layer, ctx, req, cache_key, sp)
+                    sp.set("status", getattr(response, "status", 200))
+        else:
+            with tracing.span("serving.request", attrs=attrs, root=True) as sp:
+                response = _admit_and_route(layer, ctx, req, cache_key, sp)
+                sp.set("status", getattr(response, "status", 200))
     return render(response, headers.get("Accept", "application/json"))
-
-
-def _route(layer: ServingLayer, ctx: ServingContext, req: Request) -> Response:
-    """The router's answer, or 429 when the batcher's bounded queue is full
-    (``oryx.serving.overload.max-queue``): an immediate shed instead of an
-    unbounded wait, with Retry-After so clients back off."""
-    try:
-        return layer.router.dispatch(ctx, req)
-    except BatcherOverloadedError:
-        return Response(
-            429,
-            {"error": "overloaded", "retry_after_s": layer.retry_after_s},
-            content_type="application/json",
-            headers={"Retry-After": str(layer.retry_after_s)},
-        )
 
 
 def _make_handler(layer: ServingLayer, ctx: ServingContext):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
-        server_version = "oryx_tpu_torch"
+        # the JAX package's token: either package, either front, the same bytes
+        server_version = "oryx_tpu"
         # keep-alive clients see Nagle + delayed-ACK stalls without this
         disable_nagle_algorithm = True
 
@@ -564,6 +914,13 @@ def _make_handler(layer: ServingLayer, ctx: ServingContext):
 
         def _handle(self, method: str) -> None:
             t0 = time.perf_counter()
+            layer._request_began()
+            try:
+                self._handle_counted(method, t0)
+            finally:
+                layer._request_ended()
+
+        def _handle_counted(self, method: str, t0: float) -> None:
             try:
                 length = int(self.headers.get("Content-Length") or 0)
                 body = self.rfile.read(length) if length else b""
@@ -582,7 +939,7 @@ def _make_handler(layer: ServingLayer, ctx: ServingContext):
             _observe_request(method, status, t0)
             headers = dict(extra)
             if len(payload) > 1024 and "gzip" in self.headers.get("Accept-Encoding", ""):
-                payload = gzip.compress(payload, mtime=0)
+                payload = gzip_compress(payload)
                 headers["Content-Encoding"] = "gzip"
             self.send_response(status)
             self.send_header("Content-Type", ct)

@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # Runs in a fresh interpreter where importing jax or any oryx_tpu module
 # (other than oryx_tpu_torch) fails: every module of the port imports,
-# the serving path answers over HTTP on the CPU, the k-means batch path
+# the serving path answers over HTTP on the CPU (behind the native front,
+# built by the port's own loader, where g++ is present), the k-means batch path
 # trains one generation on a file: bus and the speed layer folds points
 # into its model, ALS trains (packing in forked workers) and folds in, an
 # RDF generation trains on a file: bus and answers /predict, and
@@ -63,6 +64,8 @@ _ISOLATED = textwrap.dedent(
               }}
             }}'''))
         layer.start()
+        from oryx_tpu_torch import native
+        assert (layer._native_front is not None) == (native.get_library() is not None)
         root = pmml.build_skeleton_pmml()
         app_pmml.add_extension(root, "features", 8)
         app_pmml.add_extension(root, "implicit", "true")
@@ -191,6 +194,40 @@ def test_port_runs_without_jax_or_the_jax_package():
     )
     assert out.returncode == 0, out.stderr[-4000:]
     assert "ISOLATED-OK" in out.stdout
+
+
+def test_native_loader_compiles_only_the_ports_sources(tmp_path, monkeypatch):
+    """The port's native library is built from C++ sources under
+    oryx_tpu_torch/ and nothing else: not the JAX package's copies."""
+    from oryx_tpu_torch import native
+
+    port_root = (ROOT / "oryx_tpu_torch").resolve()
+    commands = []
+
+    def record(cmd, **kw):
+        commands.append(list(cmd))
+        out = cmd[cmd.index("-o") + 1]
+        Path(out).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, b"", b"")
+
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native.subprocess, "run", record)
+    so_path = native._build_library()
+    assert so_path is not None and Path(so_path).parent == tmp_path
+    assert len(commands) == 1
+    sources = [a for a in commands[0] if a.endswith((".cpp", ".cc", ".c", ".cu"))]
+    assert sources == native.source_paths()
+    assert [Path(a).name for a in sources] == ["httpfront.cpp"]
+    for a in sources:
+        assert Path(a).resolve().is_relative_to(port_root), a
+    # the library's name covers its sources: a second call builds nothing
+    assert native._build_library() == so_path and len(commands) == 1
+
+
+def test_native_front_source_is_the_jax_packages_byte_for_byte():
+    assert (ROOT / "oryx_tpu_torch/native/httpfront.cpp").read_bytes() == (
+        ROOT / "oryx_tpu/native/httpfront.cpp"
+    ).read_bytes()
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_chosen(monkeypatch):

@@ -175,14 +175,21 @@ Phases, each printing one JSON line:
    HTTP front) over phase 13's catalog on an inproc bus, the MODEL
    carrying a generation; clients in another process (``client_main``),
    threads over keep-alive connections: (a) 64 clients, 4,096
-   /recommend over 256 users, through the stdlib front and then the
-   native one (p50, p99, requests per second, recall@10 against the
-   exact float32 top-10 at least 0.95, every answer 200, the native
-   front's own request count), then /healthz, /readyz, /ready and one
-   /recommend equal byte for byte between the fronts (less Date, and
-   /healthz's staleness seconds); (b) the native front under 16, 256 and
-   16 clients for 10, 15 and 10 s, /healthz's shed_stage sampled every
-   100 ms: no 5xx, 429s with Retry-After 1 in the overload step, at
+   /recommend over 4,096 users, through the stdlib front and then the
+   native one, each with its ladder held at full (idle signals fed to
+   its controller) so that both do the same work (p50, p99, requests
+   per second, recall@10 against the exact float32 top-10 at least
+   0.95, every answer 200 and full, the native front's own request
+   count, the ladder's real signals), then /healthz, /readyz, /ready
+   and one /recommend equal byte for byte between the fronts (less
+   Date, and /healthz's staleness seconds); (b) the native front under
+   16, 256 and 16 clients for 10, 15 and 10 s, /healthz's shed_stage
+   and the controller's signals sampled every 100 ms, its moves
+   printed: no 5xx, the overload step's in flight up to the dispatch
+   pool, 429s (each with Retry-After 1) if and only if the controller
+   moved to shed (in flight counts once a dispatch worker takes a
+   request, as in the JAX package, so it stops at the pool, 64 =
+   inflight-target, and only a queue wait past about 65 ms sheds), at
    least one reduced-probe answer (each value x_u . y_id within 1e-4 of
    the answer's largest) and one stale answer (an earlier full answer's
    bytes), IVF batches below the full nprobe, back at full within 10 x
@@ -204,6 +211,7 @@ printing any result. Weights are random, made from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -3401,14 +3409,14 @@ def phase_ivf_serving(torch, args, stn, pk, seed: int, items: int = 1_000_000,
 FRONT_CLIENTS = 64
 FRONT_REQUESTS = 4096
 # the ladder's load (b), from the client process: (clients, seconds) per
-# step: below budget, overload (in flight above engage-shed x
-# inflight-target = 1.3 x 64), back below
+# step: below budget, overload (four clients for each of the front's 64
+# dispatch workers), back below
 LADDER_STEPS = ((16, 10.0), (256, 15.0), (16, 10.0))
 # the URL set of (a) and (b): /recommend of this many users, drawn from
 # the catalog's 100,000 (16 times the stale rung's 256 cached answers)
 FRONT_USERS = 4096
 FRONT_GENERATION = "1700000000000"  # the MODEL's generation extension
-STAGE_SAMPLE_S = 0.1  # /healthz's shed_stage, sampled by the client process
+STAGE_SAMPLE_S = 0.1  # /healthz's shed_stage and the ladder's signals, sampled
 # reduced-probe answers against x_u . y_id in float64: the two-plane int8
 # rescore's error, relative to the largest score of the answer
 FRONT_VALUE_RTOL = 1e-4
@@ -3429,7 +3437,7 @@ def client_main(spec_path: str, out_path: str) -> None:
         spec = json.load(f)
     host = urlsplit(spec["base"])
     paths = spec["paths"]
-    t_zero = time.perf_counter()
+    t_zero, t_zero_mono = time.perf_counter(), time.monotonic()
     records, samples, lock = [], [], threading.Lock()
     stop_sampling = threading.Event()
 
@@ -3504,7 +3512,8 @@ def client_main(spec_path: str, out_path: str) -> None:
     if sampling is not None:
         sampling.join()
     with open(out_path, "w") as f:
-        json.dump({"step_starts": starts, "end": time.perf_counter() - t_zero,
+        json.dump({"t_zero_mono": t_zero_mono, "step_starts": starts,
+                   "end": time.perf_counter() - t_zero,
                    "records": records, "samples": samples}, f)
 
 
@@ -3558,6 +3567,68 @@ def masked(resp: bytes) -> bytes:
         resp = re.sub(rb'"staleness_seconds": [0-9.eE+-]+', b'"staleness_seconds": 0', resp)
         resp = re.sub(rb"\r\nContent-Length: \d+", b"\r\nContent-Length: -", resp)
     return resp
+
+
+@contextlib.contextmanager
+def ladder_held_at_full(layer):
+    """The layer's admission controller fed idle signals while the block
+    runs, so that it walks down to full (one rung each hold-s) and stays
+    there; budgets, rungs and fronts stay as configured."""
+    from oryx_tpu_torch.serving.overload import STAGE_FULL
+
+    adm = layer.admission
+    signals, adm._signals = adm._signals, lambda: (0.0, 0, 0)
+    try:
+        wait_for("the ladder at full", lambda: adm.evaluate() == STAGE_FULL, 60,
+                 phase="serving-front")
+        yield
+    finally:
+        adm._signals = signals
+
+
+class SignalSampler:
+    """The admission controller's inputs and state, read in the server's
+    process every STAGE_SAMPLE_S while the block runs: [monotonic s,
+    queue-wait EWMA ms, batcher queue depth, in flight, pressure, stage];
+    the signals are the layer's own, whatever the controller is fed."""
+
+    def __init__(self, layer) -> None:
+        self.layer, self.samples = layer, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        adm = self.layer.admission
+        while not self._stop.wait(STAGE_SAMPLE_S):
+            wait_ms, depth, inflight = self.layer._overload_signals()
+            self.samples.append([time.monotonic(), wait_ms, depth, inflight, adm.pressure,
+                                 adm.stage])
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+
+    def _ratio(self, s: list) -> float:
+        """One sample's signals over their budgets: the controller's raw
+        pressure before smoothing."""
+        cfg = self.layer.overload_config
+        return max(s[1] / cfg.target_queue_wait_ms, s[3] / max(1, cfg.inflight_target),
+                   s[2] / cfg.max_queue if cfg.max_queue else 0.0)
+
+    def peaks(self, lo: float, hi: float) -> dict:
+        """The signals' largest values between monotonic lo and hi."""
+        w = [s for s in self.samples if lo <= s[0] < hi]
+        if not w:
+            return {"samples": 0}
+        return {"samples": len(w), "queue_wait_ms_max": max(s[1] for s in w),
+                "depth_max": max(s[2] for s in w), "inflight_max": max(s[3] for s in w),
+                "signal_ratio_max": max(self._ratio(s) for s in w),
+                "pressure_max": max(s[4] for s in w),
+                "pressure_mean": sum(s[4] for s in w) / len(w)}
 
 
 def stage_runs(samples: list) -> list:
@@ -3629,31 +3700,33 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
                 raise AssertionError("serving-front: the model does not serve from IVF")
             if layer.health.live_generation != FRONT_GENERATION:
                 raise AssertionError(f"serving-front: live generation {layer.health.live_generation}")
-            # each front's loop starts from a settled ladder: serve()'s
-            # warm-up may leave it engaged (the stdlib layer's ladder moves
-            # only on requests or an evaluation)
-            wait_for("the ladder back at full",
-                     lambda: layer.admission.evaluate() == overload.STAGE_FULL, 60,
-                     phase="serving-front")
             before = registry.counter("serving.http.requests").value
             ivf.reset_counts()
             launched_before = {**pk.launch_counts(), **stn.launch_counts()}
-            res = run_clients({
-                "base": f"http://127.0.0.1:{layer.port}", "paths": paths,
-                "steps": [{"clients": FRONT_CLIENTS, "requests": FRONT_REQUESTS}],
-                "sample": "/healthz", "sample_s": STAGE_SAMPLE_S,
-            }, timeout=600)
+            # the fronts compared on the same work: at 64 clients in flight
+            # sits at its budget and the queue wait near its own, so a free
+            # ladder serves each front a different mix of rungs (and may
+            # shed); it is held at full here, its signals still sampled,
+            # and (b) drives it
+            with ladder_held_at_full(layer), SignalSampler(layer) as sig:
+                res = run_clients({
+                    "base": f"http://127.0.0.1:{layer.port}", "paths": paths,
+                    "steps": [{"clients": FRONT_CLIENTS, "requests": FRONT_REQUESTS}],
+                    "sample": "/healthz", "sample_s": STAGE_SAMPLE_S,
+                }, timeout=600)
             recs = res["records"]
             launched = {**pk.launch_counts(), **stn.launch_counts()}
             row = {**latency_summary(recs, res["end"] - res["step_starts"][0]),
-                   "served": by_stage(recs), "stage_timeline": stage_runs(res["samples"]),
+                   "served": by_stage(recs), "signals": sig.peaks(-math.inf, math.inf),
+                   "stage_timeline": stage_runs(res["samples"]),
                    "ann_batches": ivf.counts(),
                    "nprobe_batches": {str(k): v for k, v in sorted(ivf.nprobe_counts().items())},
                    "launches": {k: v - launched_before[k] for k, v in launched.items()}, **info}
-            bad = sorted({r[3] for r in recs if r[3] != 200})
+            bad = sorted({str(r[3]) if r[3] != 200 else r[4] for r in recs
+                          if r[3] != 200 or r[4] is not None})
             if bad or len(recs) != FRONT_REQUESTS:
                 emit({"phase": "serving-front", front: row})
-                raise AssertionError(f"serving-front ({front}): statuses {bad}, "
+                raise AssertionError(f"serving-front ({front}): statuses or rungs {bad}, "
                                      f"{len(recs)} of {FRONT_REQUESTS} answered")
             row["recall_at_10"] = recall(recs)
             if layer._native_front is not None:
@@ -3697,19 +3770,28 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
         index = layer.model_manager.get_model()._ensure_y_matrix()[2]
         full_nprobe = index.resolve_nprobe()
         ivf.reset_counts()
-        res = run_clients({
-            "base": f"http://127.0.0.1:{layer.port}", "paths": paths,
-            "steps": [{"clients": c, "seconds": s} for c, s in LADDER_STEPS],
-            "sample": "/healthz", "sample_s": STAGE_SAMPLE_S,
-        }, timeout=600)
+        moves_before = len(layer.admission.transitions)
+        with SignalSampler(layer) as sig:
+            res = run_clients({
+                "base": f"http://127.0.0.1:{layer.port}", "paths": paths,
+                "steps": [{"clients": c, "seconds": s} for c, s in LADDER_STEPS],
+                "sample": "/healthz", "sample_s": STAGE_SAMPLE_S,
+            }, timeout=600)
         recs, starts, samples = res["records"], res["step_starts"], res["samples"]
+        mono = [res["t_zero_mono"] + t for t in starts] + [res["t_zero_mono"] + res["end"]]
         nprobes = ivf.nprobe_counts()
         steps = []
         for i, (clients, seconds) in enumerate(LADDER_STEPS):
             sr = [r for r in recs if r[0] == i]
             steps.append({"clients": clients, "seconds": seconds, **latency_summary(sr, seconds),
-                          "served": by_stage(sr)})
-        out["ladder"] = {"steps": steps, "stage_timeline": stage_runs(samples),
+                          "served": by_stage(sr), "signals": sig.peaks(mono[i], mono[i + 1])})
+        # the controller's moves in this run: [s from the first step's start,
+        # from stage, to stage, pressure]
+        moves = [[t - mono[0], a, b, p] for t, a, b, p in
+                 layer.admission.transitions[moves_before:]]
+        pool = layer._native_front._pool._max_workers
+        out["ladder"] = {"steps": steps, "stage_timeline": stage_runs(samples), "moves": moves,
+                         "dispatch_workers": pool,
                          "nprobe_batches": {str(k): v for k, v in sorted(nprobes.items())},
                          "full_nprobe": full_nprobe}
         emit(out)
@@ -3717,9 +3799,26 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
         if server_errors:
             raise AssertionError(f"serving-front: {len(server_errors)} 5xx or failed requests, "
                                  f"e.g. {server_errors[0][3:]}")
-        shed = [r for r in recs if r[0] == 1 and r[3] == 429]
-        if not shed or any(r[4] != "shed" or r[5] != "1" for r in shed):
-            raise AssertionError(f"serving-front: the overload step shed {len(shed)} requests")
+        # the overload step fills the front's dispatch pool; the ladder
+        # counts a request in flight once a worker takes it (as the JAX
+        # package does), so in flight stops at the pool, whose default size
+        # is inflight-target, and pressure passes engage-shed only through
+        # the queue wait: shed is checked where the controller moved there
+        cfg = layer.overload_config
+        overload_sig = steps[1]["signals"]
+        if overload_sig.get("inflight_max", 0) < pool:
+            raise AssertionError(f"serving-front: the overload step never filled the {pool} "
+                                 f"dispatch workers: {overload_sig}")
+        shed = [r for r in recs if r[3] == 429]
+        shed_moved = any(b == overload.STAGE_SHED for _, _, b, _ in moves)
+        if shed_moved:
+            if not shed or any(r[4] != "shed" or r[5] != "1" for r in shed):
+                raise AssertionError(f"serving-front: the ladder shed, and (b) answered "
+                                     f"{len(shed)} 429s")
+            if not any(s[2] == "shed" for s in samples):
+                raise AssertionError("serving-front: the ladder shed, /healthz never showed it")
+        elif shed or any(s[2] == "shed" for s in samples):
+            raise AssertionError(f"serving-front: {len(shed)} 429s, the controller never at shed")
         other = [r for r in recs if r[3] not in (200, 429)]
         if other:
             raise AssertionError(f"serving-front: statuses {sorted({r[3] for r in other})}")
@@ -3752,8 +3851,6 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
                                      "full answer")
         if not any(k < full_nprobe for k in nprobes):
             raise AssertionError(f"serving-front: no IVF batch below nprobe {full_nprobe}: {nprobes}")
-        if not any(s[2] == "shed" for s in samples if starts[1] <= s[0] < starts[2]):
-            raise AssertionError("serving-front: /healthz never showed shed in the overload step")
         last = [s for s in samples if s[0] >= starts[2]]
         tail = next((i for i in range(len(last)) if all(s[2] == "full" for s in last[i:])), None)
         if tail is None or last[tail][0] - starts[2] > 10 * layer.overload_config.hold_s:
@@ -3764,6 +3861,10 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
             raise AssertionError(f"serving-front: {len(late)} answers below full after {t_full} s")
         launches = {**pk.launch_counts(), **stn.launch_counts()}
         result = {
+            "shed_reached": shed_moved, "engage_shed": cfg.engage_shed,
+            "overload_pressure_max": overload_sig["pressure_max"],
+            "overload_queue_wait_ms_max": overload_sig["queue_wait_ms_max"],
+            "overload_inflight_max": overload_sig["inflight_max"],
             "reduced_probe_answers": len(reduced), "stale_answers": len(stale),
             "reduced_probe_recall_at_10": recall(reduced),
             "full_recall_at_10": recall([r for r in recs if r[3] == 200 and r[4] is None]),

@@ -4,7 +4,8 @@ ctypes (counterpart of ``oryx_tpu/native/__init__.py``).
 Only the epoll HTTP/1.1 front (``httpfront.cpp``, a copy of the JAX
 package's) is ported so far; ``serving/native_front.py`` owns its
 handle. The shared library is compiled once into
-``oryx_tpu_torch/_build/``, named by a hash of the source, and reused;
+``oryx_tpu_torch/_build/``, named by a hash of the source, the flags
+and the host's CPU (it is built for that CPU), and reused;
 a lock file there serialises builds across processes. Set
 ``ORYX_NATIVE=0`` to decline it (the serving layer then keeps its stdlib
 front). The C++ feature store and parser, their ASan build and
@@ -19,6 +20,7 @@ import fcntl
 import hashlib
 import logging
 import os
+import platform
 import subprocess
 import threading
 
@@ -42,12 +44,32 @@ def source_paths() -> list[str]:
     return [os.path.join(_HERE, s) for s in _SOURCES]
 
 
+def host_cpu() -> bytes:
+    """The build host's CPU model and feature flags: ``-march=native``
+    code runs only on a CPU that has them, so a ``_build/`` copied to
+    another host builds afresh there instead of loading a library that
+    may hold illegal instructions."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        lines = []
+    keys = (b"model name", b"flags", b"Features", b"CPU part")
+    first = {}
+    for line in lines:
+        key = line.split(b":", 1)[0].strip()
+        if key in keys:
+            first.setdefault(key, line)
+    return b"\n".join(first[k] for k in keys if k in first) or platform.processor().encode()
+
+
 def library_path() -> str:
     h = hashlib.sha256()
     for path in source_paths():
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(_FLAGS).encode())
+    h.update(host_cpu())
     return os.path.join(BUILD_DIR, f"liboryx_native_{h.hexdigest()[:16]}.so")
 
 

@@ -32,11 +32,8 @@ produced (tests/test_torch_native_front.py holds the line). When in
 doubt the front forwards — csv Accept negotiation and gzip-eligible
 bodies route through Python rather than risk divergence.
 
-Port note: a copy with the port's imports. One departure: a forwarded
-request counts in flight from the moment the poll loop hands it to the
-dispatch pool, not from when a worker takes it, so the admission
-ladder's in-flight signal sees the backlog beyond the pool. Left out,
-as the port's serving layer refuses or lacks them: tenants (no tenant
+Port note: a copy with the port's imports. Left out, as the port's
+serving layer refuses or lacks them: tenants (no tenant
 table is pushed, and no per-tenant stats are drained), online
 experiments (the native rungs are never switched off for an A/B arm)
 and per-instance metrics (natively answered requests feed the process
@@ -331,22 +328,13 @@ class NativeFront:
                 metrics.registry.counter("serving.http.frame.errors").inc()
                 continue
             for rec in records:
-                self._forward(rec)
-
-    def _forward(self, rec) -> None:
-        """Hand one request to the dispatch pool, in flight from here: a
-        request waiting for a worker is as much the ladder's load as one
-        being served (the JAX package counts it only once a worker takes
-        it, so its in-flight signal stops at the pool size, which the
-        default inflight-target equals)."""
-        self._layer._request_began()
-        self._pool.submit(self._serve_one, rec)
+                self._pool.submit(self._serve_one, rec)
 
     def _serve_one(self, rec) -> None:
-        """Mirror of Handler._handle for one pre-parsed request (counted
-        in flight by the poll loop)."""
+        """Mirror of Handler._handle for one pre-parsed request."""
         layer = self._layer
         t0 = time.perf_counter()
+        layer._request_began()
         try:
             path = rec.target.split("?", 1)[0]
             ctxp = layer.context_path or ""

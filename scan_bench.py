@@ -6,7 +6,7 @@ their times; or the default request path (serving-front).
     python3 scan_bench.py                        # the scans, this checkout's oryx_tpu_torch
     python3 scan_bench.py --root DIR             # the package of another checkout
     python3 scan_bench.py --phase kmeans [--root DIR]   # the sweep
-    python3 scan_bench.py --phase front [--inflight reference]
+    python3 scan_bench.py --phase front                 # the request path
 
 The cases, checks, timers and inputs are chip_smoke's (``phase_kernels``
 or ``phase_kmeans_kernels`` at its default sizes and seed); each case
@@ -14,11 +14,7 @@ prints one JSON line and a failed check raises. Another checkout's sweep
 is called through ``pallas_kmeans.sweep`` alone and held against this
 checkout's ``sweep_plain``. To compare two versions of the
 kernels, run it on both checkouts in one session on one card, in turns
-(parent, change, change, parent). ``--inflight reference`` runs the
-serving-front phase with the JAX package's in-flight count (a forwarded
-request counts once a dispatch worker takes it) in place of the port's
-(from the moment the native front's poll loop forwards it); the phase's
-checks still hold it to shedding under overload.
+(parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -33,27 +29,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def reference_inflight() -> None:
-    """The JAX package's accounting in the native front: a forwarded
-    request counts in flight once a dispatch worker takes it."""
-    from oryx_tpu_torch.serving.native_front import NativeFront
-
-    def forward(self, rec):
-        def serve():
-            self._layer._request_began()
-            self._serve_one(rec)
-
-        self._pool.submit(serve)
-
-    NativeFront._forward = forward
-
-
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--root", default=HERE, help="checkout whose oryx_tpu_torch to load")
     p.add_argument("--phase", choices=("scan", "kmeans", "front"), default="scan")
-    p.add_argument("--inflight", choices=("port", "reference"), default="port",
-                   help="the native front's in-flight count in the front phase")
     opts = p.parse_args()
     root = os.path.abspath(opts.root)
 
@@ -78,14 +57,11 @@ def main() -> int:
             raise RuntimeError(f"loaded {mod.__file__}, not the package under {root}")
     cs.full_float32(torch)
     args = cs.parse_args([])
-    cs.emit({"root": root, "phase": opts.phase, "inflight": opts.inflight,
-             "nvidia_smi": cs.nvidia_smi_line()})
+    cs.emit({"root": root, "phase": opts.phase, "nvidia_smi": cs.nvidia_smi_line()})
     if opts.phase == "front":
         from oryx_tpu_torch.ops import _build
 
         _build.build()  # the IVF build's Lloyd sweep
-        if opts.inflight == "reference":
-            reference_inflight()
         cs.phase_serving_front(torch, args, stn, pk, args.seed)
         return 0
     if opts.phase == "kmeans":

@@ -608,11 +608,35 @@ def test_begin_drain_flips_readiness_on_both_fronts(pair):
 
 
 @needs_native
-def test_forwarded_requests_count_in_flight_before_a_worker_takes_them():
-    """With two dispatch workers, six held requests read six in flight
-    (the admission ladder's signal), not two."""
-    broker_loc = "inproc://tnf-inflight"
-    layer = ServingLayer(make_config(broker_loc, **{"native.dispatch-threads": "2"}))
+@pytest.mark.parametrize("pkg", ["oryx_tpu", "oryx_tpu_torch"])
+def test_forwarded_requests_count_in_flight_once_a_worker_takes_them(pkg):
+    """With two dispatch workers, six held requests read two in flight in
+    either package: the native front's backlog beyond its pool is not the
+    admission ladder's in-flight signal."""
+    import importlib
+
+    if pkg == "oryx_tpu":
+        from oryx_tpu import native as pkg_native
+
+        if pkg_native.get_library() is None:
+            pytest.skip("the JAX package's native library did not build")
+    pkg_bus = importlib.import_module(f"{pkg}.bus")
+    pkg_config = importlib.import_module(f"{pkg}.common.config")
+    pkg_layer = importlib.import_module(f"{pkg}.serving.layer")
+    broker_loc = f"inproc://tnf-inflight-{pkg}"
+    layer = pkg_layer.ServingLayer(pkg_config.get_default().with_overlay(f"""
+        oryx {{
+          input-topic.broker = "{broker_loc}"
+          update-topic.broker = "{broker_loc}"
+          input-schema {{ num-features = 2, numeric-features = ["0", "1"] }}
+          serving {{
+            api.port = 0
+            native.enabled = "true"
+            native.dispatch-threads = 2
+            model-manager-class = "{pkg}.app.kmeans.serving:KMeansServingModelManager"
+            application-resources = "{pkg}.app.kmeans.serving"
+          }}
+        }}"""))
     layer.start()
     gate, started = threading.Event(), []
     dispatch = layer.router.dispatch
@@ -626,7 +650,9 @@ def test_forwarded_requests_count_in_flight_before_a_worker_takes_them():
     layer.router.dispatch = held
     threads = []
     try:
-        publish_model(tbus.get_broker(broker_loc))
+        assert layer._native_front is not None
+        with pkg_bus.get_broker(broker_loc).producer("OryxUpdate") as p:
+            p.send("MODEL", kmeans_model())
         assert wait_for(lambda: is_200(layer.port))
         threads = [
             threading.Thread(target=fetch, args=(layer.port, "GET", f"/distanceToNearest/{i},0"))
@@ -634,12 +660,16 @@ def test_forwarded_requests_count_in_flight_before_a_worker_takes_them():
         ]
         for t in threads:
             t.start()
-        assert wait_for(lambda: layer.inflight_requests == 6)
+        # the other four were forwarded and wait in the dispatch pool's queue
+        pool = layer._native_front._pool
+        assert wait_for(lambda: len(started) == 2 and pool._work_queue.qsize() == 4)
+        assert layer.inflight_requests == 2
         assert len(started) == 2  # only two workers dispatch
         gate.set()
         for t in threads:
             t.join(10)
         assert wait_for(lambda: layer.inflight_requests == 0)
+        assert len(started) == 6
     finally:
         gate.set()
         layer.close()

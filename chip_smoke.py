@@ -7,8 +7,9 @@ Phases, each printing one JSON line:
 
 1. card and build: the card, torch and CUDA versions, the seconds
    ``nvcc`` took to build the kernels from ``oryx_tpu_torch/csrc``, and
-   those ``g++`` took, beside it, to build the native HTTP front
-   (``oryx_tpu_torch/native/httpfront.cpp``);
+   those ``g++`` took, beside it, to build the native library from its
+   three sources (``oryx_tpu_torch/native/feature_store.cpp``,
+   ``parse.cpp`` and ``httpfront.cpp``);
 2. kernels: every kernel of the serving path (``topn_scan`` and
    ``topn_candidates`` on the tensor cores for every plane type,
    ``topn_merge``) against its plain PyTorch version on the same inputs,
@@ -105,7 +106,9 @@ Phases, each printing one JSON line:
    them): every new user served the exact top-10 of the vector the speed
    layer published, and that vector the float64 fold-in of its events
    within 1e-4 relative; with the generation's seconds and phases, the
-   held-out AUC, the micro-batch seconds and each wave's staleness;
+   held-out AUC, the micro-batch seconds and each wave's staleness; the
+   speed and serving processes on the native store and parser, as each
+   one's start-up line says;
 10. rdf-train: random-forest training through ``ops/forest.py`` on the
    card (PyTorch ops: the JAX package runs them through XLA, no Pallas
    kernel): (a) tools/train_benchmark.py:215-248's configuration
@@ -194,14 +197,34 @@ Phases, each printing one JSON line:
    the answer's largest) and one stale answer (an earlier full answer's
    bytes), IVF batches below the full nprobe, back at full within 10 x
    hold-s of the last step and every answer full from then on;
-15. the tables of the XLA-ported ALS ops (phase 8), RDF ops (phase 10)
+15. native-host: the C++ host code the JAX package moved out of the
+   interpreter, each part against its Python path on the same inputs,
+   with the seconds of both: (a) 1,000,209 MovieLens-1M-shaped lines
+   through the native columnar parser at the speed layer's thread count
+   and through the Python parser (the same columns, ids, values and
+   timestamps, and the same RatingMatrix); (b) update messages with
+   known-id lists and vector JSON for 100,000 rows at 50 and 250
+   features, every vector read back equal to its row and non-finite
+   values as 0; (c) the
+   native and the Python store filled with the same 1M x 50 vectors:
+   ``get_batch`` of 4,096 ids, ``to_matrix``, ``get_vtv`` (within 1e-9
+   relative) and ``retain_recent_and_ids`` alike; (d) an IVF index on
+   phase 13's catalog and centroids (250 x 1M int8 items, 1,000 cells)
+   with the host stage-1 plane, scanned through the flat plane and
+   through the tiered cell store (32 hot cells, 64 MiB of RAM, the rest
+   in a spill file under a temp dir) at probe-fraction 0.01 and 0.3, 512
+   queries each in 4 concurrent calls: ids and score bits equal, cells
+   on disk, in RAM and hot; then 64
+   queries behind the batcher, each group hinting its cells (the hints
+   counted);
+16. the tables of the XLA-ported ALS ops (phase 8), RDF ops (phase 10)
    and IVF ops (phases 12-13), then the kernel table: launches on the
    main paths (ALS during phases 3-4, k-means during phase 6, each
    counted from zero just before; the scans also by batch rows, per path;
    the als-lambda serving processes' own; the IVF phases' builds and
    serving; and phase 14's) and the numbers of phases 2 and 5, B3's also
    at phase 12's shape;
-16. the card's name and power limit, then ``{"ok": true, "device": ...}``.
+17. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 Any failure raises and the exit code is not 0. Without CUDA, or run
 from a directory that holds no ``oryx_tpu_torch``, it exits 2 before
@@ -838,6 +861,7 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
     from oryx_tpu_torch.serving.layer import ServingLayer
 
     broker_loc = broker_loc or f"inproc://chip-smoke-{score_dtype}"
+    t_start = time.perf_counter()
     layer = ServingLayer(serving_config(broker_loc, score_dtype, extra))
     layer.start()
     n_topic = SERVE_TOPIC_ROWS
@@ -861,6 +885,7 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
         if time.monotonic() > deadline:
             raise AssertionError("/ready never turned 200")
         time.sleep(0.05)
+    ready_s = time.perf_counter() - t_start
     model = layer.model_manager.get_model()
     # the rest arrives through the batched setters the columnar replay uses
     t0 = time.perf_counter()
@@ -871,13 +896,17 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
     status, _, first_s = http_get(f"{base}/recommend/u{probe_users[0]}")
     if status != 200:
         raise AssertionError(f"warm-up /recommend answered {status}")
+    t0 = time.perf_counter()
     model._x_restage_thread.join(600)
+    restage_s = time.perf_counter() - t0
     if model._x_matrix is None:
         raise AssertionError("the user matrix was not staged on the card")
     urls = [f"{base}/recommend/u{u}" for u in probe_users]
     urls = (urls * (args.requests // len(urls) + 1))[: max(args.requests, len(urls))]
+    t0 = time.perf_counter()
     with ThreadPoolExecutor(args.concurrency) as pool:
         results = list(pool.map(http_get, urls))
+    requests_s = time.perf_counter() - t0
     statuses = [r[0] for r in results]
     bodies = {}
     for url, (status, body, _) in zip(urls, results):
@@ -888,13 +917,20 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
         f"{base}/similarity/i{n_topic + 3}/i{n_topic + 4}",
         f"{base}/estimate/u{probe_users[1]}/i0/i{n_topic + 5}",
     ]
+    others_s = []
     for url in others:
-        status, body, _ = http_get(url)
+        status, body, seconds = http_get(url)
+        others_s.append(seconds)
         statuses.append(status)
         if status != 200 or not json.loads(body):
             raise AssertionError(f"{url} answered {status}")
     lat = sorted(r[2] * 1e3 for r in results)
-    return layer, model, bodies, statuses, lat, dict(load_s=load_s, first_request_s=first_s)
+    # the seconds of each step: start to /ready, the setters, the first
+    # request (the card copy of Y or the IVF build), the X restage, the
+    # timed requests, /recommendToAnonymous, /similarity and /estimate
+    return layer, model, bodies, statuses, lat, dict(
+        ready_s=ready_s, load_s=load_s, first_request_s=first_s, restage_s=restage_s,
+        requests_s=requests_s, others_s=others_s)
 
 
 # -- phases 5 and 6: k-means -------------------------------------------------------
@@ -2109,12 +2145,26 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
     try:
         from oryx_tpu_torch import bus
 
-        start("serving")
+        serving_log = start("serving")
         batch_log = start("batch")
         speed_log = start("speed")
         wait_until("layers up", lambda: log_has(batch_log, "BatchLayer started")
                    and log_has(speed_log, "SpeedLayer started")
                    and status_of(base + "/ready") == 503, procs=live())
+        # the speed and serving processes took the native store and parser
+        # (each says so in its start-up line)
+        from oryx_tpu_torch import native
+
+        store_kind = "NativeFeatureVectors" if native.get_library() is not None else "FeatureVectors"
+        if device == "cuda" and store_kind != "NativeFeatureVectors":
+            raise AssertionError("als-lambda: the native library did not build")
+        parser = "native (" if store_kind == "NativeFeatureVectors" else "Python parser"
+        checks = ((serving_log, f"ALS serving: {store_kind} vector store"),
+                  (speed_log, f"ALS speed layer: {store_kind} vector store, {parser}"))
+        for path, line in checks:
+            if not log_has(path, line):
+                raise AssertionError(f"als-lambda: {os.path.basename(path)} has no line {line!r}")
+        out["native_store_and_parser"] = store_kind == "NativeFeatureVectors"
         t_post = time.monotonic()
         t_last = post_ingest(base, lines)
         out["ingest_s"] = t_last - t_post
@@ -2161,8 +2211,10 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
         out["float32_launches"] = launches1 = scan_launches(ports["serving"])
         if device == "cuda" and launches1.get("topn_scan.tc_f32", 0) <= launches0.get("topn_scan.tc_f32", 0):
             raise AssertionError(f"float32 serving launched {launches0} -> {launches1}")
-        start("serving", run=8, dtype="int8")
+        serving8_log = start("serving", run=8, dtype="int8")
         wait_until("int8 serving", lambda: status_of(base8 + "/ready") == 200, procs=live())
+        if not log_has(serving8_log, f"ALS serving: {store_kind} vector store"):
+            raise AssertionError(f"als-lambda: the int8 serving process took no {store_kind}")
         time.sleep(1.0)
         hits = 0
         for user in probe:
@@ -2190,6 +2242,8 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
                 speed_log = start("speed", run=2)
                 wait_until("the restarted speed model",
                            lambda: log_has(speed_log, "ALS speed model"), procs=live())
+                if not log_has(speed_log, checks[1][1]):
+                    raise AssertionError("als-lambda: the restarted speed process's parser")
                 time.sleep(2.0)  # the UPs behind the MODEL replay in the same pass
             x_pre, y_pre, _, seen = als_topic_state(loc)
             t_last = post_ingest(base, [f"{a},{b},{c:.0f},{t}" for t, (a, b, c) in
@@ -3366,7 +3420,25 @@ def phase_ivf_serving(torch, args, stn, pk, seed: int, items: int = 1_000_000,
                 missing.append(j)
             top1 += bool(ids) and ids[0] == f"f{j}"
         if missing:
-            raise AssertionError(f"ivf-serving: {len(missing)} folded items not visible, e.g. f{missing[0]}")
+            # what each of the first few saw: the answer, the item's own
+            # score, and whether a full probe of the index finds its row
+            _, y_index, _ = model._ensure_y_matrix()
+            seen = []
+            for j in missing[:3]:
+                status, body, _ = res[j]
+                row = y_index.get(f"f{j}")
+                full_i, full_v = ivf.top_k(compacted, folds[j : j + 1], 10, nprobe=compacted.n_cells)
+                probed_i, _ = ivf.top_k(compacted, folds[j : j + 1], 10)
+                seen.append({
+                    "fold": j, "status": status, "row": row,
+                    "answer": [(r["id"], r["value"]) for r in json.loads(body)] if status == 200 else None,
+                    "self_score": float(folds[j].astype(np.float64) @ folds[j]),
+                    "full_probe_has_it": row in full_i[0].tolist(),
+                    "probed_has_it": row in probed_i[0].tolist(),
+                    "full_probe_values": full_v[0].tolist(),
+                })
+            raise AssertionError(
+                f"ivf-serving: {len(missing)} folded items not visible, e.g. f{missing[0]}: {seen}")
 
         # both replicas on one generation answer alike
         same = 0
@@ -3394,8 +3466,10 @@ def phase_ivf_serving(torch, args, stn, pk, seed: int, items: int = 1_000_000,
             # read back the live rows' planes, write the new layout
             "bound": ops_bound(2.0 * live * (3 * kf + 16), 0.0),
         }
+        # native-host's tiered plane is laid out on this catalog and index
+        cents = np.ascontiguousarray(index.centroids_t.cpu().numpy().T[:, :f])
         return {"launches": {**pk.launch_counts(), **stn.launch_counts()},
-                "compact_row": compact_row}
+                "compact_row": compact_row, "catalog": (y, x[:TIER_QUERIES], cents)}
     finally:
         if replica is not None:
             replica.close()
@@ -3654,6 +3728,13 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
     from oryx_tpu_torch.ops import ivf
     from oryx_tpu_torch.serving import overload
 
+    # the phase's wall seconds by step, each since the one before
+    steps_s, t_step = {}, [time.perf_counter()]
+
+    def step(name: str) -> None:
+        now = time.perf_counter()
+        steps_s[name], t_step[0] = now - t_step[0], now
+
     users, f = min(IVF_SERVING_USERS, items // 10), args.features
     n_centers = min(IVF_SERVING_CENTERS, items // 1000)
     y, x, _ = clustered_catalog(torch, items, f, n_centers, seed + 1001, users, device=device)
@@ -3680,8 +3761,9 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
     pk.reset_launch_counts()  # this slice's path starts here
     stn.reset_launch_counts()
     out = {"phase": "serving-front", "items": items, "users": users, "features": f,
-           "centers": n_centers, "url_users": FRONT_USERS}
+           "centers": n_centers, "url_users": FRONT_USERS, "steps_s": steps_s}
     layers, native_full = {}, []
+    step("catalog")
     try:
         for front, enabled in (("stdlib", "false"), ("native", '"true"')):
             extra = f"serving.scan.ann.enabled = true\nserving.native.enabled = {enabled}"
@@ -3691,6 +3773,7 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
                 generation=FRONT_GENERATION,
             )
             layers[front] = layer
+            step(f"{front}_load")
             if any(s != 200 for s in statuses):
                 raise AssertionError(f"serving-front ({front}): warm-up statuses {set(statuses)}")
             if (layer._native_front is not None) != (front == "native"):
@@ -3739,6 +3822,7 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
                 native_full = [r for r in recs if r[4] is None]
             if row["recall_at_10"] < 0.95:
                 raise AssertionError(f"serving-front ({front}): recall@10 {row['recall_at_10']}")
+            step(f"{front}_a")
 
         # byte parity, with both ladders at full (the stdlib layer's ladder
         # moves only on requests or an evaluation)
@@ -3763,6 +3847,7 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
         out["parity_bytes"] = parity
         out["native_answered_snapshots"] = snapshots
         layers.pop("stdlib").close()
+        step("parity")
 
         # (b) the ladder on the native front
         layer = layers["native"]
@@ -3778,6 +3863,7 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
                 "sample": "/healthz", "sample_s": STAGE_SAMPLE_S,
             }, timeout=600)
         recs, starts, samples = res["records"], res["step_starts"], res["samples"]
+        step("ladder")
         mono = [res["t_zero_mono"] + t for t in starts] + [res["t_zero_mono"] + res["end"]]
         nprobes = ivf.nprobe_counts()
         steps = []
@@ -3881,10 +3967,386 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
         torch.cuda.empty_cache()
 
 
+# -- phase 15: native-host, the C++ store, parser, formatters and tier -------------
+
+NATIVE_FORMAT_ROWS = 100_000
+NATIVE_FORMAT_FEATURES = (50, 250)
+NATIVE_READBACK_PROCS = 8  # processes that json.loads the messages back, one per core
+NATIVE_STORE_ROWS = 1_000_000
+NATIVE_STORE_FEATURES = 50
+NATIVE_STORE_BATCH = 4_096
+NATIVE_VTV_RTOL = 1e-9  # the two stores sum the float64 Gramian in different orders
+TIER_ITEMS = 1_000_000  # ivf-serving's catalog, when the phase makes its own
+TIER_CENTERS = 1000
+TIER_HOT_CELLS = 32
+TIER_RAM_MB = 64
+TIER_QUERIES = 512
+TIER_PROBE_FRACTIONS = (0.01, 0.3)
+# each scan's queries split over this many concurrent top_k_device calls,
+# the same split for both planes: at 0.3 a host group of 8 queries
+# gathers most of the plane, so one call of 512 queries runs 64 gathers
+TIER_SCAN_THREADS = 4
+TIER_BATCHER_QUERIES = 64
+
+
+@contextlib.contextmanager
+def native_declined(*modules):
+    """Each module's ``get_library`` answers None inside: its callers take
+    the Python paths, as on a host where g++ fails."""
+    saved = [mod.get_library for mod in modules]
+    for mod in modules:
+        mod.get_library = lambda: None
+    try:
+        yield
+    finally:
+        for mod, fn in zip(modules, saved):
+            mod.get_library = fn
+
+
+def native_parser_part(seed: int, scale: float) -> dict:
+    """(a) a MovieLens-1M-shaped block through the native columnar parser
+    at the speed layer's thread count and through the Python parser."""
+    from oryx_tpu_torch.app.als import data as als_data
+    from oryx_tpu_torch.app.als.speed import ALSSpeedModelManager
+    from oryx_tpu_torch.common import config
+    from oryx_tpu_torch.native import parse as native_parse
+
+    num_users, num_items, nnz = ML1M
+    nnz = max(20_000, int(nnz * scale))
+    u, i, v = movielens_shape(num_users, num_items, nnz, seed + 600)
+    block = np.asarray([f"u{a},i{b},{c:.0f},{t}".encode() for t, (a, b, c) in
+                        enumerate(zip(u.tolist(), i.tolist(), v.tolist()), start=1)], dtype="S")
+    threads = ALSSpeedModelManager(config.get_default()).parse_threads
+    t0 = time.perf_counter()
+    cols = native_parse.parse_text_columns(block, threads=threads)
+    if cols is None:
+        raise AssertionError("native-host: the native parser declined a canonical block")
+    rm_n = als_data.rating_matrix_from_int_columns(
+        cols.users, cols.items, cols.values, cols.timestamps, True, cols.user_prefix,
+        cols.item_prefix)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pcols = als_data.parse_interaction_block(block)
+    rm_p = als_data.rating_matrix_from_columns(pcols, True)
+    python_s = time.perf_counter() - t0
+    # the columns: ids byte for byte, values bit for bit, timestamps
+    for ints, prefix, want in ((cols.users, cols.user_prefix, pcols.users),
+                               (cols.items, cols.item_prefix, pcols.items)):
+        got = np.char.add(prefix, np.char.mod("%d", ints).astype("S"))
+        if not np.array_equal(got, want.astype("S")):
+            raise AssertionError("native-host: the native parser's ids differ from Python's")
+    if not np.array_equal(cols.values.view(np.uint32), pcols.values.view(np.uint32)):
+        raise AssertionError("native-host: the native parser's values differ from Python's")
+    if cols.timestamps is None or not np.array_equal(cols.timestamps, pcols.timestamps):
+        raise AssertionError("native-host: the native parser's timestamps differ from Python's")
+    # the RatingMatrix: the same ids and (user, item, value) entries; the
+    # int path orders ids by code, the Python one by text
+    if sorted(rm_n.user_ids) != sorted(rm_p.user_ids) or sorted(rm_n.item_ids) != sorted(rm_p.item_ids):
+        raise AssertionError("native-host: the two RatingMatrix id sets differ")
+    keys = []
+    for rm in (rm_n, rm_p):
+        pu = np.array([int(x[1:]) for x in rm.user_ids], np.int64)[rm.user_idx]
+        pi = np.array([int(x[1:]) for x in rm.item_ids], np.int64)[rm.item_idx]
+        key = pu * (num_items + 1) + pi
+        order = np.argsort(key, kind="stable")
+        keys.append((key[order], rm.values[order]))
+    if not (np.array_equal(keys[0][0], keys[1][0])
+            and np.array_equal(keys[0][1].view(np.uint32), keys[1][1].view(np.uint32))):
+        raise AssertionError("native-host: the two RatingMatrix entries differ")
+    return {"lines": nnz, "threads": threads, "entries": len(rm_n.values),
+            "native_s": native_s, "python_s": python_s}
+
+
+def read_back_messages(lines, want, ids, known) -> str | None:
+    """Each update message through json.loads: None when every one holds
+    its row (as float32), id and known list, else what differs."""
+    parsed = [json.loads(m) for m in lines]
+    if not np.array_equal(np.asarray([p[2] for p in parsed], np.float32), want):
+        return "do not read back the rows"
+    if any(p[:2] != ["X", i] or p[3] != k for p, i, k in zip(parsed, ids, known)):
+        return "lost an id or a known list"
+    return None
+
+
+def native_formatter_part(seed: int, scale: float) -> dict:
+    """(b) update messages with known-id lists and vector JSON, native
+    and Python, read back with json.loads against the source rows."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from oryx_tpu_torch.app.als.speed import ALSSpeedModelManager
+    from oryx_tpu_torch.native import store as nstore
+
+    gen = np.random.default_rng(seed + 1001)
+    n = max(1_000, int(NATIVE_FORMAT_ROWS * scale))
+    out = {}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(NATIVE_READBACK_PROCS, mp_context=ctx) as pool:
+        for k in NATIVE_FORMAT_FEATURES:
+            mat = gen.standard_normal((n, k)).astype(np.float32)
+            mat[::997, 0], mat[1::997, 1], mat[2::997, 2] = np.nan, np.inf, -np.inf
+            want = np.nan_to_num(mat, nan=0.0, posinf=0.0, neginf=0.0)
+            ids = [f"u{j}" for j in range(n)]
+            known = [[f"i{(7 * j + m) % 3706}" for m in range(j % 5)] for j in range(n)]
+            t0 = time.perf_counter()
+            msgs = nstore.format_update_messages_multi(mat, ids, known, "X")
+            multi_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            vecs = nstore.format_vectors_json(mat)
+            vec_s = time.perf_counter() - t0
+            if msgs is None:
+                raise AssertionError("native-host: the native formatter declined")
+            with native_declined(nstore):
+                t0 = time.perf_counter()
+                py_vecs = nstore.format_vectors_json(mat)
+                py_vec_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                # the speed layer's Python path: json.dumps vectors (timed
+                # above, counted in both) spliced into messages
+                py_msgs = [ALSSpeedModelManager._assemble(None, "X", ids[j], vec, known[j])
+                           for j, vec in enumerate(py_vecs)]
+                py_multi_s = py_vec_s + time.perf_counter() - t0
+            # the native vector JSON read back by numpy's parser in one pass
+            # (the Python vectors are read back inside the Python messages)
+            if len(vecs) != n or not np.array_equal(
+                    np.fromstring(",".join(v[1:-1] for v in vecs), np.float32, sep=","),
+                    want.reshape(-1)):
+                raise AssertionError(f"native-host: native vectors at k = {k} do not read back the rows")
+            parts = np.array_split(np.arange(n), NATIVE_READBACK_PROCS)
+            for what, lines in (("native messages", msgs), ("Python messages", py_msgs)):
+                if len(lines) != n:
+                    raise AssertionError(f"native-host: {len(lines)} {what} for {n} rows")
+                faults = pool.map(read_back_messages,
+                                  *zip(*[(lines[r[0] : r[-1] + 1], want[r[0] : r[-1] + 1],
+                                          ids[r[0] : r[-1] + 1], known[r[0] : r[-1] + 1])
+                                         for r in parts]))
+                for fault in faults:
+                    if fault is not None:
+                        raise AssertionError(f"native-host: {what} at k = {k} {fault}")
+            out[f"k{k}"] = {"rows": n, "native_multi_s": multi_s, "native_vectors_s": vec_s,
+                            "python_multi_s": py_multi_s, "python_vectors_s": py_vec_s,
+                            "bytes": sum(map(len, msgs))}
+    return out
+
+
+def native_store_part(seed: int, scale: float) -> dict:
+    """(c) the native and the Python store filled with the same vectors:
+    get_batch, to_matrix, get_vtv and retain_recent_and_ids agree."""
+    from oryx_tpu_torch.app.als.common import FeatureVectors
+    from oryx_tpu_torch.native.store import NativeFeatureVectors, make_feature_vectors
+
+    gen = np.random.default_rng(seed + 1002)
+    n = max(10_000, int(NATIVE_STORE_ROWS * scale))
+    ids = [f"u{j}" for j in range(n)]
+    vecs = gen.standard_normal((n, NATIVE_STORE_FEATURES)).astype(np.float32)
+    want_ids = gen.choice(n + n // 10, NATIVE_STORE_BATCH, replace=False)  # some miss
+    batch = [f"u{j}" for j in want_ids.tolist()]
+    keep = set(ids[: n // 2])
+    fresh = [f"n{j}" for j in range(1_000)]
+    stores = {"native": make_feature_vectors(), "python": FeatureVectors()}
+    if not isinstance(stores["native"], NativeFeatureVectors):
+        raise AssertionError("native-host: make_feature_vectors did not give the native store")
+    times, res = {}, {}
+    for name, st in stores.items():
+        t, r = {}, {}
+        t0 = time.perf_counter()
+        st.set_batch(ids, vecs)
+        t["set_batch_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r["batch"] = st.get_batch(batch)
+        t["get_batch_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_ids, mat = st.to_matrix()
+        t["to_matrix_s"] = time.perf_counter() - t0
+        order = np.argsort(np.array([int(x[1:]) for x in got_ids], np.int64), kind="stable")
+        r["matrix"] = mat[order]
+        t0 = time.perf_counter()
+        r["vtv"] = st.get_vtv()
+        t["get_vtv_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st.retain_recent_and_ids(keep)  # all recent: every id survives, recency resets
+        st.set_batch(fresh, vecs[: len(fresh)])
+        st.retain_recent_and_ids(keep)  # now: the kept ids and the fresh ones
+        t["retain_s"] = time.perf_counter() - t0
+        r["survivors"] = sorted(st.ids())
+        times[name], res[name] = t, r
+    a, b = res["native"], res["python"]
+    if not (np.array_equal(a["batch"][0], b["batch"][0])
+            and np.array_equal(a["batch"][1], b["batch"][1])
+            and int(a["batch"][1].sum()) == int((want_ids < n).sum())):
+        raise AssertionError("native-host: get_batch differs between the stores")
+    if not np.array_equal(a["matrix"], b["matrix"]) or not np.array_equal(a["matrix"], vecs):
+        raise AssertionError("native-host: to_matrix differs between the stores")
+    vtv_err = float(np.max(np.abs(a["vtv"] - b["vtv"])) / np.max(np.abs(b["vtv"])))
+    if vtv_err > NATIVE_VTV_RTOL:
+        raise AssertionError(f"native-host: VtV differs by {vtv_err:.3g} relative")
+    if a["survivors"] != b["survivors"] or a["survivors"] != sorted(keep | set(fresh)):
+        raise AssertionError("native-host: retain_recent_and_ids differs between the stores")
+    return {"rows": n, "features": NATIVE_STORE_FEATURES, "batch": NATIVE_STORE_BATCH,
+            "vtv_max_rel_err": vtv_err, **{name: t for name, t in times.items()}}
+
+
+def native_tier_part(torch, args, seed: int, scale: float, device: str,
+                     catalog=None) -> dict:
+    """(d) one IVF index at ivf-serving's shape with the host stage-1
+    plane, scanned through the flat plane and through the tiered cell
+    store (hot 32 cells, 64 MiB of RAM, the rest on disk), then behind the
+    batcher, which hints each group's cells. ``catalog`` is ivf-serving's
+    (items, queries, centroids): the layout is built on its centroids;
+    without it the part makes and clusters its own."""
+    import tempfile
+
+    from oryx_tpu_torch.native import store as nstore
+    from oryx_tpu_torch.ops import ivf
+    from oryx_tpu_torch.serving.batcher import TopNBatcher
+
+    if catalog is None:
+        items = max(50_000, int(TIER_ITEMS * scale))
+        n_centers = min(TIER_CENTERS, items // 1000)
+        y, q, _ = clustered_catalog(torch, items, args.features, n_centers, seed + 1101,
+                                    TIER_QUERIES, device=device)
+        cents = None
+    else:
+        y, q, cents = catalog
+        items = len(y)
+    q = q[:TIER_QUERIES]
+    saved = (ivf.HOST_STAGE1, ivf.NPROBE, ivf.PROBE_FRACTION)
+    saved_tier = nstore.tier_config()
+    tier_dir = tempfile.mkdtemp(prefix="chip-smoke-tier-")
+    tiered = None
+
+    def scan(index, nprobe):
+        """The queries over TIER_SCAN_THREADS concurrent calls."""
+        parts = np.array_split(np.arange(len(q)), TIER_SCAN_THREADS)
+        with ThreadPoolExecutor(len(parts)) as pool:
+            res = list(pool.map(
+                lambda r: ivf.top_k_device(index, q[r], 10, nprobe=nprobe), parts))
+        return (np.concatenate([v.cpu().numpy() for v, _ in res]),
+                np.concatenate([i.cpu().numpy() for _, i in res]), len(parts))
+
+    try:
+        ivf.configure_ann(host_stage1=True)
+        t0 = time.perf_counter()
+        flat = ivf.build_ivf(y, centroids=cents, device=device)
+        build_s = time.perf_counter() - t0
+        del y
+        nstore.configure_tier(enabled=True, hot_cells=TIER_HOT_CELLS,
+                              ram_bytes=TIER_RAM_MB << 20, spill_dir=tier_dir)
+        t0 = time.perf_counter()
+        tiered = ivf.attach_tiered_plane(flat)  # the same layout, its plane in the store
+        spill_s = time.perf_counter() - t0
+        if tiered.tier is None or not isinstance(tiered.tier._store, nstore.NativeTieredCellStore):
+            raise AssertionError("native-host: the plane did not move into the native cell store")
+        out = {"items": items, "cells": flat.n_cells, "features": args.features,
+               "catalog": "ivf-serving's, on its centroids" if cents is not None else "its own",
+               "hot_cells": TIER_HOT_CELLS, "ram_mb": TIER_RAM_MB, "queries": len(q),
+               "scan_threads": TIER_SCAN_THREADS, "build_s": build_s, "spill_s": spill_s}
+        for pf in TIER_PROBE_FRACTIONS:
+            nprobe = max(1, int(round(pf * flat.n_cells)))
+            got = {}
+            for name, index in (("flat", flat), ("tiered", tiered)):
+                before = ivf.counts()["host"]
+                t0 = time.perf_counter()
+                v, i, calls = scan(index, nprobe)
+                out[f"{name}_ms_p{pf}"] = 1e3 * (time.perf_counter() - t0)
+                if ivf.counts()["host"] != before + calls:
+                    raise AssertionError(f"native-host: the {name} scan missed the host path")
+                got[name] = (v, i)
+            (fv, fi), (tv, ti) = got["flat"], got["tiered"]
+            if len(fi) != len(q):
+                raise AssertionError(f"native-host: {len(fi)} answers for {len(q)} queries")
+            if not np.array_equal(fi, ti) or not np.array_equal(fv.view(np.uint32), tv.view(np.uint32)):
+                raise AssertionError(f"native-host: the tiered scan differs from the flat one at {pf}")
+            out[f"nprobe_p{pf}"] = nprobe
+        res = tiered.tier._store.residency()
+        st = tiered.tier.stats()
+        out["residency"] = {"disk": int((res == nstore.TIER_DISK).sum()),
+                            "ram": int((res == nstore.TIER_RAM).sum()), "hot": st["hot_cells"]}
+        out["store"] = {k: st[k] for k in ("hits", "misses", "promotions", "demotions")}
+        if not (out["residency"]["disk"] > 0 and out["residency"]["ram"] > 0
+                and out["residency"]["hot"] > 0):
+            raise AssertionError(f"native-host: residency {out['residency']}")
+        # the batcher: each group's hint before its submit, counted
+        hints = []
+        real = ivf.IVFIndex.prefetch_for_queries
+
+        def counted(index, *a, **kw):
+            hints.append(real(index, *a, **kw))
+            return hints[-1]
+
+        ivf.IVFIndex.prefetch_for_queries = counted
+        ivf.configure_ann(nprobe=0, probe_fraction=TIER_PROBE_FRACTIONS[0])
+        hit0 = metrics_counter("serving.store.prefetch.hit")
+        miss0 = metrics_counter("serving.store.prefetch.miss")
+        batcher = TopNBatcher()
+        try:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(16) as pool:
+                res_b = list(pool.map(lambda r: batcher.score(tiered, q[r], 10),
+                                      range(TIER_BATCHER_QUERIES)))
+            out["batcher_s"] = time.perf_counter() - t0
+        finally:
+            batcher.close()
+            ivf.IVFIndex.prefetch_for_queries = real
+        # a host group scans the union of its queries' cells, so answers
+        # depend on how the batcher grouped them: each is checked whole
+        for ids, vals in res_b:
+            ids, vals = np.asarray(ids)[:10], np.asarray(vals)[:10]
+            if len(ids) != 10 or (ids < 0).any() or (np.diff(vals) > 0).any():
+                raise AssertionError(f"native-host: a batcher answer {ids} {vals}")
+        out["batcher_hints"], out["cells_hinted"] = len(hints), sum(hints)
+        out["prefetch_hit"] = metrics_counter("serving.store.prefetch.hit") - hit0
+        out["prefetch_miss"] = metrics_counter("serving.store.prefetch.miss") - miss0
+        if not hints or min(hints) <= 0:
+            raise AssertionError(f"native-host: the batcher's prefetch hints {hints}")
+        return out
+    finally:
+        if tiered is not None and tiered.tier is not None:
+            tiered.tier.close()
+        ivf.HOST_STAGE1, ivf.NPROBE, ivf.PROBE_FRACTION = saved
+        nstore.configure_tier(**saved_tier)
+        import shutil
+
+        shutil.rmtree(tier_dir, ignore_errors=True)
+
+
+def phase_native_host(torch, args, smi: str, seed: int, scale: float = 1.0,
+                      device: str = "cuda", catalog=None) -> dict:
+    """The native host code the JAX package moved out of the interpreter,
+    on the card's host: (a) the columnar parser, (b) the update
+    formatters, (c) the sharded store, (d) the tiered IVF cell store on
+    ``catalog`` (ivf-serving's items, queries and centroids); each
+    against its Python path on the same inputs, with the seconds of
+    both."""
+    from oryx_tpu_torch import native
+
+    if native.get_library() is None:
+        raise AssertionError("native-host: the native library did not build")
+    out = {"phase": "native-host", "nvidia_smi": smi}
+    t0 = time.perf_counter()
+    for name, part in (("parser", lambda: native_parser_part(seed, scale)),
+                       ("formatters", lambda: native_formatter_part(seed, scale)),
+                       ("store", lambda: native_store_part(seed, scale)),
+                       ("tier", lambda: native_tier_part(torch, args, seed, scale, device,
+                                                         catalog))):
+        t = time.perf_counter()
+        out[name] = part()
+        out[name]["part_s"] = time.perf_counter() - t
+    out["s"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def metrics_gauge(name: str):
     from oryx_tpu_torch.common.metrics import registry
 
     return registry.gauge(name).value
+
+
+def metrics_counter(name: str) -> int:
+    from oryx_tpu_torch.common.metrics import registry
+
+    return registry.counter(name).value
 
 
 class PhaseClock:
@@ -3921,7 +4383,8 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    # the native HTTP front's g++ build runs beside the kernels' nvcc
+    # the native library's g++ build (the feature store, the parser and
+    # the HTTP front) runs beside the kernels' nvcc
     native_build = {}
 
     def build_native():
@@ -3936,8 +4399,11 @@ def main() -> int:
     _build.build()
     build_s = time.perf_counter() - t0
     native_thread.join()
+    from oryx_tpu_torch import native
+
+    native_sources = [os.path.basename(p) for p in native.source_paths()]
     if not native_build.get("ok"):
-        raise AssertionError("the native HTTP front did not build (g++)")
+        raise AssertionError("the native library did not build (g++)")
     # the build log: spills, and ptxas warnings (a serialised wgmma is
     # C7510-C7520)
     log = [
@@ -3949,7 +4415,7 @@ def main() -> int:
         "phase": "card", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "python": sys.version.split()[0], "build_s": build_s,
-        "native_front_build_s": native_build["s"],
+        "native_build_s": native_build["s"], "native_sources": native_sources,
         "ptxas_spills": sorted({
             f"{name}: {line}" for name, line in log
             if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
@@ -3961,7 +4427,8 @@ def main() -> int:
     emit({"phase": "cuts", "lambda_batch_interval_s": [45, LAMBDA_BATCH_INTERVAL_S],
           "als_scale_iterations": [ALS_SCALE_ITERATIONS, args.als_iterations],
           "phase2_plain_and_library_times": f"dot, b in {PHASE2_TIMED} (once all cases)",
-          "wide_scan_items": [262_144, WIDE_ITEMS]})
+          "wide_scan_items": [262_144, WIDE_ITEMS],
+          "native_host_tier_index": "ivf-serving's catalog and centroids, not its own"})
     clock = PhaseClock(t0)
     gen = np.random.default_rng(args.seed)
     y = factors(gen, args.items, args.features)
@@ -3992,10 +4459,12 @@ def main() -> int:
         ]
         recall = sum(hits) / (10.0 * len(probe))
         indexed = metrics.counter("serving.batcher.submitted.indexed").value
-        # bulk scoring: 512 users in one call takes the candidates kernel
-        _, _, handle = model._ensure_y_matrix()
+        # bulk scoring: 512 users in one call takes the candidates kernel;
+        # the handle's rows are the store's order, mapped back to item ids
+        y_ids, _, handle = model._ensure_y_matrix()
         bulk = np.arange(256, 768)
         bi, _ = topn.top_k_scores_batch(handle, x[bulk], 10)
+        bi = np.array([int(i[1:]) for i in y_ids])[bi]
         _, bulk_ref = exact_top(torch, stn, y_exact, x[bulk], 10)
         bulk_recall = sum(len(set(g) & set(r)) for g, r in zip(bi.tolist(), bulk_ref.tolist()))
         bulk_recall /= 10.0 * len(bulk)
@@ -4028,9 +4497,10 @@ def main() -> int:
         got_v = np.array([[r["value"] for r in bodies[str(u)]] for u in probe])
         err = check_topk("float32 /recommend", got_v, got_i, ref_v, ref_i)
         # bulk scoring: 512 users in one call takes the candidates kernel
-        _, _, handle = model._ensure_y_matrix()
+        y_ids, _, handle = model._ensure_y_matrix()
         bulk = np.arange(256, 768)
         bi, bv = topn.top_k_scores_batch(handle, x[bulk], 10)
+        bi = np.array([int(i[1:]) for i in y_ids])[bi]
         rv, ri = exact_top(torch, stn, y_exact, x[bulk], 10)
         bulk_err = check_topk("float32 top_k_scores_batch b=512", bv, bi, rv, ri)
         launches = stn.launch_counts()
@@ -4084,6 +4554,8 @@ def main() -> int:
     clock("ivf-serving")
     front_launches = phase_serving_front(torch, args, stn, pk, args.seed)
     clock("serving-front")
+    phase_native_host(torch, args, smi, args.seed, catalog=ivf_srv.pop("catalog"))
+    clock("native-host")
     ivf_launches = {
         name: ivf_ops["launches"].get(name, 0) + ivf_srv["launches"].get(name, 0)
         for name in SOURCES

@@ -10,9 +10,11 @@ IDs are strings end to end. (The reference hashes string IDs to int32
 because Spark MLlib requires int IDs, ALSUpdate.java:305-326; the JAX
 trainer indexes rows directly so no lossy hash is needed.)
 
-Port note: a copy of ``oryx_tpu/app/als/common.py`` (JAX-free), with its imports
-pointed at ``oryx_tpu_torch``. UP payloads parse with numpy: the native
-parser (``oryx_tpu/native``) is not ported yet.
+A copy of ``oryx_tpu/app/als/common.py`` (JAX-free), with its imports
+pointed at ``oryx_tpu_torch``. The UP fast path parses a group's floats
+in one native ``strtof`` pass (``native/store.parse_float_csv``) and
+falls back to numpy where the library is absent or declines. A
+known-items list also splits on json.dumps's ``", "`` separator.
 """
 
 from __future__ import annotations
@@ -231,7 +233,7 @@ def apply_up_lines(
     """Batched fast path for a run of raw "UP" byte lines.
 
     Groups ``["X","id",[floats]...`` / ``["Y",...`` lines, parses every
-    float component in one numpy pass, and
+    float component in one native pass (numpy twin as backstop), and
     applies each group via one batched setter call. Records the fast
     parser can't take — escaped ids, malformed lines, (with
     ``strict_tail``) unrecognized trailing elements — are handed to
@@ -245,6 +247,7 @@ def apply_up_lines(
     Returns rows applied via the fast path (slow-path records are the
     caller's consume's to count)."""
     from oryx_tpu_torch.bus.core import KeyMessage
+    from oryx_tpu_torch.native.store import parse_float_csv
 
     parse_known = on_known is not None
     strict = strict_tail or parse_known
@@ -263,13 +266,15 @@ def apply_up_lines(
         for which, (ids, vecs, origs, knowns, setter) in groups.items():
             if not ids:
                 continue
-            parts = b",".join(vecs).split(b",")
-            flat = None
-            if len(parts) == len(ids) * k:
-                try:
-                    flat = np.array(parts, dtype="S").astype(np.float32)
-                except ValueError:
-                    flat = None
+            payload = b",".join(vecs)
+            flat = parse_float_csv(payload, len(ids) * k)  # native strtof
+            if flat is None:  # library absent / mismatch: numpy twin
+                parts = payload.split(b",")
+                if len(parts) == len(ids) * k:
+                    try:
+                        flat = np.array(parts, dtype="S").astype(np.float32)
+                    except ValueError:
+                        flat = None
             if flat is None:
                 # oddball numerics: whole group per-record, in order
                 for ln in origs:

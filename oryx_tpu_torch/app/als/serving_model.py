@@ -19,9 +19,14 @@ overlay fills), the maintainer's compactions install with one pointer
 swap, and an ``INDEX-REF`` on the update topic makes the model adopt a
 published index generation.
 
+With ``oryx.serving.store.tier.enabled`` the IVF index's host stage-1
+plane moves into the tiered cell store (``native/store.py``) as it is
+built. X and Y live in the native sharded store where the library builds
+(``make_feature_vectors``), in the Python ``FeatureVectors`` otherwise;
+the manager logs which at start.
+
 Not ported yet, and refused at construction: LSH candidate pruning
-(``sample-rate < 1``), the mesh-sharded item matrix (``shard-items``)
-and the tiered item store (``oryx.serving.store.tier.enabled``).
+(``sample-rate < 1``) and the mesh-sharded item matrix (``shard-items``).
 """
 
 from __future__ import annotations
@@ -38,17 +43,15 @@ import torch
 from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.api.serving import AbstractServingModelManager, ServingModel
 from oryx_tpu_torch.app import pmml as app_pmml
-from oryx_tpu_torch.app.als.common import (
-    FeatureVectors,
-    apply_up_lines,
-    consume_blocks_columnar,
-)
+from oryx_tpu_torch.app.als.common import apply_up_lines, consume_blocks_columnar
 from oryx_tpu_torch.bus.core import KeyMessage
 from oryx_tpu_torch.common import tracing
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.lang import ReadWriteLock
 from oryx_tpu_torch.common.text import read_json
 from oryx_tpu_torch.common.vectormath import Solver, get_solver
+from oryx_tpu_torch.native import get_library
+from oryx_tpu_torch.native.store import make_feature_vectors
 from oryx_tpu_torch.ops import ivf as ivf_ops
 from oryx_tpu_torch.ops import topn as topn_ops
 from oryx_tpu_torch.serving.batcher import score_default, score_indexed_default
@@ -56,6 +59,17 @@ from oryx_tpu_torch.serving.batcher import score_default, score_indexed_default
 log = logging.getLogger(__name__)
 
 _SCORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def _in_id_order(ids: list[str], mat: np.ndarray) -> tuple[list[str], np.ndarray]:
+    """An IVF build's rows in id order, so its k-means sample and layout
+    follow the catalog, not the store's row order (the native store's is
+    by shard, the Python one's by insertion). Ids order by length, then
+    text: numeric ids, and ids of one prefix and a number, in their
+    number's order."""
+    lens = np.fromiter(map(len, ids), np.int64, len(ids))
+    order = np.lexsort((np.asarray(ids), lens))
+    return [ids[i] for i in order.tolist()], mat[order]
 
 
 class ALSServingModel(ServingModel):
@@ -95,8 +109,8 @@ class ALSServingModel(ServingModel):
         # rescoring oversampled candidates against the residual plane
         # keeps top-10 recall >= 0.99 of float32
         self.score_dtype = score_dtype
-        self.x = FeatureVectors()
-        self.y = FeatureVectors()
+        self.x = make_feature_vectors()
+        self.y = make_feature_vectors()
         self._known_lock = ReadWriteLock()
         self._known_items: dict[str, set[str]] = {}
         self._expected_lock = threading.Lock()
@@ -327,11 +341,14 @@ class ALSServingModel(ServingModel):
                 )
                 if not refreshed:
                     ids, mat = self.y.to_matrix()
+                    ann = self.score_dtype == "int8" and ivf_ops.ann_active(len(ids))
+                    if ann:
+                        ids, mat = _in_id_order(ids, mat)
                     self._y_ids = ids
                     self._y_index = {id_: i for i, id_ in enumerate(ids)}
                     if not len(ids):
                         self._y_matrix = None
-                    elif self.score_dtype == "int8" and ivf_ops.ann_active(len(ids)):
+                    elif ann:
                         # the IVF tier: cluster the rebuilt item matrix;
                         # fold-ins until the next rebuild go through the
                         # index's pending overlay
@@ -671,6 +688,7 @@ class ALSServingModel(ServingModel):
         ids, mat = self.y.to_matrix()
         if not ivf_ops.ann_active(len(ids)):
             return False
+        ids, mat = _in_id_order(ids, mat)
         new = ivf_ops.attach_tiered_plane(ivf_ops.build_ivf(mat, centroids=cents))
         with self._cache_lock:
             if self._y_rotation_epoch != rot0:
@@ -745,7 +763,10 @@ class ALSServingModelManager(AbstractServingModelManager):
             raise NotYetPortedError(
                 "oryx.als.serving.shard-items = true is not yet ported to oryx_tpu_torch"
             )
-        ivf_ops.refuse_tier_store(config)
+        log.info(
+            "ALS serving: %s vector store",
+            "NativeFeatureVectors" if get_library() is not None else "FeatureVectors",
+        )
         self.rescorer_provider = _load_rescorer_providers(config)
         self.model: ALSServingModel | None = None
         self._consumed = 0

@@ -9,20 +9,26 @@ BOTH the user vector (against YtY) and the item vector (against XtX) via
 the ALSUtils fold-in, publishing ["X",user,vec[,knownItems]] /
 ["Y",item,vec[,knownUsers]] deltas.
 
-Port note: a copy of ``oryx_tpu/app/als/speed.py`` with its imports
-pointed at ``oryx_tpu_torch``; the batched fold-in runs through
-``ops/als.py`` (torch on the card for ``oryx.speed.fold-in-backend =
-"device"``). The port has no native parser or store yet:
-``oryx.speed.parse.native`` (default true) takes the Python parser, the
-JAX package's own path whenever its library declines, and bit for bit
-the same by that package's contract; this is logged once at start.
-Update messages carry ``json.dumps`` vectors (``native/store.py``).
+A copy of ``oryx_tpu/app/als/speed.py`` with its imports pointed at
+``oryx_tpu_torch``; the batched fold-in runs through ``ops/als.py``
+(torch on the card for ``oryx.speed.fold-in-backend = "device"``).
+
+Where the native library builds, X and Y live in the C++ sharded store
+(``NativeFeatureVectors``), text micro-batches parse in one GIL-released
+C++ pass (``oryx.speed.parse.native``, default true; ``native/parse.py``)
+and update messages are formatted in C++ as ``%.9g`` text. The parser
+declines any block it cannot reproduce bit for bit, and the whole batch
+then takes the Python parser, which owns the errors on bad input. Where
+the library is absent, the store is the Python ``FeatureVectors``, the
+parser is Python's and messages carry ``json.dumps`` vectors. The
+manager logs the store and the parser it took once at start.
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import os
 import threading
 from collections import deque
 from typing import Iterable, Iterator
@@ -36,16 +42,22 @@ from oryx_tpu_torch.app.als.common import apply_up_lines, consume_blocks_columna
 from oryx_tpu_torch.bus.core import KeyMessage
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.records import InteractionBlock, Records
-from oryx_tpu_torch.common.text import read_json
+from oryx_tpu_torch.common.text import json_str as _json_str, read_json
 from oryx_tpu_torch.common.vectormath import Solver, SingularMatrixSolverException, get_solver
+from oryx_tpu_torch.native import get_library
 from oryx_tpu_torch.native.store import (
     format_update_messages,
     format_update_messages_multi,
+    format_vectors_json,
     make_feature_vectors,
 )
 from oryx_tpu_torch.ops import als as als_ops
 
 log = logging.getLogger(__name__)
+
+# parse_batch may legitimately return None (empty batch), so the native
+# parser signals "run the Python path instead" with a distinct sentinel
+_NATIVE_DECLINED = object()
 
 
 class ALSSpeedModel(SpeedModel):
@@ -143,11 +155,16 @@ class ALSSpeedModelManager(SpeedModelManager):
         )
         if not 0.0 <= self.min_model_load_fraction <= 1.0:
             raise ValueError("oryx.speed.min-model-load-fraction must be in [0,1]")
-        if config.get_bool("oryx.speed.parse.native"):
-            log.info(
-                "oryx.speed.parse.native is set, but oryx_tpu_torch has no native "
-                "parser yet: interaction lines parse with the Python parser"
-            )
+        self.native_parse = config.get_bool("oryx.speed.parse.native")
+        threads = config.get_optional_int("oryx.speed.parse.threads") or 0
+        self.parse_threads = threads if threads > 0 else (os.cpu_count() or 1)
+        native = get_library() is not None
+        log.info(
+            "ALS speed layer: %s vector store, %s parser",
+            "NativeFeatureVectors" if native else "FeatureVectors",
+            f"native ({self.parse_threads} threads)" if native and self.native_parse
+            else "Python",
+        )
         # sharded pipeline state: shard count (configure_sharding), and the
         # shared PartitionedFoldInSession bound to the current Solver pair.
         # _fold_lock guards the (solvers, session) swap; each shard then
@@ -166,13 +183,15 @@ class ALSSpeedModelManager(SpeedModelManager):
         assumes this instance's publishes hit the UP partition in fold
         order, which concurrent per-shard publishers no longer guarantee
         — unmatched self-deltas simply re-apply (absolute vectors,
-        idempotent)."""
+        idempotent). Native parse threads are divided among shards so K
+        pinned chains don't oversubscribe the cores K-fold."""
         with self._fold_lock:
             self._shards = max(1, int(shards))
             shards = self._shards
         if shards > 1:
             self._self_pending_cap = 0
             self._self_pending.clear()
+            self.parse_threads = max(1, self.parse_threads // shards)
 
     # -- update-topic consumption (ALSSpeedModelManager.consume:74-126) ------
 
@@ -320,6 +339,13 @@ class ALSSpeedModelManager(SpeedModelManager):
                         users, items, values, ts, self.implicit,
                         first.user_prefix, first.item_prefix,
                     )
+            # native columnar parse: one GIL-released C++ pass per text
+            # block straight to typed int columns (bit-identical to the
+            # numpy path or it declines and we fall through)
+            if self.native_parse:
+                rm = self._parse_text_native([b.messages for b in blocks])
+                if rm is not _NATIVE_DECLINED:
+                    return rm
             # columnar text parse + aggregate: one numpy pass over the
             # micro-batch (same semantics as parse_interactions +
             # aggregate; the indexed form gives aggregated (user, item,
@@ -334,9 +360,62 @@ class ALSSpeedModelManager(SpeedModelManager):
             ]
             if not msgs:
                 return None
+            if self.native_parse:
+                rm = self._parse_text_native([msgs])
+                if rm is not _NATIVE_DECLINED:
+                    return rm
             cols = als_data.parse_interaction_block(msgs)
         rm = als_data.rating_matrix_from_columns(cols, self.implicit)
         return rm if len(rm.values) else None
+    def _parse_text_native(self, message_arrays: list):
+        """Native-parse every text block to typed int columns and build
+        the RatingMatrix through the int fast path. Returns the sentinel
+        ``_NATIVE_DECLINED`` when any block (or the library) declines —
+        the caller then runs the Python parser for the WHOLE batch, so
+        edge semantics (quotes, malformed-line ValueError, mixed
+        prefixes) stay byte-for-byte Python's."""
+        from oryx_tpu_torch.native import parse as native_parse
+
+        parts = []
+        for msgs in message_arrays:
+            if len(msgs) == 0:
+                continue
+            out = native_parse.parse_text_columns(msgs, threads=self.parse_threads)
+            if out is None:
+                return _NATIVE_DECLINED
+            if parts and (
+                out.user_prefix != parts[0].user_prefix
+                or out.item_prefix != parts[0].item_prefix
+            ):
+                return _NATIVE_DECLINED  # blocks disagree on the prefixes
+            parts.append(out)
+        if not parts:
+            return None  # no events in the batch
+        if len(parts) == 1:
+            users, items, values = parts[0].users, parts[0].items, parts[0].values
+            ts = parts[0].timestamps
+        else:
+            users = np.concatenate([p.users for p in parts])
+            items = np.concatenate([p.items for p in parts])
+            values = np.concatenate([p.values for p in parts])
+            ts = (
+                np.concatenate(
+                    [
+                        p.timestamps
+                        if p.timestamps is not None
+                        else np.zeros(len(p.users), np.int64)
+                        for p in parts
+                    ]
+                )
+                if any(p.timestamps is not None for p in parts)
+                else None
+            )
+        rm = als_data.rating_matrix_from_int_columns(
+            users, items, values, ts, self.implicit,
+            parts[0].user_prefix, parts[0].item_prefix,
+        )
+        return rm if len(rm.values) else None
+
 
     def _device_gramian(self, solver: Solver):
         """The solver's Gramian as a cached device array: solver caches
@@ -407,10 +486,13 @@ class ALSSpeedModelManager(SpeedModelManager):
         # One data-parallel call for the whole micro-batch: every event
         # reads pre-batch state (updates travel via the update topic), so
         # there is no sequential dependency to honor — same contract as the
-        # reference's parallelStream, but as a single batched solve.
+        # reference's parallelStream, but as a single batched solve. The
+        # vector fetch and update serialization are likewise batched (one
+        # native call each) — the per-event hot path has no Python in it.
         n = len(rm.values)
-        # vocab-level gather: one fetch per UNIQUE id, expanded to
-        # per-event rows by a fancy-index copy
+        # vocab-level gather: one native fetch per UNIQUE id, expanded to
+        # per-event rows by a fancy-index copy — the store pays |vocab|
+        # hash lookups and one id-payload pack instead of one per event
         user_ids_arr = np.asarray(rm.user_ids, dtype=object)
         item_ids_arr = np.asarray(rm.item_ids, dtype=object)
         xu_vocab, xu_ok = model.x.get_batch(user_ids_arr.tolist(), dim=model.features)
@@ -475,7 +557,15 @@ class ALSSpeedModelManager(SpeedModelManager):
         else:
             x_msgs = format_update_messages(new_xu[rows_x], x_ids, [], "X", False)
             y_msgs = format_update_messages(new_yi[rows_y], y_ids, [], "Y", False)
-        out = x_msgs + y_msgs
+        if x_msgs is not None and y_msgs is not None:
+            out = x_msgs + y_msgs
+        else:
+            # pure-Python fallback when the native library is unavailable
+            out = []
+            for i, vec in enumerate(format_vectors_json(new_xu[rows_x])):
+                out.append(self._assemble("X", x_ids[i], vec, known_lists[i] if known else None))
+            for i, vec in enumerate(format_vectors_json(new_yi[rows_y])):
+                out.append(self._assemble("Y", y_ids[i], vec, y_known[i] if known else None))
         if self.self_apply and model is self.model:
             # apply the deltas to this model NOW (they are absolute
             # vectors computed this batch) and queue their encoded forms
@@ -486,6 +576,18 @@ class ALSSpeedModelManager(SpeedModelManager):
             if room > 0:
                 self._self_pending.extend(m.encode("utf-8") for m in out[:room])
         return out
+
+    def _assemble(
+        self, matrix: str, id_: str, vec_json: str, known_ids: list[str] | None
+    ) -> str:
+        """Splice a pre-formatted vector JSON into the update message
+        (["X"|"Y", id, vector(, knownIds)], ALSSpeedModelManager.
+        toUpdateJSON:207-215)."""
+        id_json = _json_str(id_)
+        if known_ids is None:
+            return f'["{matrix}",{id_json},{vec_json}]'
+        ks = ",".join(_json_str(s) for s in known_ids)
+        return f'["{matrix}",{id_json},{vec_json},[{ks}]]'
 
     def close(self) -> None:
         # drop the device-resident fold-in session: its per-shard Gramian

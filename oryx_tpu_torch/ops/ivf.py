@@ -43,8 +43,12 @@ the B3 sweep kernel runs inside ``train_kmeans``. Every float32 product
 runs with TF32 off. ``HOST_STAGE1`` resolves on only for an index that
 lives on the CPU: its probed scan then takes the numpy path over a
 host-resident dequantized plane, as the JAX package does on its CPU
-backend. The tiered host store (``attach_tiered_plane`` with a plane) is
-not ported.
+backend. With ``oryx.serving.store.tier.enabled``,
+``attach_tiered_plane`` moves that host plane into the tiered
+HBM->RAM->disk cell store (``native/store.TieredHostPlane``): stage 1
+then gathers its probed tiles through the store, and the batcher's
+``prefetch_for_queries`` hint starts the disk->RAM copies of the cells
+a group will probe while it assembles.
 """
 
 from __future__ import annotations
@@ -60,7 +64,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.device import full_float32, resolve
 from oryx_tpu_torch.ops import streaming_topn as stn
 
@@ -240,6 +243,10 @@ class IVFIndex:
     # overlay-overflow spill queue: item id -> (raw row [kf_pad] f32,
     # born seconds); invisible to queries until the next compaction
     pending_spill: dict | None = None
+    # optional tiered host plane (native/store.py TieredHostPlane): when
+    # set, host stage-1 gathers probed tiles through the HBM->RAM->disk
+    # cell store instead of the flat host_plane array
+    tier: object | None = None
 
     @property
     def n_cells(self) -> int:
@@ -259,6 +266,38 @@ class IVFIndex:
         if not p:
             p = int(round(PROBE_FRACTION * self.n_cells))
         return max(1, min(int(p), self.n_cells))
+
+    def prefetch_for_queries(
+        self, queries, nprobe: int | None = None, cosine: bool = False
+    ) -> int:
+        """Advisory async prefetch of the cells these queries will probe.
+
+        The batcher calls this while a scan group assembles (ahead of the
+        actual dispatch), so the tier store's disk->RAM copies overlap
+        with batching + routing instead of stalling the scan. Routing
+        here is a host-side numpy dot (exactness is irrelevant for a
+        prefetch hint; the scan re-routes on device). No-op without an
+        attached tier. Returns the number of cells hinted."""
+        tier = self.tier
+        if tier is None:
+            return 0
+        np_ = self.resolve_nprobe(nprobe)
+        if np_ >= self.n_cells:
+            return 0  # full probe touches everything; nothing to target
+        q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+        cent, cnorms = tier.routing_arrays()
+        qpad = np.zeros((q.shape[0], cent.shape[0]), np.float32)
+        qpad[:, : q.shape[1]] = q
+        sc = qpad @ cent
+        if cosine:
+            sc = sc / np.maximum(cnorms[None, :], 1e-12)
+        if np_ < sc.shape[1]:
+            part = np.argpartition(-sc, np_ - 1, axis=1)[:, :np_]
+        else:
+            part = np.broadcast_to(np.arange(sc.shape[1]), sc.shape)
+        hinted = np.unique(part)
+        tier.prefetch_cells(hinted)
+        return int(len(hinted))
 
 
 # -- build --------------------------------------------------------------------
@@ -563,7 +602,11 @@ def _host_topk(index: IVFIndex, qpad: np.ndarray, cells: np.ndarray, k: int, cos
     lists = _group_tile_lists(index, cells[order], g)
     ts = index.tile_chunks * index.chunk
     n_tiles = index.n_slots // ts
-    plane3 = index.host_plane.reshape(n_tiles, ts, kf)
+    # tiered plane: probed tiles gather through the HBM->RAM->disk cell
+    # store (promotion + residency tracked there); the flat array path
+    # stays the default. slot ids / norms are 8 B/slot: always RAM.
+    tier = index.tier
+    plane3 = None if tier is not None else index.host_plane.reshape(n_tiles, ts, kf)
     sids3 = index.slot_ids_host.reshape(n_tiles, ts)
     norms3 = index.norms_host.reshape(n_tiles, ts)
     used = index.ov_used
@@ -579,7 +622,10 @@ def _host_topk(index: IVFIndex, qpad: np.ndarray, cells: np.ndarray, k: int, cos
         rows = order[gi * g : (gi + 1) * g]
         qg = qpad[rows]
         if len(tl):
-            slab = plane3[tl].reshape(-1, kf)  # contiguous block take
+            if tier is not None:
+                slab = tier.gather_tiles(tl)  # [len(tl)*ts, kf] f32
+            else:
+                slab = plane3[tl].reshape(-1, kf)  # contiguous block take
             sc = slab @ qg.T  # [S, group] final-precision scores
             ssid = sids3[tl].reshape(-1).astype(np.int64)
             if cosine:
@@ -764,8 +810,12 @@ def top_k_device(index: IVFIndex, queries, k: int, *, nprobe: int | None = None,
         return _full_topk(index, q, kk, cosine, ov)
     cells = _route_cells(index, q, np_, cosine).cpu().numpy()  # the batch's host round trip
     _count("route_syncs")
-    if index.host_plane is not None:
+    if index.host_plane is not None or index.tier is not None:
         _count("host")
+        if index.tier is not None:
+            # issue the async disk->RAM copies for every probed cell
+            # before the group loop scans them in sequence
+            index.tier.prefetch_cells(np.unique(cells))
         vals, ids = _host_topk(index, q.cpu().numpy(), cells, kk, cosine)
         return torch.from_numpy(vals).to(index.device), torch.from_numpy(ids).to(index.device)
     _count("device")
@@ -1136,25 +1186,28 @@ def _assemble_layout(ids, cell, centers, q, q2, s, s2, norms_v, *, feat: int, ch
     )
 
 
-# -- tiered host plane --------------------------------------------------------
+# -- tiered host plane (native/store.py) --------------------------------------
 
 
 def attach_tiered_plane(index: IVFIndex, plane=None) -> IVFIndex:
-    """The identity while tiering is off, which is all the port serves:
-    the tiered HBM->RAM->disk cell store is not ported (a config that
-    enables it is refused by ``refuse_tier_store``)."""
-    if plane is not None:
-        raise NotYetPortedError(
-            "the tiered host plane (oryx.serving.store.tier) is not yet ported to oryx_tpu_torch"
-        )
-    return index
+    """Move the host stage-1 plane into the tiered HBM->RAM->disk cell
+    store. Returns a new handle with ``tier`` set and the flat
+    ``host_plane`` dropped (the hot tier's working set replaces it);
+    a no-op when tiering is off or the index has no host plane. Pass a
+    prebuilt ``plane`` to adopt one (tests)."""
+    if index.host_plane is None or index.tier is not None:
+        return index
+    if plane is None:
+        from oryx_tpu_torch.native import store as fstore
 
-
-def refuse_tier_store(config) -> None:
-    """Raise for ``oryx.serving.store.tier.enabled = true``: IVF host planes
-    would not move into the tiered item store, which is not ported."""
-    if config.get_optional_bool("oryx.serving.store.tier.enabled"):
-        raise NotYetPortedError(
-            "oryx.serving.store.tier.enabled = true, but the tiered item store is not yet "
-            "ported to oryx_tpu_torch"
+        if not fstore.tier_active():
+            return index
+        plane = fstore.TieredHostPlane.build(
+            index.host_plane,
+            tile_start=np.asarray(index.tile_start_host, np.int64),
+            tile_count=np.asarray(index.tile_count_host, np.int64),
+            tile_slots=index.tile_chunks * index.chunk,
+            centroids=np.ascontiguousarray(index.centroids_t.cpu().numpy()),
+            centroid_norms=index.centroid_norms.cpu().numpy(),
         )
+    return dataclasses.replace(index, tier=plane, host_plane=None)

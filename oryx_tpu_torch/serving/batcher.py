@@ -28,10 +28,12 @@ inflight slot held), is the admission controller's pressure signal
 (:func:`default_batcher_signals`); and a request's reduced-probe
 fraction (``serving/overload.probe_override``) rides its entry, keys its
 dispatch group, and scales an IVF index's ``nprobe`` for that group.
+Before a vector group's submit, an IVF index with a tiered host plane
+gets the advisory ``prefetch_for_queries`` hint (a failing hint never
+fails the dispatch).
 
 Not ported yet: tenancy (the deficit-round-robin queue serves the single
-default tenant, and no tenant's share of the bound is kept) and the
-tiered-store prefetch.
+default tenant, and no tenant's share of the bound is kept).
 """
 
 from __future__ import annotations
@@ -479,6 +481,16 @@ class TopNBatcher:
                 _metrics.counter("serving.batcher.submitted.indexed").inc(len(entries))
             else:
                 queries = np.stack([e.query for e in entries])
+                # tiered item store: hint the cells this group will probe so
+                # the store's disk->RAM promotions overlap the dispatch below
+                # instead of stalling the stage-1 gather (advisory; no-op on
+                # flat-plane indexes)
+                prefetch = getattr(entries[0].uploaded, "prefetch_for_queries", None)
+                if prefetch is not None:
+                    try:
+                        prefetch(queries, nprobe=nprobe, cosine=cosine)
+                    except Exception:  # never let a hint fail a dispatch
+                        pass
                 if len(entries) > self.MULTI_THRESHOLD:
                     # multi-scan: pads to a multiple of scan_batch internally
                     handle = topn_ops.submit_top_k_multi(

@@ -40,15 +40,23 @@ rung, and drops a second delivery of the live generation's MODEL.
 an index generation and announced as ``INDEX-REF`` on the update topic,
 through one lazily opened producer.
 
+``oryx.serving.store.tier.*`` configures the tiered HBM->RAM->disk
+item store (``native/store.configure_tier``): with it enabled, IVF host
+planes built afterwards move into the cell store.
+
+``/metrics`` serves the metrics registry, with the model's loaded
+fraction, the live generation, the scan kernels' launch counts and the
+IVF tier's batches by path: as JSON, or as Prometheus text 0.0.4 for
+``?format=prometheus`` or an ``Accept`` naming ``text/plain`` or
+``openmetrics`` (``?format=json`` wins), as the JAX package negotiates.
+
 Not ported yet: tenancy and online experiments (a config that declares
 enabled tenants or sets ``oryx.serving.ab.fraction`` above 0 is refused
 at construction, so the per-tenant ladders and the experiment arm stay
-out), the tiered item store (``oryx.serving.store.tier.enabled`` is
-refused at construction), ``/model/generations`` and rollback, MODEL-REF
-restage, TLS and auth (a config that sets a key file or credentials is
-refused at construction), tracing export routes and profiling.
-``/metrics`` serves the metrics registry (with the scan kernels' launch
-counts), without the JAX package's per-instance and model-state entries.
+out), ``/model/generations`` and rollback, MODEL-REF restage, TLS and
+auth (a config that sets a key file or credentials is refused at
+construction), tracing export routes, profiling and the per-instance
+metrics registry.
 """
 
 from __future__ import annotations
@@ -71,7 +79,6 @@ from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
 from oryx_tpu_torch.tenancy import context as _tenancy
 from oryx_tpu_torch.device import default_device
-from oryx_tpu_torch.ops.ivf import refuse_tier_store
 from oryx_tpu_torch.registry.tracking import GenerationTracker
 from oryx_tpu_torch.serving import overload as _overload
 from oryx_tpu_torch.serving.batcher import BatcherOverloadedError
@@ -328,17 +335,59 @@ def _readyz(ctx: ServingContext, req: Request) -> Response:
 
 @resource("GET", "/metrics")
 def _metrics(ctx: ServingContext, req: Request) -> Response:
-    """The process's metrics registry as JSON, with the scan kernels'
-    launches so far as ``kernels.<name>.launches`` gauges and the IVF
-    tier's batches by path as ``serving.ann.<path>`` (the batch and speed
-    layers serve theirs on ``oryx.<layer>.ui.port``)."""
+    """The process's metrics registry and model state, with the scan
+    kernels' launches so far as ``kernels.<name>.launches`` gauges and
+    the IVF tier's batches by path as ``serving.ann.<path>`` (the batch
+    and speed layers serve theirs on ``oryx.<layer>.ui.port``). JSON, or
+    Prometheus text for a scraper (``oryx_tpu/serving/layer.py``'s
+    content negotiation)."""
     from oryx_tpu_torch.ops import ivf, streaming_topn
 
     for name, count in streaming_topn.launch_counts().items():
         metrics.registry.gauge(f"kernels.{name}.launches").set(count)
     for name, count in ivf.counts().items():
         metrics.registry.gauge(f"serving.ann.{name}").set(count)
-    return Response(200, metrics.registry.snapshot(), content_type="application/json")
+    if ledger.enabled():
+        # resources.<kind>.live gauges: the leak alarm for week-long runs
+        ledger.ledger.refresh()
+    snap = metrics.registry.snapshot()
+    manager = ctx.model_manager
+    model = manager.get_model() if manager is not None else None
+    if model is not None:
+        snap["serving.model.fraction_loaded"] = {
+            "type": "gauge",
+            "value": getattr(model, "get_fraction_loaded", lambda: 1.0)(),
+        }
+    if ctx.health is not None and ctx.health.live_generation is not None:
+        snap["serving.model.live_generation"] = {
+            "type": "gauge",
+            "value": ctx.health.live_generation,
+        }
+    accept = next((v for k, v in req.headers.items() if k.lower() == "accept"), "")
+    if (
+        req.q1("format") == "prometheus" or "text/plain" in accept or "openmetrics" in accept
+    ) and req.q1("format") != "json":
+        # standard-scraper exposition (Prometheus sends
+        # `Accept: text/plain;version=0.0.4`); live_generation may be a
+        # non-numeric id, which the renderer would choke on: drop it from
+        # the text form
+        prom = {
+            k: v
+            for k, v in snap.items()
+            if not (k == "serving.model.live_generation" and _non_numeric(v))
+        }
+        return Response(
+            200, metrics.render_prometheus(prom), content_type=metrics.PROMETHEUS_CONTENT_TYPE
+        )
+    return Response(200, snap, content_type="application/json")
+
+
+def _non_numeric(entry) -> bool:
+    try:
+        float(entry.get("value"))
+        return False
+    except (TypeError, ValueError):
+        return True
 
 
 def _model_ready(ctx: ServingContext) -> bool:
@@ -423,7 +472,6 @@ class ServingLayer:
         default_device()  # the port serves from the card: fail now, not per request
         _refuse_tls_and_auth(config)
         _refuse_tenancy_and_experiments(config)
-        refuse_tier_store(config)
         self.config = config
         tracing.configure_from(config)
         self.port = config.get_int("oryx.serving.api.port")
@@ -455,6 +503,17 @@ class ServingLayer:
         )
         configure_scan(oversample=config.get_optional_int("oryx.serving.scan.oversample"))
         _configure_ann(config)
+        # tiered HBM->RAM->disk item store (native/store.py): catalogs
+        # bigger than RAM keep serving out of the cell store
+        from oryx_tpu_torch.native.store import configure_tier
+
+        tier_ram_mb = config.get_optional_int("oryx.serving.store.tier.ram-mb")
+        configure_tier(
+            enabled=config.get_optional_bool("oryx.serving.store.tier.enabled"),
+            hot_cells=config.get_optional_int("oryx.serving.store.tier.hot-cells"),
+            ram_bytes=None if tier_ram_mb is None else int(tier_ram_mb) << 20,
+            spill_dir=config.get_optional_string("oryx.serving.store.tier.spill-dir"),
+        )
 
         # the model registry over the batch model dir: index generations
         # are written under it

@@ -285,6 +285,11 @@ class IndexMaintainer:
             split_max_items=self.split_max_items,
             merge_min_items=self.merge_min_items,
         )
+        # with tiering on, the compacted index's host plane moves into a
+        # fresh cell store, in a directory of its own; the replaced plane
+        # closes itself (store, spill file, directory) when its last
+        # index handle goes, the point where the JAX package's store
+        # drops its file: a scan in flight may still hold the old handle
         new_index = ivf_ops.attach_tiered_plane(new_index)
         stats["compact_seconds"] = time.monotonic() - t0
         if not model.install_compacted(new_index, stats):

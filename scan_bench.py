@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""Phase 2, 5 or 14 of chip_smoke.py alone, on one card: the top-N scan
-kernels, or the k-means Lloyd sweep, against their plain versions, with
-their times; or the default request path (serving-front).
+"""Phase 2, 5, 14 or 15 of chip_smoke.py alone, on one card: the top-N
+scan kernels, or the k-means Lloyd sweep, against their plain versions,
+with their times; the default request path (serving-front); or the
+native host code (native-host, after ivf-serving, whose catalog and
+index it reuses: the parser, formatters, store and tiered IVF cell store
+against their Python paths).
 
     python3 scan_bench.py                        # the scans, this checkout's oryx_tpu_torch
     python3 scan_bench.py --root DIR             # the package of another checkout
     python3 scan_bench.py --phase kmeans [--root DIR]   # the sweep
     python3 scan_bench.py --phase front                 # the request path
+    python3 scan_bench.py --phase front --store python  # ... X/Y in the Python store
+    python3 scan_bench.py --phase native                # ivf-serving, the native host code
 
 The cases, checks, timers and inputs are chip_smoke's (``phase_kernels``
 or ``phase_kmeans_kernels`` at its default sizes and seed); each case
@@ -32,7 +37,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--root", default=HERE, help="checkout whose oryx_tpu_torch to load")
-    p.add_argument("--phase", choices=("scan", "kmeans", "front"), default="scan")
+    p.add_argument("--phase", choices=("scan", "kmeans", "front", "native"), default="scan")
+    p.add_argument("--store", choices=("default", "python"), default="default",
+                   help="python: the ALS serving model keeps X/Y in the pure-Python "
+                   "FeatureVectors instead of make_feature_vectors()'s store")
     opts = p.parse_args()
     root = os.path.abspath(opts.root)
 
@@ -57,12 +65,26 @@ def main() -> int:
             raise RuntimeError(f"loaded {mod.__file__}, not the package under {root}")
     cs.full_float32(torch)
     args = cs.parse_args([])
-    cs.emit({"root": root, "phase": opts.phase, "nvidia_smi": cs.nvidia_smi_line()})
+    cs.emit({"root": root, "phase": opts.phase, "store": opts.store,
+             "nvidia_smi": cs.nvidia_smi_line()})
+    if opts.store == "python":
+        from oryx_tpu_torch.app.als import serving_model
+        from oryx_tpu_torch.app.als.common import FeatureVectors
+
+        serving_model.make_feature_vectors = FeatureVectors
     if opts.phase == "front":
         from oryx_tpu_torch.ops import _build
 
         _build.build()  # the IVF build's Lloyd sweep
         cs.phase_serving_front(torch, args, stn, pk, args.seed)
+        return 0
+    if opts.phase == "native":
+        from oryx_tpu_torch.ops import _build
+
+        _build.build()  # the IVF build's Lloyd sweep
+        ivf_srv = cs.phase_ivf_serving(torch, args, stn, pk, args.seed)
+        cs.phase_native_host(torch, args, cs.nvidia_smi_line(), args.seed,
+                             catalog=ivf_srv["catalog"])
         return 0
     if opts.phase == "kmeans":
         if root != HERE:

@@ -7,9 +7,9 @@ native/store.py) against the JAX package's, on the CPU.
 - Read-across: a model the port trained serves in the JAX package's ALS
   serving model, and the reverse.
 - ``ALSSpeedModelManager``: the same update messages as the JAX
-  manager's, compared as parsed values (the port writes ``json.dumps``
-  vectors, the JAX package's native library ``%.9g``), and the ALS
-  cases of tests/lambda_/test_speed_pipeline.py (staged parse/fold, the
+  manager's, compared as parsed values (both write ``%.9g`` vectors
+  where their native libraries build), and the ALS cases of
+  tests/lambda_/test_speed_pipeline.py (staged parse/fold, the
   typed-block fast path).
 - The ALS lambda loop, batch + speed + serving on one bus, in one
   process.
@@ -44,7 +44,7 @@ from oryx_tpu_torch.common import config as C
 from oryx_tpu_torch.common import rng as trng
 from oryx_tpu_torch.common import tracing
 from oryx_tpu_torch.common.records import BlockRecords, InteractionBlock
-from oryx_tpu_torch.native import store
+from oryx_tpu_torch.native import get_library, store
 
 FACTORS = dict(rtol=2e-2, atol=2e-3)
 
@@ -280,7 +280,8 @@ def test_store_formats_read_back_to_the_same_float32():
     assert [len(json.loads(m)) for m in plain] == [3, 3]
     known = store.format_update_messages(mat[2:], ["a", "b"], ["x", "y"], "Y")
     assert [json.loads(m)[3] for m in known] == [["x"], ["y"]]
-    assert type(store.make_feature_vectors()).__name__ == "FeatureVectors"
+    want_store = "FeatureVectors" if get_library() is None else "NativeFeatureVectors"
+    assert type(store.make_feature_vectors()).__name__ == want_store
 
 
 # -- ALSSpeedModelManager ----------------------------------------------------------
@@ -404,10 +405,21 @@ def test_configure_sharding_retires_the_self_pending_queue():
 
 
 def test_native_parse_setting_takes_the_python_parser(caplog):
+    """The start-up line names the parser the manager took: the Python one
+    with ``oryx.speed.parse.native = false`` (or no native library), the
+    native one otherwise; both parse the same batch."""
+    with caplog.at_level("INFO"):
+        mgr = ALSSpeedModelManager(C.get_default().with_overlay("oryx.speed.parse.native = false"))
+    assert "Python parser" in caplog.text
+    py = mgr.parse_batch([KeyMessage(None, "u1,i2,1.0,1")])
+    caplog.clear()
     with caplog.at_level("INFO"):
         mgr = ALSSpeedModelManager(C.get_default().with_overlay("oryx.speed.parse.native = true"))
-    assert "Python parser" in caplog.text
-    assert mgr.parse_batch([KeyMessage(None, "u1,i2,1.0,1")]) is not None
+    native = get_library() is not None
+    assert ("native (" in caplog.text) == native and ("Python parser" in caplog.text) != native
+    rm = mgr.parse_batch([KeyMessage(None, "u1,i2,1.0,1")])
+    assert (rm.user_ids, rm.item_ids, rm.values.tolist()) == (py.user_ids, py.item_ids,
+                                                              py.values.tolist())
 
 
 @pytest.mark.parametrize("shards", [1, 2])

@@ -17,7 +17,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # Runs in a fresh interpreter where importing jax or any oryx_tpu module
 # (other than oryx_tpu_torch) fails: every module of the port imports,
 # the serving path answers over HTTP on the CPU (behind the native front,
-# built by the port's own loader, where g++ is present), the k-means batch path
+# built by the port's own loader, where g++ is present, which also gives
+# the native feature store), the k-means batch path
 # trains one generation on a file: bus and the speed layer folds points
 # into its model, ALS trains (packing in forked workers) and folds in, an
 # RDF generation trains on a file: bus and answers /predict, and
@@ -65,7 +66,10 @@ _ISOLATED = textwrap.dedent(
             }}'''))
         layer.start()
         from oryx_tpu_torch import native
+        from oryx_tpu_torch.native.store import NativeFeatureVectors, make_feature_vectors
         assert (layer._native_front is not None) == (native.get_library() is not None)
+        assert isinstance(make_feature_vectors(), NativeFeatureVectors) == (
+            native.get_library() is not None)
         root = pmml.build_skeleton_pmml()
         app_pmml.add_extension(root, "features", 8)
         app_pmml.add_extension(root, "implicit", "true")
@@ -217,7 +221,7 @@ def test_native_loader_compiles_only_the_ports_sources(tmp_path, monkeypatch):
     assert len(commands) == 1
     sources = [a for a in commands[0] if a.endswith((".cpp", ".cc", ".c", ".cu"))]
     assert sources == native.source_paths()
-    assert [Path(a).name for a in sources] == ["httpfront.cpp"]
+    assert [Path(a).name for a in sources] == ["feature_store.cpp", "parse.cpp", "httpfront.cpp"]
     for a in sources:
         assert Path(a).resolve().is_relative_to(port_root), a
     # the library's name covers its sources: a second call builds nothing
@@ -227,6 +231,13 @@ def test_native_loader_compiles_only_the_ports_sources(tmp_path, monkeypatch):
 def test_native_front_source_is_the_jax_packages_byte_for_byte():
     assert (ROOT / "oryx_tpu_torch/native/httpfront.cpp").read_bytes() == (
         ROOT / "oryx_tpu/native/httpfront.cpp"
+    ).read_bytes()
+
+
+@pytest.mark.parametrize("name", ["feature_store.cpp", "parse.cpp"])
+def test_native_store_and_parser_sources_are_the_jax_packages_byte_for_byte(name):
+    assert (ROOT / "oryx_tpu_torch/native" / name).read_bytes() == (
+        ROOT / "oryx_tpu/native" / name
     ).read_bytes()
 
 

@@ -37,7 +37,6 @@ import torch
 
 from oryx_tpu.ops import ivf as jivf
 from oryx_tpu.serving import maintain as jmaintain
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch import bus as tbus
 from oryx_tpu_torch import device as port_device
 from oryx_tpu_torch.app.als.serving_model import ALSServingModel
@@ -548,6 +547,34 @@ def test_ann_engages_above_min_items_and_full_probe_is_the_exact_answer():
     assert [i for i, _ in res] == [i for i, _ in exact.top_n(q, 5)]
 
 
+@pytest.mark.parametrize("store", ["native", "python"])
+def test_the_ivf_build_follows_ids_not_the_stores_row_order(store):
+    """The same catalog inserted in another order, into either store
+    kind, gives the same k-means sample, centroids and layout: the build
+    takes its rows in id order."""
+    from oryx_tpu_torch.app.als.common import FeatureVectors
+
+    tivf.configure_ann(enabled=True, min_items=500, cells=16, nprobe=4)
+    gen = np.random.default_rng(3)
+    n = 600
+    ids = [f"i{j}" for j in range(n)]
+    vecs = gen.standard_normal((n, F)).astype(np.float32)
+    ref = ALSServingModel(F, implicit=True, refresh_sec=0.0, score_dtype="int8")
+    ref.set_item_vectors(ids, vecs)
+    other = ALSServingModel(F, implicit=True, refresh_sec=0.0, score_dtype="int8")
+    if store == "python":
+        other.y = FeatureVectors()
+    perm = gen.permutation(n)
+    other.set_item_vectors([ids[j] for j in perm], vecs[perm])
+    assert other.y.to_matrix()[0] != ref.y.to_matrix()[0]  # the stores' orders differ
+    a, b = ref._ensure_y_matrix(), other._ensure_y_matrix()
+    assert a[0] == b[0] == ids  # by length, then text: i0 ... i599
+    assert torch.equal(a[2].centroids_t, b[2].centroids_t)
+    assert np.array_equal(a[2].slot_ids_host, b[2].slot_ids_host)
+    q = unit_query()
+    assert ref.top_n(q, 5) == other.top_n(q, 5)
+
+
 def test_ann_stays_off_below_min_items_and_for_float32():
     tivf.configure_ann(enabled=True, min_items=10_000, cells=16)
     m = ann_model(600)
@@ -723,13 +750,6 @@ def test_config_blocks_reach_the_knobs():
     assert (tmaintain.MAINTAIN_SPLIT_MAX_ITEMS, tmaintain.MAINTAIN_MERGE_MIN_ITEMS) == (777, 3)
     ServingLayer(layer_config("inproc://ivf-cfg", 'serving.scan.ann.host-stage1 = "auto"'))
     assert tivf.HOST_STAGE1 is False  # "auto" leaves the knob alone
-
-
-def test_tiering_raises():
-    with pytest.raises(NotYetPortedError, match="tier"):
-        ServingLayer(layer_config("inproc://ivf-tier", "serving.store.tier.enabled = true"))
-    with pytest.raises(NotYetPortedError):
-        tivf.attach_tiered_plane(None, plane=object())
 
 
 def http_json(url):

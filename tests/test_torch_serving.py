@@ -453,7 +453,6 @@ def test_index_and_vector_paths_agree_with_jax(dtype):
 @pytest.mark.parametrize("extra", [
     "als.sample-rate = 0.5",
     "als.serving.shard-items = true",
-    "serving.store.tier.enabled = true",
 ])
 def test_unported_settings_raise(extra):
     with pytest.raises(tsm.NotYetPortedError):

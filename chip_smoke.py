@@ -109,6 +109,36 @@ Phases, each printing one JSON line:
    held-out AUC, the micro-batch seconds and each wave's staleness; the
    speed and serving processes on the native store and parser, as each
    one's start-up line says;
+9b. buses: the fault, shm and TCP buses under the ALS loop, each layer
+   a ``python -m oryx_tpu_torch`` process. (a) conf/chaos-example.conf
+   as packaged (its ``fault+file:`` bus at drop 0.1, delay 20 ms, dup
+   0.01, seed 7; 10 features; its retry and dead-letter blocks), but
+   for its directories (under a temp dir), its ports (free ones, and
+   the batch and speed metrics UIs on them), the generation interval
+   (30 s) and the class names (the port's): the MovieLens-1M-shaped
+   set through /ingest in bodies of 4,000 lines from 4 clients (a body
+   answered with an error sent again) as the batch process starts, one
+   generation: every posted line in the batch layer's data, /recommend
+   for 100 probe users the exact top-10 of the published factors; a
+   poison UP on the update topic dead-lettered to
+   OryxUpdate.dead-letter after 3 failures, then a wave of 100 new
+   users each served the exact top-10 of its published vector; drops,
+   duplicates and injected errors each counted above 0, summed over the
+   processes' metrics; no layer thread dead (/healthz). (b) run while
+   (a)'s batch process waits out its interval: a ``bus-serve`` process
+   holding the update topic (``tcp://``), the input topic one
+   ``shm:`` ring of 8 MiB under /dev/shm; a MODEL at MovieLens-1M's
+   shape (6,040 x 3,706, 50 features) with X and Y as UP lines from a
+   seed; the speed (pipelined) and serving layers; a wave of 100 new
+   users as typed events, each published as the float64 fold-in within
+   1e-4 and served its exact top-10; then 2,000,000 typed implicit
+   events through ``send_interactions``, the bus server killed
+   (SIGKILL) and restarted on its port and directory halfway: the speed
+   group's committed offset equal to the events sent, the ring's head
+   past twice its size with no CRC resync, every user's and item's
+   /estimate the dot of the last published X and Y; with the events
+   per second over shm and the publish-to-served seconds; both serving
+   processes launching the scans and ``topn_merge``;
 10. rdf-train: random-forest training through ``ops/forest.py`` on the
    card (PyTorch ops: the JAX package runs them through XLA, no Pallas
    kernel): (a) tools/train_benchmark.py:215-248's configuration
@@ -205,15 +235,16 @@ Phases, each printing one JSON line:
    timestamps, and the same RatingMatrix); (b) update messages with
    known-id lists and vector JSON for 100,000 rows at 50 and 250
    features, every vector read back equal to its row and non-finite
-   values as 0; (c) the
+   values as 0, the Python path on the first 10,000 rows (a cut); (c) the
    native and the Python store filled with the same 1M x 50 vectors:
    ``get_batch`` of 4,096 ids, ``to_matrix``, ``get_vtv`` (within 1e-9
    relative) and ``retain_recent_and_ids`` alike; (d) an IVF index on
    phase 13's catalog and centroids (250 x 1M int8 items, 1,000 cells)
    with the host stage-1 plane, scanned through the flat plane and
    through the tiered cell store (32 hot cells, 64 MiB of RAM, the rest
-   in a spill file under a temp dir) at probe-fraction 0.01 and 0.3, 512
-   queries each in 4 concurrent calls: ids and score bits equal, cells
+   in a spill file under a temp dir) at probe-fraction 0.01 with 512
+   queries and 0.3 with the first 64 (a cut), each in 4 concurrent
+   calls: ids and score bits equal, cells
    on disk, in RAM and hot; then 64
    queries behind the batcher, each group hinting its cells (the hints
    counted);
@@ -221,8 +252,8 @@ Phases, each printing one JSON line:
    and IVF ops (phases 12-13), then the kernel table: launches on the
    main paths (ALS during phases 3-4, k-means during phase 6, each
    counted from zero just before; the scans also by batch rows, per path;
-   the als-lambda serving processes' own; the IVF phases' builds and
-   serving; and phase 14's) and the numbers of phases 2 and 5, B3's also
+   the als-lambda serving processes' own; those of phase 9b's two; the
+   IVF phases' builds and serving; and phase 14's) and the numbers of phases 2 and 5, B3's also
    at phase 12's shape;
 17. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
@@ -1301,11 +1332,12 @@ def lambda_conf(root: str, d: int, k: int, ports: dict, batch_interval: int) -> 
     """
 
 
-def start_layer(layer: str, conf: str, root: str, device: str, run: int):
-    """``python -m oryx_tpu_torch <layer> --conf <conf>`` from the checkout,
-    its output in <root>/logs/<layer>-<run>.log: (process, log path)."""
+def start_layer(layer: str, conf: str, root: str, device: str, run: int, extra=()):
+    """``python -m oryx_tpu_torch <layer> --conf <conf> [extra]`` from the
+    checkout, its output in <root>/logs/<layer>-<run>.log: (process, log
+    path)."""
     log_path = os.path.join(root, "logs", f"{layer}-{run}.log")
-    cmd = [sys.executable, "-m", "oryx_tpu_torch", layer, "--conf", conf]
+    cmd = [sys.executable, "-m", "oryx_tpu_torch", layer, "--conf", conf, *extra]
     if device == "cpu":
         cmd += ["--device", "cpu"]
     with open(log_path, "w") as log_file:
@@ -1329,6 +1361,14 @@ def wait_until(what: str, pred, timeout: float = LAMBDA_TIMEOUT_S, procs=()):
         time.sleep(0.05)
 
 
+def print_tails(logs: list[str]) -> None:
+    """The last 3,000 characters of each log, to standard error."""
+    for path in logs:
+        with open(path, errors="replace") as f:
+            tail = f.read()[-3000:]
+        print(f"--- {path} (tail) ---\n{tail}", file=sys.stderr, flush=True)
+
+
 def log_has(path: str, text: str, count: int = 1) -> bool:
     with open(path, errors="replace") as f:
         return f.read().count(text) >= count
@@ -1339,10 +1379,9 @@ def log_has(path: str, text: str, count: int = 1) -> bool:
 MAX_BODY_BYTES = 1 << 20
 
 
-def post_bodies(url: str, lines: list[str], max_lines: int) -> float:
-    """POST ``lines`` to ``url`` in bodies of at most ``max_lines`` lines
-    and MAX_BODY_BYTES bytes, each answered 204; the monotonic time the
-    last answer came."""
+def split_bodies(lines: list[str], max_lines: int) -> list[list[str]]:
+    """``lines`` in bodies of at most ``max_lines`` lines and
+    MAX_BODY_BYTES bytes."""
     bodies, body, size = [], [], 0
     for line in lines:
         n = len(line.encode()) + 1
@@ -1352,7 +1391,13 @@ def post_bodies(url: str, lines: list[str], max_lines: int) -> float:
         body.append(line)
         size += n
     bodies.append(body)
-    for body in bodies:
+    return bodies
+
+
+def post_bodies(url: str, lines: list[str], max_lines: int) -> float:
+    """POST ``lines`` to ``url`` in split_bodies' bodies, each answered
+    204; the monotonic time the last answer came."""
+    for body in split_bodies(lines, max_lines):
         req = urllib.request.Request(url, data=("\n".join(body) + "\n").encode(), method="POST")
         with urllib.request.urlopen(req, timeout=600) as resp:
             if resp.status != 204:
@@ -1594,10 +1639,7 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
             if stop(layer) != 0:
                 raise AssertionError(f"the {layer} process did not stop cleanly")
     except BaseException:
-        for path in logs:
-            with open(path, errors="replace") as f:
-                tail = f.read()[-3000:]
-            print(f"--- {path} (tail) ---\n{tail}", file=sys.stderr, flush=True)
+        print_tails(logs)
         raise
     finally:
         for proc in procs.values():
@@ -2026,7 +2068,7 @@ def als_topic_state(loc: str, start: int = 0):
                 break
             for rec in records:
                 seen += 1
-                if rec.key != "UP":
+                if rec.key != "UP" or (rec.key, rec.message) == BUS_POISON:
                     continue
                 up = json.loads(rec.message)
                 vec = np.asarray(up[2], np.float32)
@@ -2082,9 +2124,6 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
     import signal
     import tempfile
 
-    from oryx_tpu_torch.app.als.common import compute_updated_xu
-    from oryx_tpu_torch.common.vectormath import Solver
-
     num_users, num_items, nnz = ML1M
     nnz = max(20_000, int(nnz * scale))
     u, i, v = movielens_shape(num_users, num_items, nnz, seed + 600)
@@ -2134,13 +2173,6 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
 
     def live():
         return list(procs.items())
-
-    def scan_launches(port: int) -> dict:
-        return {
-            name.split(".", 1)[1].rsplit(".", 1)[0]: int(m["value"])
-            for name, m in scrape(port).items()
-            if name.startswith("kernels.topn_") and name.endswith(".launches")
-        }
 
     try:
         from oryx_tpu_torch import bus
@@ -2204,11 +2236,11 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
         y_mat = np.stack([y_state[iid] for iid in y_ids]).astype(np.float64)
         probe = gen.choice(sorted(x_state), size=min(ALS_PROBE_USERS, len(x_state)), replace=False)
         time.sleep(1.0)  # past the serving model's device-cache refresh window
-        launches0 = scan_launches(ports["serving"])
+        launches0 = serving_launches(ports["serving"])
         for user in probe:
             if not served_exactly(base, user, y_ids, y_mat, index, x_state[user]):
                 raise AssertionError(f"float32 /recommend/{user} is not the exact top-10")
-        out["float32_launches"] = launches1 = scan_launches(ports["serving"])
+        out["float32_launches"] = launches1 = serving_launches(ports["serving"])
         if device == "cuda" and launches1.get("topn_scan.tc_f32", 0) <= launches0.get("topn_scan.tc_f32", 0):
             raise AssertionError(f"float32 serving launched {launches0} -> {launches1}")
         serving8_log = start("serving", run=8, dtype="int8")
@@ -2222,7 +2254,7 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
             want = exact_top10(y_ids, y_mat, x_state[user])[1]
             hits += len(set(got[1][0].tolist()) & set(want[0].tolist()))
         out["int8_recall_at_10"] = recall = hits / (10.0 * len(probe))
-        out["int8_launches"] = launches8 = scan_launches(ports["serving8"])
+        out["int8_launches"] = launches8 = serving_launches(ports["serving8"])
         if recall < 0.99:
             raise AssertionError(f"int8 /recommend recall@10 {recall} below 0.99")
         if device == "cuda" and launches8.get("topn_scan.tc", 0) <= 0:
@@ -2274,43 +2306,15 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
                 wait_until(f"wave {w}: /recommend/{user} the exact top-10",
                            lambda: served_exactly(base, user, ids, mat, idx, x_now[user]),
                            timeout=30, procs=live())
-            # each published X of a new user: the float64 fold-in of the
-            # event behind it (the last of its known list) against the
-            # state before its micro-batch. A micro-batch publishes all
-            # its X, then all its Y: an X after a Y opens the next one.
-            values = {(a, b): c for a, b, c in events}
-            state = {"X": dict(x_pre), "Y": dict(y_pre)}
-            worst, checked, yty, last = 0.0, 0, None, "Y"
-            for which, user, vec, known in ups:
-                if which == "X" and last == "Y":
-                    mat_y = np.stack(list(state["Y"].values())).astype(np.float64)
-                    yty = Solver(mat_y.T @ mat_y)
-                if which == "X" and user in users:
-                    item = known[-1]
-                    ref = compute_updated_xu(yty, values[(user, item)], state["X"].get(user),
-                                             state["Y"][item], True).astype(np.float64)
-                    rel = float(np.linalg.norm(vec - ref) / np.linalg.norm(ref))
-                    worst, checked = max(worst, rel), checked + 1
-                    if rel > 1e-4:
-                        raise AssertionError(
-                            f"wave {w}: {user}'s published vector is {rel:.3g} from the "
-                            "float64 fold-in"
-                        )
-                state[which][user] = vec
-                last = which
-            if checked < len(users):
-                raise AssertionError(f"wave {w}: {checked} of {len(users)} new users published")
-            out[f"wave{w}_fold_max_rel_err"] = worst
+            out[f"wave{w}_fold_max_rel_err"] = check_fold_ins(
+                f"wave {w}", ups, {(a, b): c for a, b, c in events}, set(users), x_pre, y_pre)
         out["speed_batch_s"].append(hist_summary(scrape(ports["speed"])["speed.batch.seconds"]))
-        out["serving_launches"] = scan_launches(ports["serving"])
+        out["serving_launches"] = serving_launches(ports["serving"])
         for name in list(procs):
             if stop(name) != 0:
                 raise AssertionError(f"the {name} process did not stop cleanly")
     except BaseException:
-        for path in logs:
-            with open(path, errors="replace") as f:
-                tail = f.read()[-3000:]
-            print(f"--- {path} (tail) ---\n{tail}", file=sys.stderr, flush=True)
+        print_tails(logs)
         raise
     finally:
         for proc in procs.values():
@@ -2318,6 +2322,593 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
             proc.wait(timeout=60)
     emit(out)
     return out
+
+# -- phase 9b: the fault, shm and TCP buses ------------------------------------
+
+CHAOS_CONF = os.path.join("conf", "chaos-example.conf")
+BUS_WAVE_NEW_USERS = 100  # new users of each part's speed wave
+BUS_PROBE_USERS = 100  # users checked against the exact top-10 after the generation
+BUS_SHM_EVENTS = 2_000_000  # typed implicit events through the shm ring: about 24 MB of frames
+BUS_SHM_RING_MB = 8
+BUS_SHM_CHUNK = 50_000  # events per send_interactions call
+BUS_ESTIMATE_ITEMS = 400  # item ids per /estimate call of part (b)'s item check
+BUS_ESTIMATE_RTOL = 1e-5  # of |x| |y|: /estimate's float32 dot against float64
+# lines per POST /ingest of part (a): one produce, so one fault roll, in
+# the serving process each; the seed's first dup is its 245th roll
+CHAOS_INGEST_LINES = 4_000
+CHAOS_CLIENTS = 4  # threads POSTing those bodies
+# an update the ALS speed manager cannot read: its consume raises, so the
+# block is dead-lettered after max-consume-failures
+BUS_POISON = ("UP", "poison: not an update")
+NET_RETRY = ("connect_timeout=5&retry_max_attempts=400&retry_initial_backoff_ms=20"
+             "&retry_max_backoff_ms=200")
+
+
+def chaos_conf(root: str, ports: dict, batch_interval: int) -> str:
+    """conf/chaos-example.conf as packaged, but for its directories (under
+    root), its ports (free ones, and the batch and speed metrics UIs on
+    them), the generation interval and the class names (the port's)."""
+    with open(os.path.join(HERE, CHAOS_CONF)) as f:
+        text = f.read()
+    swaps = (("/tmp/OryxTPU/chaos", root),
+             ("generation-interval-sec = 300", f"generation-interval-sec = {batch_interval}"),
+             ("port = 8080", f"port = {ports['serving']}"),
+             ('"oryx_tpu.', '"oryx_tpu_torch.'))
+    for old, new in swaps:
+        if old not in text:
+            raise AssertionError(f"buses: {CHAOS_CONF} holds no {old!r}")
+        text = text.replace(old, new)
+    return text + f"""
+oryx.batch.ui.port = {ports["batch"]}
+oryx.speed.ui.port = {ports["speed"]}
+"""
+
+
+def post_retrying(url: str, lines: list[str], max_lines: int,
+                  clients: int = CHAOS_CLIENTS) -> tuple[float, int]:
+    """POST ``lines`` in split_bodies' bodies from ``clients`` threads, a
+    body answered with an error sent again, as a client would: (the
+    monotonic time the last answer came, the bodies sent again)."""
+
+    def post(body: list[str]) -> int:
+        data = ("\n".join(body) + "\n").encode()
+        for again in range(1000):
+            req = urllib.request.Request(url, data=data, method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=600) as resp:
+                    if resp.status == 204:
+                        return again
+            except urllib.error.HTTPError as e:
+                if e.code < 500:
+                    raise
+            time.sleep(0.02)
+        raise AssertionError(f"POST {url}: a body answered with errors 1,000 times")
+
+    with ThreadPoolExecutor(clients) as pool:
+        again = sum(pool.map(post, split_bodies(lines, max_lines)))
+    return time.monotonic(), again
+
+
+def fault_counts(port: int) -> dict:
+    """The bus.fault.* counters of the process behind a metrics port."""
+    snap = scrape(port)
+    return {name: int(snap.get(f"bus.fault.{name}", {}).get("value", 0))
+            for name in ("dropped", "duplicated", "injected-errors")}
+
+
+def serving_launches(port: int) -> dict:
+    """The scan kernels' launch counts of a serving process, off its metrics."""
+    return {
+        name.split(".", 1)[1].rsplit(".", 1)[0]: int(m["value"])
+        for name, m in scrape(port).items()
+        if name.startswith("kernels.topn_") and name.endswith(".launches")
+    }
+
+
+def wave_served(base: str, loc: str, users: list[str]) -> bool:
+    """Every user in users published, and served the exact top-10 of its
+    published vector against the published items."""
+    x_now, y_now, _, _ = als_topic_state(loc)
+    if any(user not in x_now for user in users):
+        return False
+    ids = sorted(y_now)
+    mat = np.stack([y_now[iid] for iid in ids]).astype(np.float64)
+    idx = {iid: n for n, iid in enumerate(ids)}
+    return all(served_exactly(base, user, ids, mat, idx, x_now[user]) for user in users)
+
+
+def check_fold_ins(what: str, ups: list, values: dict, users: set, x_pre: dict,
+                   y_pre: dict) -> float:
+    """Each published X of a user in users: the float64 fold-in of the
+    event behind it (the last of its known list) against the state before
+    its micro-batch, within 1e-4 relative. A micro-batch publishes all its
+    X, then all its Y: an X after a Y opens the next one. Returns the
+    largest relative difference."""
+    from oryx_tpu_torch.app.als.common import compute_updated_xu
+    from oryx_tpu_torch.common.vectormath import Solver
+
+    state = {"X": dict(x_pre), "Y": dict(y_pre)}
+    worst, checked, yty, last = 0.0, set(), None, "Y"
+    for which, user, vec, known in ups:
+        if which == "X" and last == "Y":
+            mat_y = np.stack(list(state["Y"].values())).astype(np.float64)
+            yty = Solver(mat_y.T @ mat_y)
+        if which == "X" and user in users:
+            item = known[-1]
+            ref = compute_updated_xu(yty, values[(user, item)], state["X"].get(user),
+                                     state["Y"][item], True).astype(np.float64)
+            rel = float(np.linalg.norm(vec - ref) / np.linalg.norm(ref))
+            worst = max(worst, rel)
+            checked.add(user)
+            if rel > 1e-4:
+                raise AssertionError(
+                    f"{what}: {user}'s published vector is {rel:.3g} from the float64 fold-in")
+        state[which][user] = vec
+        last = which
+    if checked != users:
+        raise AssertionError(f"{what}: {len(checked)} of {len(users)} new users published")
+    return worst
+
+
+def wave_events(gen, prefix: str, n_users: int, items: np.ndarray) -> list[tuple]:
+    """ALS_WAVE_EVENTS_PER_NEW_USER events of distinct items for each of
+    n_users new users: (user, item, value)."""
+    return [(f"{prefix}{j}", f"i{item}", float(gen.integers(1, 6)))
+            for j in range(n_users)
+            for item in gen.choice(items, ALS_WAVE_EVENTS_PER_NEW_USER, replace=False)]
+
+
+def chaos_part(seed: int, scale: float, device: str, batch_interval: int) -> dict:
+    """Part (a): conf/chaos-example.conf's three layers as processes on its
+    fault+file: bus. The MovieLens-1M-shaped set POSTed to /ingest (a body
+    answered with an error sent again) as the batch process starts, its
+    group committed at the topic's start; every posted line in the batch
+    layer's data, the generation served exactly once the speed layer has
+    folded its backlog; a poison block dead-lettered while the speed
+    layer goes on folding a wave of new users, each served the exact
+    top-10 of its published vector; every kind of fault injected, no
+    layer thread dead."""
+    import signal
+    import tempfile
+
+    from oryx_tpu_torch import bus
+    from oryx_tpu_torch.lambda_ import data as data_store
+
+    num_users, num_items, nnz = ML1M
+    nnz = max(20_000, int(nnz * scale))
+    u, i, v = movielens_shape(num_users, num_items, nnz, seed + 1200)
+    lines = [f"u{a},i{b},{c:.0f},{t}" for t, (a, b, c) in
+             enumerate(zip(u.tolist(), i.tolist(), v.tolist()), start=1)]
+    items = np.unique(i)
+    gen = np.random.default_rng(seed + 1201)
+    root = tempfile.mkdtemp(prefix="chip-smoke-chaos-")
+    os.makedirs(os.path.join(root, "logs"))
+    ports = {name: free_port() for name in ("batch", "speed", "serving")}
+    conf = os.path.join(root, "chaos.conf")
+    with open(conf, "w") as f:
+        f.write(chaos_conf(root, ports, batch_interval))
+    base = f"http://127.0.0.1:{ports['serving']}"
+    loc = f"file:{root}/bus"  # the fault+ bus's inner bus, read without faults
+    procs: dict = {}
+    logs: list[str] = []
+    out = {"part": "chaos", "ratings": nnz, "users": num_users, "items": num_items,
+           "batch_interval_s": batch_interval, "device": device}
+    live = lambda: list(procs.items())  # noqa: E731
+
+    def start(layer: str):
+        procs[layer], path = start_layer(layer, conf, root, device, 1)
+        logs.append(path)
+        return path
+
+    def stop(name: str) -> None:
+        procs[name].send_signal(signal.SIGTERM)
+        if procs.pop(name).wait(timeout=120) != 0:
+            raise AssertionError(f"chaos: the {name} process did not stop cleanly")
+
+    try:
+        t0 = time.perf_counter()
+        start("serving")
+        speed_log = start("speed")
+        wait_until("chaos: layers up", lambda: log_has(speed_log, "SpeedLayer started")
+                   and status_of(base + "/ready") == 503, procs=live())
+        inner = bus.get_broker(loc)
+        attach = inner.consumer("OryxInput", group="OryxGroup-batch-ChaosExample")
+        attach.commit()
+        attach.close()
+        # the batch process starts beside the POST: its interval timer
+        # starts once it is up, seconds after the POST, which takes a few
+        start("batch")
+        t_post = time.monotonic()
+        t_last, again = post_retrying(base + "/ingest", lines, CHAOS_INGEST_LINES)
+        out["ingest_s"], out["ingest_bodies_sent_again"] = t_last - t_post, again
+
+        wait_until("chaos: the generation", lambda: status_of(base + "/ready") == 200,
+                   procs=live())
+        out["generation_staleness_s"] = time.monotonic() - t_last
+        metrics_batch = wait_until(
+            "chaos: the batch generation's end",
+            lambda: (m := scrape(ports["batch"])).get("batch.generations", {}).get("value", 0) >= 1
+            and m,
+            procs=live(),
+        )
+        out["batch_generation_s"] = hist_summary(metrics_batch["batch.generation.seconds"])
+        out["batch_phase_s"] = {
+            name[len("batch.phase."):-len(".seconds")]: metrics_batch[name].get("sum")
+            for name in metrics_batch if name.startswith("batch.phase.")
+        }
+        # every posted line reached the batch layer's data at least once
+        # (the next generation's data, were the POST to outlast the
+        # first's interval)
+        def data_missing():
+            stored = {m if isinstance(m, bytes) else m.encode()
+                      for block in data_store.FileRecords(os.path.join(root, "data")).blocks()
+                      for m in block.messages}
+            return sum(1 for line in lines if line.encode() not in stored)
+
+        wait_until("chaos: every posted line in the batch data", lambda: data_missing() == 0,
+                   timeout=120, procs=live())
+        faults = {"batch": fault_counts(ports["batch"])}
+        out["generations"] = int(scrape(ports["batch"])["batch.generations"]["value"])
+        stop("batch")
+        t_step = time.monotonic()
+
+        # the generation served, once the speed layer has folded the
+        # input it drained before the model came
+        speed_group = "OryxGroup-speed-ChaosExample"
+        wait_until("chaos: the speed layer's backlog",
+                   lambda: inner.get_offsets(speed_group, "OryxInput")
+                   == inner.latest_offsets("OryxInput"), procs=live())
+        time.sleep(2.0)  # past the last micro-batch's publish
+        out["backlog_s"] = time.monotonic() - t_step
+        x_state, y_state, _, _ = als_topic_state(loc)
+        y_ids = sorted(y_state)
+        index = {iid: n for n, iid in enumerate(y_ids)}
+        y_mat = np.stack([y_state[iid] for iid in y_ids]).astype(np.float64)
+        probe = gen.choice(sorted(x_state), size=min(BUS_PROBE_USERS, len(x_state)),
+                           replace=False)
+        for user in probe:
+            wait_until(f"chaos: /recommend/{user} the exact top-10",
+                       lambda: served_exactly(base, user, y_ids, y_mat, index, x_state[user]),
+                       timeout=30, procs=live())
+
+        # a poison block on the update topic and a wave of new users
+        with inner.producer("OryxUpdate") as producer:
+            producer.send(*BUS_POISON)
+        dead = "OryxUpdate.dead-letter"
+        events = wave_events(gen, "c", BUS_WAVE_NEW_USERS, items)
+        t_last, again = post_retrying(base + "/ingest",
+                                      [f"{a},{b},{c:.0f},{t}" for t, (a, b, c) in
+                                       enumerate(events, start=20_000_000)], CHAOS_INGEST_LINES)
+
+        def dead_lettered():
+            if not inner.topic_exists(dead):
+                return False
+            consumer = inner.consumer(dead, from_beginning=True)
+            try:
+                return [(r.key, r.message) for r in consumer.poll(100, 0.2)]
+            finally:
+                consumer.close()
+
+        out["dead_letter"] = got = wait_until("chaos: the poison dead-lettered", dead_lettered,
+                                              timeout=120, procs=live())
+        if tuple(got[0]) != BUS_POISON:
+            raise AssertionError(f"chaos: the dead-letter topic holds {got}")
+        users = sorted({a for a, _, _ in events})
+        wait_until("chaos: the wave served", lambda: wave_served(base, loc, users),
+                   procs=live())
+        out["wave_staleness_s"] = time.monotonic() - t_last
+        out["wave_new_users"], out["wave_bodies_sent_again"] = len(users), again
+
+        health = {"serving": json.loads(http_get(base + "/healthz")[1]),
+                  "speed": json.loads(http_get(f"http://127.0.0.1:{ports['speed']}/healthz")[1])}
+        out["healthz"] = health
+        if not health["serving"]["alive"] or not health["speed"]["healthy"]:
+            raise AssertionError(f"chaos: a layer thread died: {health}")
+        faults["speed"] = fault_counts(ports["speed"])
+        faults["serving"] = fault_counts(ports["serving"])
+        out["faults"] = faults
+        out["faults_total"] = total = {
+            name: sum(f[name] for f in faults.values()) for name in faults["speed"]}
+        if min(total.values()) <= 0:
+            raise AssertionError(f"chaos: not every kind of fault was injected: {total}")
+        out["serving_launches"] = serving_launches(ports["serving"])
+        for name in list(procs):
+            stop(name)
+        out["part_s"] = time.perf_counter() - t0
+    except BaseException:
+        print_tails(logs)
+        raise
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait(timeout=60)
+    emit(out)
+    return out
+
+
+def up_line(which: str, ident: str, vec: np.ndarray) -> str:
+    return json.dumps([which, ident, vec.tolist()])
+
+
+def shm_tcp_conf(shm_loc: str, tcp_loc: str, ports: dict) -> str:
+    """The speed and serving layers of part (b): the input topic one shm
+    ring, the update topic behind a bus server, the speed layer
+    pipelined, folding on the card, 50 features."""
+    return f"""
+    oryx {{
+      id = "ChipSmokeBuses"
+      input-topic {{
+        broker = "{shm_loc}"
+        message.partitions = 1
+      }}
+      update-topic.broker = "{tcp_loc}"
+      als.hyperparams.features = {ALS_LAMBDA_FEATURES}
+      speed {{
+        streaming.generation-interval-sec = 1
+        model-manager-class = "oryx_tpu_torch.app.als.speed:ALSSpeedModelManager"
+        fold-in-backend = "device"
+        pipeline.enabled = true
+        ui.port = {ports["speed"]}
+      }}
+      serving {{
+        api.port = {ports["serving"]}
+        model-manager-class = "oryx_tpu_torch.app.als.serving_model:ALSServingModelManager"
+        application-resources = "oryx_tpu_torch.app.als.endpoints"
+      }}
+    }}
+    """
+
+
+def estimates_right(base: str, x: dict, y: dict, users: list[str], item_ids: list[str]) -> float:
+    """/estimate of every user in users at one item each, and of one user
+    at every item, against the float64 dot of the published vectors
+    (each within BUS_ESTIMATE_RTOL of |x| |y|): every X and Y the serving
+    layer holds is the last one published. Returns the largest
+    difference, relative."""
+    calls = [(user, [item_ids[n % len(item_ids)]]) for n, user in enumerate(users)]
+    calls += [(users[0], item_ids[a:a + BUS_ESTIMATE_ITEMS])
+              for a in range(0, len(item_ids), BUS_ESTIMATE_ITEMS)]
+
+    def one(call):
+        user, items = call
+        status, body, _ = http_get(f"{base}/estimate/{user}/{'/'.join(items)}")
+        if status != 200:
+            raise AssertionError(f"buses: /estimate/{user} answered {status}")
+        worst = 0.0
+        for item, got in zip(items, json.loads(body)):
+            xu, yi = x[user].astype(np.float64), y[item].astype(np.float64)
+            scale = np.linalg.norm(xu) * np.linalg.norm(yi)
+            worst = max(worst, abs(got - float(xu @ yi)) / scale)
+        return worst
+
+    with ThreadPoolExecutor(16) as pool:
+        return max(pool.map(one, calls))
+
+
+def shm_tcp_part(seed: int, device: str, events: int = BUS_SHM_EVENTS,
+                 ring_mb: float = BUS_SHM_RING_MB) -> dict:
+    """Part (b): the speed layer's high-rate transport with its updates
+    over the network. A ``bus-serve`` process holds the update topic; the
+    input topic is one shm ring (under /dev/shm where it exists); a MODEL
+    at MovieLens-1M's shape, 50 features, with X and Y as UP lines from a
+    seed; the speed (pipelined) and serving layers as processes; a wave of
+    new users as typed events, each published as the float64 fold-in and
+    served its exact top-10; then ``events`` implicit typed events through
+    ``send_interactions``, the bus server killed (SIGKILL) and restarted
+    on its port and directory halfway: the speed group commits every
+    event, the ring wraps at least twice without a CRC resync, and every
+    published X and Y is the one the serving layer holds."""
+    import shutil
+    import signal
+    import tempfile
+
+    from oryx_tpu_torch import bus
+    from oryx_tpu_torch.app.pmml import add_extension, add_extension_content
+    from oryx_tpu_torch.bus import shmbus
+    from oryx_tpu_torch.common import pmml as pmml_io
+
+    num_users, num_items, _ = ML1M
+    root = tempfile.mkdtemp(prefix="chip-smoke-buses-")
+    os.makedirs(os.path.join(root, "logs"))
+    shm_dir = tempfile.mkdtemp(prefix="chip-smoke-shm-",
+                               dir="/dev/shm" if os.path.isdir("/dev/shm") else root)
+    ports = {name: free_port() for name in ("bus", "speed", "serving")}
+    shm_loc = f"shm:{shm_dir}?ring_mb={ring_mb}"
+    tcp_loc = f"tcp://127.0.0.1:{ports['bus']}?{NET_RETRY}"
+    conf = os.path.join(root, "buses.conf")
+    with open(conf, "w") as f:
+        f.write(shm_tcp_conf(shm_loc, tcp_loc, ports))
+    net_dir = os.path.join(root, "netbus")
+    base = f"http://127.0.0.1:{ports['serving']}"
+    procs: dict = {}
+    logs: list[str] = []
+    out = {"part": "shm_tcp", "users": num_users, "items": num_items,
+           "features": ALS_LAMBDA_FEATURES, "events": events, "ring_mb": ring_mb,
+           "shm_dir": os.path.dirname(shm_dir), "device": device}
+    t_part = time.perf_counter()
+    live = lambda: list(procs.items())  # noqa: E731
+
+    def start(layer: str, run: int = 1, extra=()):
+        procs[layer], path = start_layer(layer, conf, root, device, run, extra)
+        logs.append(path)
+        return path
+
+    def start_bus(run: int):
+        path = start("bus-serve", run, ("--bind", f"127.0.0.1:{ports['bus']}",
+                                        "--data-dir", net_dir))
+        wait_until("buses: the bus server", lambda: log_has(path, "bus-serve: tcp://"),
+                   timeout=60, procs=live())
+
+    def update_state(start_at: int = 0):
+        return als_topic_state(f"file:{net_dir}", start=start_at)
+
+    try:
+        start_bus(1)
+        gen = np.random.default_rng(seed + 1300)
+        x = factors(gen, num_users, ALS_LAMBDA_FEATURES)
+        y = factors(gen, num_items, ALS_LAMBDA_FEATURES)
+        pmml = pmml_io.build_skeleton_pmml()
+        add_extension(pmml, "features", ALS_LAMBDA_FEATURES)
+        add_extension(pmml, "implicit", "true")
+        add_extension_content(pmml, "XIDs", [f"u{j}" for j in range(num_users)])
+        add_extension_content(pmml, "YIDs", [f"i{j}" for j in range(num_items)])
+        net = bus.get_broker(tcp_loc)
+        net.create_topic("OryxUpdate", 1)
+        with net.producer("OryxUpdate") as producer:
+            producer.send("MODEL", pmml_io.to_string(pmml))
+            producer.send_many(("UP", up_line("X", f"u{j}", x[j])) for j in range(num_users))
+            producer.send_many(("UP", up_line("Y", f"i{j}", y[j])) for j in range(num_items))
+        shm = bus.get_broker(shm_loc)
+        shm.create_topic("OryxInput", 1)
+        speed_log = start("speed")
+        start("serving")
+        wait_until("buses: layers up", lambda: log_has(speed_log, "ALS speed model")
+                   and status_of(base + "/ready") == 200, procs=live())
+        time.sleep(2.0)  # the UPs behind the MODEL replay in the same pass
+
+        # a wave of new users, typed: each one's published vector the
+        # float64 fold-in of its events, its /recommend the exact top-10
+        x_pre, y_pre, _, seen = update_state()
+        wave = wave_events(gen, "u", BUS_WAVE_NEW_USERS, np.arange(num_items))
+        codes = {f"u{j}": num_users + j for j in range(BUS_WAVE_NEW_USERS)}
+        wave = [(f"u{codes[a]}", b, c) for a, b, c in wave]
+        users = sorted({a for a, _, _ in wave})
+        t0 = time.monotonic()
+        with shm.producer("OryxInput") as producer:
+            producer.send_interactions(
+                np.array([int(a[1:]) for a, _, _ in wave], np.int32),
+                np.array([int(b[1:]) for _, b, _ in wave], np.int32),
+                np.array([c for _, _, c in wave], np.float32))
+        wait_until("buses: the wave served",
+                   lambda: wave_served(base, f"file:{net_dir}", users), procs=live())
+        out["wave_publish_to_served_s"] = time.monotonic() - t0
+        _, _, ups, seen = update_state(seen)
+        out["wave_fold_max_rel_err"] = check_fold_ins(
+            "buses", ups, {(a, b): c for a, b, c in wave}, set(users), x_pre, y_pre)
+
+        # the flood, the bus server killed and restarted halfway
+        flood_users = gen.integers(0, num_users, events, dtype=np.int32)
+        flood_items = gen.integers(0, num_items, events, dtype=np.int32)
+        flood_values = np.ones(events, np.float32)
+        sent, blocked, restart_s = 0, 0, None
+        t0 = time.monotonic()
+        with shm.producer("OryxInput") as producer:
+            for a in range(0, events, BUS_SHM_CHUNK):
+                b = min(events, a + BUS_SHM_CHUNK)
+                while True:
+                    try:
+                        sent += producer.send_interactions(
+                            flood_users[a:b], flood_items[a:b], flood_values[a:b])
+                        break
+                    except BlockingIOError:  # the ring is full: the speed layer lags
+                        blocked += 1
+                if restart_s is None and sent >= events // 2:
+                    t_kill = time.monotonic()
+                    procs["bus-serve"].kill()
+                    procs.pop("bus-serve").wait(timeout=60)
+                    start_bus(2)
+                    restart_s = time.monotonic() - t_kill
+        out["flood_send_s"] = time.monotonic() - t0
+        out["producer_blocked"] = blocked
+        out["bus_restart_s"] = restart_s
+        total = len(wave) + events
+        group = "OryxGroup-speed-ChipSmokeBuses"
+        wait_until("buses: every event committed",
+                   lambda: sum(shm.get_offsets(group, "OryxInput").values()) >= total,
+                   procs=live())
+        out["flood_events_per_s"] = events / (time.monotonic() - t0)
+        committed = sum(shm.get_offsets(group, "OryxInput").values())
+        out["committed"] = committed
+        if committed != total:
+            raise AssertionError(f"buses: the speed group committed {committed} of {total} events")
+        ring = shm._ring("OryxInput", 0)
+        out["ring_head_bytes"] = head = ring.u64(shmbus._OFF_HEAD)
+        out["ring_bytes"] = ring.ring_bytes
+        speed_metrics = scrape(ports["speed"])
+        out["crc_resyncs"] = resyncs = int(
+            speed_metrics.get("bus.shm.crc-resyncs", {}).get("value", 0))
+        out["speed_batch_s"] = hist_summary(speed_metrics.get("speed.batch.seconds", {}))
+        if head < 2 * ring.ring_bytes or resyncs:
+            raise AssertionError(f"buses: ring head {head} of {ring.ring_bytes} bytes, "
+                                 f"{resyncs} CRC resyncs")
+
+        # every UP line reached the serving layer: the last X and Y it
+        # holds for each id are the last published
+        x_now, y_now, ups, _ = update_state()
+        out["up_lines"] = len(ups)
+        last_x = next(up for up in reversed(ups) if up[0] == "X")[1]
+        last_y = next(up for up in reversed(ups) if up[0] == "Y")[1]
+        item_ids = sorted(y_now)
+        wait_until("buses: the last UP served",
+                   lambda: estimates_right(base, x_now, y_now, [last_x], [last_y]) <= BUS_ESTIMATE_RTOL,
+                   timeout=120, procs=live())
+        out["served_after_s"] = time.monotonic() - t0
+        out["estimate_max_rel_err"] = err = estimates_right(base, x_now, y_now, sorted(x_now), item_ids)
+        if err > BUS_ESTIMATE_RTOL:
+            raise AssertionError(f"buses: a served vector is not the last published ({err:.3g})")
+        y_ids = sorted(y_now)
+        mat = np.stack([y_now[iid] for iid in y_ids]).astype(np.float64)
+        idx = {iid: n for n, iid in enumerate(y_ids)}
+        for user in users:
+            if not served_exactly(base, user, y_ids, mat, idx, x_now[user]):
+                raise AssertionError(f"buses: /recommend/{user} is not the exact top-10")
+        out["serving_launches"] = serving_launches(ports["serving"])
+        for name in list(procs):
+            # bus-serve stops at an interrupt, the layers at SIGTERM
+            procs[name].send_signal(signal.SIGINT if name == "bus-serve" else signal.SIGTERM)
+            if procs.pop(name).wait(timeout=120) != 0:
+                raise AssertionError(f"buses: the {name} process did not stop cleanly")
+        out["part_s"] = time.perf_counter() - t_part
+    except BaseException:
+        print_tails(logs)
+        raise
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(shm_dir, ignore_errors=True)
+    emit(out)
+    return out
+
+
+def phase_buses(seed: int, scale: float = 1.0, device: str = "cuda",
+                batch_interval: int = LAMBDA_BATCH_INTERVAL_S,
+                events: int = BUS_SHM_EVENTS, ring_mb: float = BUS_SHM_RING_MB) -> dict:
+    """The fault, shm and TCP buses under the ALS loop, as processes:
+    (a) conf/chaos-example.conf's deployment and (b) the shm ring with a
+    bus server, the two at once (part (a) waits most of its time on its
+    generation interval)."""
+    t0 = time.perf_counter()
+    result: dict = {}
+
+    def part_b():
+        try:
+            result["shm_tcp"] = shm_tcp_part(seed, device, events, ring_mb)
+        except BaseException as e:  # noqa: BLE001 - raised below, after part (a)
+            result["error"] = e
+
+    thread = threading.Thread(target=part_b, name="buses-shm-tcp")
+    thread.start()
+    try:
+        chaos = chaos_part(seed, scale, device, batch_interval)
+    finally:
+        thread.join()
+    if "error" in result:
+        raise result["error"]
+    shm_tcp = result["shm_tcp"]
+    launches = {name: chaos["serving_launches"].get(name, 0)
+                + shm_tcp["serving_launches"].get(name, 0)
+                for name in set(chaos["serving_launches"]) | set(shm_tcp["serving_launches"])}
+    out = {"phase": "buses", "launches": launches, "s": time.perf_counter() - t0}
+    emit(out)
+    if device == "cuda":
+        for part in (chaos, shm_tcp):
+            got = part["serving_launches"]
+            if got.get("topn_scan.tc", 0) + got.get("topn_scan.tc_f32", 0) <= 0 or \
+                    got.get("topn_merge", 0) <= 0:
+                raise AssertionError(f"buses: the {part['part']} serving process launched {got}")
+    return out
+
 
 # -- phases 10-11: random decision forests -------------------------------------------
 
@@ -2933,10 +3524,7 @@ def phase_rdf_lambda(seed: int, rows: int = RDF_ROWS, device: str = "cuda",
             if stop(name) != 0:
                 raise AssertionError(f"the {name} process did not stop cleanly")
     except BaseException:
-        for path in logs:
-            with open(path, errors="replace") as f:
-                tail = f.read()[-3000:]
-            print(f"--- {path} (tail) ---\n{tail}", file=sys.stderr, flush=True)
+        print_tails(logs)
         raise
     finally:
         for proc in procs.values():
@@ -3970,6 +4558,9 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
 # -- phase 15: native-host, the C++ store, parser, formatters and tier -------------
 
 NATIVE_FORMAT_ROWS = 100_000
+# the Python formatter's rows, a prefix of the native one's (once all
+# 100,000 too; cut to keep the run inside its limit, printed as a cut)
+NATIVE_PY_FORMAT_ROWS = 10_000
 NATIVE_FORMAT_FEATURES = (50, 250)
 NATIVE_READBACK_PROCS = 8  # processes that json.loads the messages back, one per core
 NATIVE_STORE_ROWS = 1_000_000
@@ -3982,6 +4573,9 @@ TIER_HOT_CELLS = 32
 TIER_RAM_MB = 64
 TIER_QUERIES = 512
 TIER_PROBE_FRACTIONS = (0.01, 0.3)
+# the queries of the 0.3 scans, a prefix of the 0.01 scans' (once all
+# TIER_QUERIES; cut to keep the run inside its limit, printed as a cut)
+TIER_WIDE_QUERIES = 64
 # each scan's queries split over this many concurrent top_k_device calls,
 # the same split for both planes: at 0.3 a host group of 8 queries
 # gathers most of the plane, so one call of 512 queries runs 64 gathers
@@ -4079,6 +4673,7 @@ def native_formatter_part(seed: int, scale: float) -> dict:
 
     gen = np.random.default_rng(seed + 1001)
     n = max(1_000, int(NATIVE_FORMAT_ROWS * scale))
+    n_py = min(n, max(1_000, int(NATIVE_PY_FORMAT_ROWS * scale)))
     out = {}
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(NATIVE_READBACK_PROCS, mp_context=ctx) as pool:
@@ -4098,7 +4693,7 @@ def native_formatter_part(seed: int, scale: float) -> dict:
                 raise AssertionError("native-host: the native formatter declined")
             with native_declined(nstore):
                 t0 = time.perf_counter()
-                py_vecs = nstore.format_vectors_json(mat)
+                py_vecs = nstore.format_vectors_json(mat[:n_py])
                 py_vec_s = time.perf_counter() - t0
                 t0 = time.perf_counter()
                 # the speed layer's Python path: json.dumps vectors (timed
@@ -4112,10 +4707,11 @@ def native_formatter_part(seed: int, scale: float) -> dict:
                     np.fromstring(",".join(v[1:-1] for v in vecs), np.float32, sep=","),
                     want.reshape(-1)):
                 raise AssertionError(f"native-host: native vectors at k = {k} do not read back the rows")
-            parts = np.array_split(np.arange(n), NATIVE_READBACK_PROCS)
-            for what, lines in (("native messages", msgs), ("Python messages", py_msgs)):
-                if len(lines) != n:
-                    raise AssertionError(f"native-host: {len(lines)} {what} for {n} rows")
+            for what, lines, rows in (("native messages", msgs, n),
+                                      ("Python messages", py_msgs, n_py)):
+                if len(lines) != rows:
+                    raise AssertionError(f"native-host: {len(lines)} {what} for {rows} rows")
+                parts = np.array_split(np.arange(rows), NATIVE_READBACK_PROCS)
                 faults = pool.map(read_back_messages,
                                   *zip(*[(lines[r[0] : r[-1] + 1], want[r[0] : r[-1] + 1],
                                           ids[r[0] : r[-1] + 1], known[r[0] : r[-1] + 1])
@@ -4123,8 +4719,9 @@ def native_formatter_part(seed: int, scale: float) -> dict:
                 for fault in faults:
                     if fault is not None:
                         raise AssertionError(f"native-host: {what} at k = {k} {fault}")
-            out[f"k{k}"] = {"rows": n, "native_multi_s": multi_s, "native_vectors_s": vec_s,
-                            "python_multi_s": py_multi_s, "python_vectors_s": py_vec_s,
+            out[f"k{k}"] = {"rows": n, "python_rows": n_py, "native_multi_s": multi_s,
+                            "native_vectors_s": vec_s, "python_multi_s": py_multi_s,
+                            "python_vectors_s": py_vec_s,
                             "bytes": sum(map(len, msgs))}
     return out
 
@@ -4215,12 +4812,12 @@ def native_tier_part(torch, args, seed: int, scale: float, device: str,
     tier_dir = tempfile.mkdtemp(prefix="chip-smoke-tier-")
     tiered = None
 
-    def scan(index, nprobe):
-        """The queries over TIER_SCAN_THREADS concurrent calls."""
-        parts = np.array_split(np.arange(len(q)), TIER_SCAN_THREADS)
+    def scan(index, nprobe, qs):
+        """The queries qs over TIER_SCAN_THREADS concurrent calls."""
+        parts = np.array_split(np.arange(len(qs)), TIER_SCAN_THREADS)
         with ThreadPoolExecutor(len(parts)) as pool:
             res = list(pool.map(
-                lambda r: ivf.top_k_device(index, q[r], 10, nprobe=nprobe), parts))
+                lambda r: ivf.top_k_device(index, qs[r], 10, nprobe=nprobe), parts))
         return (np.concatenate([v.cpu().numpy() for v, _ in res]),
                 np.concatenate([i.cpu().numpy() for _, i in res]), len(parts))
 
@@ -4243,18 +4840,20 @@ def native_tier_part(torch, args, seed: int, scale: float, device: str,
                "scan_threads": TIER_SCAN_THREADS, "build_s": build_s, "spill_s": spill_s}
         for pf in TIER_PROBE_FRACTIONS:
             nprobe = max(1, int(round(pf * flat.n_cells)))
+            qs = q if pf == TIER_PROBE_FRACTIONS[0] else q[:TIER_WIDE_QUERIES]
+            out[f"queries_p{pf}"] = len(qs)
             got = {}
             for name, index in (("flat", flat), ("tiered", tiered)):
                 before = ivf.counts()["host"]
                 t0 = time.perf_counter()
-                v, i, calls = scan(index, nprobe)
+                v, i, calls = scan(index, nprobe, qs)
                 out[f"{name}_ms_p{pf}"] = 1e3 * (time.perf_counter() - t0)
                 if ivf.counts()["host"] != before + calls:
                     raise AssertionError(f"native-host: the {name} scan missed the host path")
                 got[name] = (v, i)
             (fv, fi), (tv, ti) = got["flat"], got["tiered"]
-            if len(fi) != len(q):
-                raise AssertionError(f"native-host: {len(fi)} answers for {len(q)} queries")
+            if len(fi) != len(qs):
+                raise AssertionError(f"native-host: {len(fi)} answers for {len(qs)} queries")
             if not np.array_equal(fi, ti) or not np.array_equal(fv.view(np.uint32), tv.view(np.uint32)):
                 raise AssertionError(f"native-host: the tiered scan differs from the flat one at {pf}")
             out[f"nprobe_p{pf}"] = nprobe
@@ -4428,7 +5027,9 @@ def main() -> int:
           "als_scale_iterations": [ALS_SCALE_ITERATIONS, args.als_iterations],
           "phase2_plain_and_library_times": f"dot, b in {PHASE2_TIMED} (once all cases)",
           "wide_scan_items": [262_144, WIDE_ITEMS],
-          "native_host_tier_index": "ivf-serving's catalog and centroids, not its own"})
+          "native_host_tier_index": "ivf-serving's catalog and centroids, not its own",
+          "native_host_python_formatter_rows": [NATIVE_FORMAT_ROWS, NATIVE_PY_FORMAT_ROWS],
+          "native_host_p0.3_queries": [TIER_QUERIES, TIER_WIDE_QUERIES]})
     clock = PhaseClock(t0)
     gen = np.random.default_rng(args.seed)
     y = factors(gen, args.items, args.features)
@@ -4544,6 +5145,8 @@ def main() -> int:
         name: als_lam["serving_launches"].get(name, 0) + als_lam["int8_launches"].get(name, 0)
         for name in SOURCES
     }
+    bus_launches = phase_buses(args.seed)["launches"]
+    clock("buses")
     rdf_rows = phase_rdf_train(torch, args.seed, args.rdf_rows)
     clock("rdf-train")
     phase_rdf_lambda(args.seed, args.rdf_rows)
@@ -4573,6 +5176,7 @@ def main() -> int:
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "als_lambda_launches": als_launches[name],
+            "buses_launches": bus_launches.get(name, 0),
             "ivf_launches": ivf_launches[name], "front_launches": front_launches.get(name, 0),
             "parity": "ok", "library_topk_ms": None,
             **kernels[name],

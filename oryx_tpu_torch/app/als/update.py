@@ -24,7 +24,10 @@ raises NotYetPortedError (``shard-factors`` only ever applied with a
 mesh). The JAX package's log line of its XLA compiled-run cache has no
 counterpart. Factor files and UP messages carry ``json.dumps`` vectors
 (``native/store.py``), which read back to the same float32 values as the
-JAX package's native text.
+JAX package's native text. Each chunk of UP rows goes out under the
+batch layer's publish retry (``oryx.batch.retry``), as the MODEL does;
+the JAX package sends them once, so a transient produce failure (a
+``fault+`` bus's drop) fails its generation.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import gzip
 import json
 import logging
 from pathlib import Path
-from typing import Iterable, Sequence
+from typing import Callable, Iterable, Sequence
 from xml.etree.ElementTree import Element
 
 import numpy as np
@@ -233,9 +236,18 @@ class ALSUpdate(MLUpdate):
     ) -> None:
         if model_update_topic is None:
             return
+        def send_many(records):
+            # each chunk under the MODEL's publish retry: a transient
+            # produce failure must not fail the generation
+            self.publish_retry.call(
+                lambda: model_update_topic.send_many(records),
+                retry_on=(ConnectionError, OSError),
+                metrics_prefix="batch.publish",
+            )
+
         ids_y, y = _load_features(storage.join(model_parent_path, "Y"))
         # Y first: item vectors must exist before user fold-ins make sense
-        _publish_factor_rows(model_update_topic, "Y", ids_y, y, None)
+        _publish_factor_rows(send_many, "Y", ids_y, y, None)
         ids_x, x = _load_features(storage.join(model_parent_path, "X"))
         known: dict[str, set[str]] | None = None
         if not self.no_known_items:
@@ -243,7 +255,7 @@ class ALSUpdate(MLUpdate):
                 ChainRecords([as_records(new_data), as_records(past_data)])
             )
             known = rm.known_items
-        _publish_factor_rows(model_update_topic, "X", ids_x, x, known)
+        _publish_factor_rows(send_many, "X", ids_x, x, known)
 
     # -- split ---------------------------------------------------------------
 
@@ -289,7 +301,7 @@ _PUBLISH_CHUNK = 8192
 
 
 def _publish_factor_rows(
-    producer: TopicProducer,
+    send_many: Callable[[list[tuple[str, str]]], None],
     tag: str,
     ids: list[str],
     matrix: np.ndarray,
@@ -317,7 +329,7 @@ def _publish_factor_rows(
                 )
                 for i, v in zip(chunk_ids, vecs)
             ]
-        producer.send_many(records)
+        send_many(records)
 
 
 # -- factor-matrix artifacts -------------------------------------------------

@@ -1,7 +1,7 @@
 """Message bus (counterpart of ``oryx_tpu/bus``): the broker abstraction,
-the in-process broker and the file bus with its block codec (the JAX
-package's on-disk format). The shm, tcp, kafka and fault buses are not
-ported yet; ``get_broker`` raises for their locators.
+the in-process broker, the file bus with its block codec, the shared-memory
+ring bus, the TCP bus server and client, the Kafka adapter and the fault
+injector (the JAX package's on-disk and wire formats).
 """
 
 from oryx_tpu_torch.bus.core import (  # noqa: F401

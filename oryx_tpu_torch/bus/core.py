@@ -5,8 +5,8 @@ KeyMessage.java, TopicProducer.java) and admin utils (framework/kafka-util/
 src/main/java/com/cloudera/oryx/kafka/util/KafkaUtils.java:42-190).
 
 Port note: a copy of ``oryx_tpu/bus/core.py`` (JAX-free), with its imports
-pointed at ``oryx_tpu_torch``; ``get_broker`` serves ``inproc://`` and
-``file:`` buses (the others raise).
+pointed at ``oryx_tpu_torch``; ``get_broker`` resolves every locator the
+JAX package's does to the port's own brokers.
 """
 
 from __future__ import annotations
@@ -224,18 +224,45 @@ def get_broker(locator: str) -> Broker:
     file:/<dir> or file://<dir> or a bare path — file-backed broker
         (oryx_tpu_torch.bus.filebus; the same on-disk format as the JAX
         package's, so the two packages share a bus directory)
+    shm:/<dir>[?ring_mb=N&full_block_ms=MS&frame_records=K] — shared-memory
+        ring-buffer broker with a zero-copy columnar block format
+        (oryx_tpu_torch.bus.shmbus; the high-rate speed-layer transport;
+        the ring files are the JAX package's format)
+    tcp://host:port[?connect_timeout=S&retry_max_attempts=N&...] —
+        networked bus server (oryx_tpu_torch.bus.netbus; start one with
+        `python -m oryx_tpu_torch bus-serve`; the JAX package's wire)
+    kafka://host:port[,host:port...] — Apache Kafka via kafka-python
+        (optional dependency; oryx_tpu_torch.bus.kafkabus)
+    fault+<inner>://...?drop=0.1&delay_ms=20&dup=0.01&fail_connect=N&seed=S
+        — chaos wrapper injecting seeded faults around any inner broker
+        (oryx_tpu_torch.bus.faultbus; docs/resilience.md has the grammar)
+    """
+    if locator.startswith("fault+"):
+        from oryx_tpu_torch.bus.faultbus import FaultBroker
 
-    The shm, tcp, kafka and fault buses of ``oryx_tpu.bus`` are not ported
-    yet; their locators raise."""
+        return FaultBroker.from_locator(locator)
     if locator.startswith("inproc://"):
         from oryx_tpu_torch.bus.inproc import InProcessBroker
 
         return InProcessBroker.named(locator[len("inproc://") :])
-    if locator.startswith(("fault+", "tcp://", "kafka://", "shm:")):
-        raise NotImplementedError(
-            f"bus locator {locator!r} is not yet ported to oryx_tpu_torch "
-            "(inproc:// and file: are)"
-        )
+    if locator.startswith("tcp://"):
+        from oryx_tpu_torch.bus.netbus import NetBroker
+
+        rest, _, query = locator[len("tcp://") :].partition("?")
+        host, _, port = rest.partition(":")
+        return NetBroker(host, int(port), **NetBroker.options_from_query(query))
+    if locator.startswith("kafka://"):
+        from oryx_tpu_torch.bus.kafkabus import KafkaBroker
+
+        return KafkaBroker(locator[len("kafka://") :])
+    if locator.startswith("shm:"):
+        path = locator[len("shm:") :]
+        while path.startswith("//"):
+            path = path[1:]
+        path, _, query = path.partition("?")
+        from oryx_tpu_torch.bus.shmbus import ShmBroker
+
+        return ShmBroker(path, **ShmBroker.options_from_query(query))
     from oryx_tpu_torch.bus.filebus import FileBroker
 
     if locator.startswith("file:"):

@@ -27,6 +27,18 @@ from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
 
 log = logging.getLogger(__name__)
 
+# empty polls in a row that end a drain short of the input topic's end
+DRAIN_EMPTY_POLLS = 100
+
+
+def behind(positions: dict[int, int], end: dict[int, int]) -> bool:
+    """Whether a consumer at ``positions`` is short of ``end`` on any of
+    its partitions. A poll lost in flight (a fault+ bus's drop, which
+    rewinds) comes back empty while records remain: a drain polls again
+    while its consumer is behind the end it took at its start, at most
+    DRAIN_EMPTY_POLLS empty polls in a row."""
+    return any(pos < end.get(p, 0) for p, pos in positions.items())
+
 # settings of oryx_tpu/parallel/distributed.py: multi-process runs (A9)
 _DISTRIBUTED_KEYS = ("coordinator-address", "num-processes", "process-id", "auto")
 _DISTRIBUTED_ENV = ("ORYX_COORDINATOR", "ORYX_NUM_PROCESSES", "ORYX_PROCESS_ID")
@@ -91,6 +103,14 @@ class AbstractLayer:
         if self._input_broker is None:
             self._input_broker = get_broker(self.input_broker_loc)
         return self._input_broker
+
+    def input_end(self) -> dict[int, int]:
+        """The input topic's end offsets now, or {} where the broker cannot
+        say (a drain then ends at its first empty poll)."""
+        try:
+            return dict(self.input_broker().latest_offsets(self.input_topic))
+        except Exception:  # noqa: BLE001 - a best-effort bound
+            return {}
 
     def update_broker(self) -> Broker | None:
         if self.update_broker_loc and self.update_topic:

@@ -17,7 +17,14 @@ disjoint, matching the reference's foreachRDD registration order
 (BatchLayer.java:103-122).
 
 Port note: a copy of ``oryx_tpu/lambda_/batch.py`` with its imports pointed
-at ``oryx_tpu_torch``. The update class must be one of the port's (a
+at ``oryx_tpu_torch``, but for two repairs. The drain runs to the input
+topic's end as of the generation's start, where the JAX package's ends at
+the first empty poll, which on a ``fault+`` bus is also a poll lost in
+flight (so each generation there trains on a random prefix of its input).
+A generation that fails before step 4 seeks the consumer back to where it
+started, where the JAX package's keeps its place, so the failed
+generation's records are neither saved nor trained on until the process
+restarts from its last commit. The update class must be one of the port's (a
 name under ``oryx_tpu`` is refused), and the layer trains on the card:
 it raises at construction without CUDA unless the caller chose the CPU
 (``oryx_tpu_torch.device.set_device("cpu")``). A configured profile
@@ -37,7 +44,7 @@ from oryx_tpu_torch.common.crashpoints import crashpoint
 from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.device import default_device
 from oryx_tpu_torch.lambda_ import data as data_store
-from oryx_tpu_torch.lambda_.base import AbstractLayer
+from oryx_tpu_torch.lambda_.base import DRAIN_EMPTY_POLLS, AbstractLayer, behind
 
 log = logging.getLogger(__name__)
 
@@ -106,6 +113,7 @@ class BatchLayer(AbstractLayer):
 
     # -- generation loop ----------------------------------------------------
 
+
     def _one_interval(self) -> None:
         """One supervised generation interval (wait, then generation)."""
         self._stop_event.wait(self.generation_interval_sec)
@@ -126,26 +134,23 @@ class BatchLayer(AbstractLayer):
                 raise
         metrics.registry.counter("batch.generations").inc()
 
-    def _run_one_generation(self, timestamp_ms: int | None = None) -> None:
-        with self._state_lock:
-            if self._consumer is None:
-                self._consumer = self.make_input_consumer()
-            consumer = self._consumer
-        timestamp_ms = int(time.time() * 1000) if timestamp_ms is None else timestamp_ms
-
-        def phase(name):
-            return metrics.timed(
-                metrics.registry.histogram(f"batch.phase.{name}.seconds")
-            )
-
-        # 1. drain whatever is currently available on the input topic
+    def _drain_and_update(self, consumer, timestamp_ms: int, phase) -> list[KeyMessage]:
+        """Steps 1-3: drain, read past data, run the update. Returns the
+        new data."""
+        # 1. drain the input topic up to its end as of now (base.behind)
         new_data: list[KeyMessage] = []
         with phase("drain"):
+            end = self.input_end()
+            empty = 0
             while True:
                 batch = consumer.poll(max_records=10_000, timeout=0.05)
-                if not batch:
+                if batch:
+                    new_data.extend(batch)
+                    empty = 0
+                    continue
+                empty += 1
+                if empty >= DRAIN_EMPTY_POLLS or not behind(consumer.positions(), end):
                     break
-                new_data.extend(batch)
 
         # 2. past data as a lazy columnar view — blocks stream from storage
         # during the update itself (one stored micro-batch in memory at a
@@ -164,6 +169,30 @@ class BatchLayer(AbstractLayer):
         finally:
             if producer is not None:
                 producer.close()
+        return new_data
+
+    def _run_one_generation(self, timestamp_ms: int | None = None) -> None:
+        with self._state_lock:
+            if self._consumer is None:
+                self._consumer = self.make_input_consumer()
+            consumer = self._consumer
+        timestamp_ms = int(time.time() * 1000) if timestamp_ms is None else timestamp_ms
+
+        def phase(name):
+            return metrics.timed(
+                metrics.registry.histogram(f"batch.phase.{name}.seconds")
+            )
+
+        # a generation that fails before its micro-batch is saved puts the
+        # consumer back where it started, so the next one drains the same
+        # records (the JAX package's moves on: they are lost to it until
+        # the process restarts from the last commit)
+        start = dict(consumer.positions())
+        try:
+            new_data = self._drain_and_update(consumer, timestamp_ms, phase)
+        except BaseException:
+            consumer.seek(start)
+            raise
 
         # 4. persist the micro-batch
         crashpoint("batch.save.pre")

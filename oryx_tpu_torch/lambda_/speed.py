@@ -18,7 +18,11 @@ topic instead of killing the consume thread, and delta publishes are
 retried under the same policy.
 
 Port note: a copy of ``oryx_tpu/lambda_/speed.py`` with its imports pointed
-at ``oryx_tpu_torch``. The model manager must be one of the port's (a
+at ``oryx_tpu_torch``, but for one repair: a micro-batch without an
+accumulation deadline drains to the input topic's end as of its start,
+where the JAX package's ends at the first empty poll, which on a
+``fault+`` bus is also a poll lost in flight (so its micro-batches there
+take about ten polls each, one batch interval apart). The model manager must be one of the port's (a
 name under ``oryx_tpu`` is refused), and the layer raises at construction
 without CUDA unless the caller chose the CPU
 (``oryx_tpu_torch.device.set_device("cpu")``), as the serving and batch
@@ -40,7 +44,7 @@ from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.crashpoints import crashpoint
 from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.device import default_device
-from oryx_tpu_torch.lambda_.base import AbstractLayer, GuardedBlockFeed
+from oryx_tpu_torch.lambda_.base import DRAIN_EMPTY_POLLS, AbstractLayer, GuardedBlockFeed, behind
 
 log = logging.getLogger(__name__)
 
@@ -252,6 +256,10 @@ class SpeedLayer(AbstractLayer):
         total = 0
         if consumer is None:
             consumer = self.input_consumer()
+        # without a deadline, an empty poll ends the batch once the
+        # consumer has reached the topic's end as of now (base.behind)
+        end = self.input_end() if deadline is None else {}
+        empty = 0
         while total < limit and not self.is_stopped():
             timeout = 0.05
             if deadline is not None:
@@ -264,8 +272,11 @@ class SpeedLayer(AbstractLayer):
             )
             if block is None:
                 if deadline is None:
-                    break
+                    empty += 1
+                    if empty >= DRAIN_EMPTY_POLLS or not behind(consumer.positions(), end):
+                        break
                 continue
+            empty = 0
             blocks.append(block)
             total += len(block)
         return blocks, total

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Phase 2, 5, 14 or 15 of chip_smoke.py alone, on one card: the top-N
-scan kernels, or the k-means Lloyd sweep, against their plain versions,
-with their times; the default request path (serving-front); or the
-native host code (native-host, after ivf-serving, whose catalog and
-index it reuses: the parser, formatters, store and tiered IVF cell store
-against their Python paths).
+"""Phase 2, 5, 9b, 14 or 15 of chip_smoke.py alone, on one card: the
+top-N scan kernels, or the k-means Lloyd sweep, against their plain
+versions, with their times; the fault, shm and TCP buses under the ALS
+loop (buses); the default request path (serving-front); or the native
+host code (native-host, after ivf-serving, whose catalog and index it
+reuses: the parser, formatters, store and tiered IVF cell store against
+their Python paths).
 
     python3 scan_bench.py                        # the scans, this checkout's oryx_tpu_torch
     python3 scan_bench.py --root DIR             # the package of another checkout
     python3 scan_bench.py --phase kmeans [--root DIR]   # the sweep
+    python3 scan_bench.py --phase buses                 # conf/chaos-example.conf, shm and tcp
     python3 scan_bench.py --phase front                 # the request path
     python3 scan_bench.py --phase front --store python  # ... X/Y in the Python store
     python3 scan_bench.py --phase native                # ivf-serving, the native host code
@@ -37,7 +39,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--root", default=HERE, help="checkout whose oryx_tpu_torch to load")
-    p.add_argument("--phase", choices=("scan", "kmeans", "front", "native"), default="scan")
+    p.add_argument("--phase", choices=("scan", "kmeans", "buses", "front", "native"), default="scan")
     p.add_argument("--store", choices=("default", "python"), default="default",
                    help="python: the ALS serving model keeps X/Y in the pure-Python "
                    "FeatureVectors instead of make_feature_vectors()'s store")
@@ -72,6 +74,14 @@ def main() -> int:
         from oryx_tpu_torch.app.als.common import FeatureVectors
 
         serving_model.make_feature_vectors = FeatureVectors
+    if opts.phase == "buses":
+        from oryx_tpu_torch import native
+        from oryx_tpu_torch.ops import _build
+
+        _build.build()  # the scans the serving processes launch
+        native.get_library()  # built once, before the layers' processes load it
+        cs.phase_buses(args.seed)
+        return 0
     if opts.phase == "front":
         from oryx_tpu_torch.ops import _build
 

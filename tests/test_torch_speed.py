@@ -237,7 +237,8 @@ def test_cli_speed_command():
     args = cli._build_parser().parse_args(["speed", "--conf", "x.conf", "--device", "cpu"])
     assert args.command == "speed" and args.device == "cpu"
     assert cli._build_parser().parse_args(["batch"]).device == "cuda"
-    assert set(cli.COMMANDS) == {"batch", "speed", "serving"}
+    assert set(cli.COMMANDS) == {"batch", "speed", "serving", "bus-setup", "bus-serve",
+                                 "bus-tail", "bus-input"}
 
 
 def test_packaged_default_buses_are_the_file_bus(monkeypatch):

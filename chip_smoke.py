@@ -18,8 +18,8 @@ Phases, each printing one JSON line:
    kernel at b = 512; planted exact ties (duplicated item columns) must
    come back in lowest-id order; the widest query tile (N = 128) at
    b = 128 and 256 on a 50-feature plane (bfloat16, int8) and a
-   10-feature one (float32); wide planes of 1,056, 2,048 and 4,096
-   features x 131,072 items, whose query pieces stream beside the items,
+   10-feature one (float32); wide planes of 1,056 and 4,096
+   features x 32,768 items, whose query pieces stream beside the items,
    every plane type, topn_scan at b = 8 and 256 and topn_candidates at
    b = 512, dot and cosine, on the ``tc`` / ``tc_f32`` launch keys; the
    merge bit for bit on synthetic lists
@@ -43,6 +43,7 @@ Phases, each printing one JSON line:
 5. kmeans-kernels: the Lloyd sweep (``pallas_kmeans.sweep``, one launch
    of ``kmeans_sweep.tc``) against its plain version on Gaussian blobs at
    200,000 x 20 (k = 10, the repo's k-means shape), 10,000,000 x 20
+   (cut since the tenants phase joined the run, printed on the "cuts" line)
    (k = 10) and 1,000,000 x 256 (k = 256), and at the shapes of the
    kernel's other paths: 100,000 x 7 (k = 5: d * 4 not a multiple of 16,
    also from an address that is not 16-byte aligned), 200,000 x 32
@@ -139,6 +140,37 @@ Phases, each printing one JSON line:
    /estimate the dot of the last published X and Y; with the events
    per second over shm and the publish-to-served seconds; both serving
    processes launching the scans and ``topn_merge``;
+9c. tenants: tenancy, an online experiment and the lineage endpoints.
+   (a) four tenants trained in one ``TenantPipelines`` round on an inproc
+   bus and served by one ``ServingLayer`` on the default request path
+   (the native front, the ladder with one ladder per tenant): ``movies``
+   (ALS, weight 2, a MovieLens-1M-shaped set, 50 features), ``shop``
+   (ALS, weight 1, a second draw of that shape less its last 40 users,
+   10 features), ``sensors`` (k-means, 200,000 x 20, k = 10) and
+   ``churn`` (RDF, conf/rdf-example.conf's schema and model on 50,000
+   covtype-shaped rows: the cut); topics and model dirs namespaced, every
+   tenant's live generation on /healthz; a user of both ALS tenants gets
+   shop's answer under /t/shop/, a movies-only user 404; clients in
+   another process (``client_main``), 32 on each ALS tenant, 4 on
+   /t/sensors/assign and 4 on /t/churn/predict, for 10 s: p50, p99 and
+   requests per second by tenant, recall@10 of every ALS answer against
+   the exact float32 scan of its tenant's factors at least 0.99, each
+   ALS tenant at least 25% of the ALS answers; then the served k-means
+   centers equal to the published ones, /assign against the float64
+   nearest center, /predict on 1,000 held-out lines against the
+   published forest on the host, and ``serving.requests.tenant.<id>``
+   counted for all four; (b) one ALS layer on a ``file:`` bus with
+   ``oryx.serving.ab.fraction = 0.5``, the online gate at 50 samples and
+   a restage dir: generation 1 the champion, generation 2 (the same
+   ratings and seed, warm start off) the online challenger; 2,000 users
+   twice each, every arm ``bucket_of``'s and sticky; the challenger arm
+   interacting with its first item, the champion arm with another, until
+   the gate promotes (within 30 s: the manifest, CHAMPION, /healthz,
+   both arms resolved at least 50 times on GET /experiments); then
+   ``POST /model/rollback/<generation 1>``: CHAMPION back, generation 1
+   live again, 64 probe users answered byte for byte as before the
+   experiment, ``GET /model/generations`` listing both, and each
+   MODEL-REF generation staged whole under the restage dir;
 10. rdf-train: random-forest training through ``ops/forest.py`` on the
    card (PyTorch ops: the JAX package runs them through XLA, no Pallas
    kernel): (a) tools/train_benchmark.py:215-248's configuration
@@ -207,8 +239,8 @@ Phases, each printing one JSON line:
    admission ladder with the reference's overload defaults, the native
    HTTP front) over phase 13's catalog on an inproc bus, the MODEL
    carrying a generation; clients in another process (``client_main``),
-   threads over keep-alive connections: (a) 64 clients, 4,096
-   /recommend over 4,096 users, through the stdlib front and then the
+   threads over keep-alive connections: (a) 64 clients, 2,048
+   /recommend (4,096 until PR 13's cut) over 4,096 users, through the stdlib front and then the
    native one, each with its ladder held at full (idle signals fed to
    its controller) so that both do the same work (p50, p99, requests
    per second, recall@10 against the exact float32 top-10 at least
@@ -236,7 +268,8 @@ Phases, each printing one JSON line:
    known-id lists and vector JSON for 100,000 rows at 50 and 250
    features, every vector read back equal to its row and non-finite
    values as 0, the Python path on the first 10,000 rows (a cut); (c) the
-   native and the Python store filled with the same 1M x 50 vectors:
+   native and the Python store filled with the same 500,000 x 50 vectors
+   (1M until PR 13's cut):
    ``get_batch`` of 4,096 ids, ``to_matrix``, ``get_vtv`` (within 1e-9
    relative) and ``retain_recent_and_ids`` alike; (d) an IVF index on
    phase 13's catalog and centroids (250 x 1M int8 items, 1,000 cells)
@@ -253,7 +286,7 @@ Phases, each printing one JSON line:
    main paths (ALS during phases 3-4, k-means during phase 6, each
    counted from zero just before; the scans also by batch rows, per path;
    the als-lambda serving processes' own; those of phase 9b's two; the
-   IVF phases' builds and serving; and phase 14's) and the numbers of phases 2 and 5, B3's also
+   IVF phases' builds and serving; phase 9c's; and phase 14's) and the numbers of phases 2 and 5, B3's also
    at phase 12's shape;
 17. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
@@ -315,10 +348,13 @@ CANDIDATES_BATCH = 512
 PHASE2_TIMED = (256, CANDIDATES_BATCH)
 # the wide scans: feature counts past the 1,024 whose query pieces stay
 # resident in shared memory, on planes of this many items
-WIDE_FEATURES = (1056, 2048, 4096)
-# (262,144 until the serving-front phase joined the run: halved to keep
-# the whole run inside its limit; printed on the "cuts" line)
-WIDE_ITEMS = 131_072
+# (2,048 too until the tenants phase joined the run: cut, with the items
+# below, to keep the whole run inside its limit; printed on the "cuts"
+# line)
+WIDE_FEATURES = (1056, 4096)
+# (262,144 until the serving-front phase joined the run, 131,072 until
+# the tenants phase did; printed on the "cuts" line)
+WIDE_ITEMS = 32_768
 WIDE_RUNS = ((8, "topn_scan"), (256, "topn_scan"), (CANDIDATES_BATCH, "topn_candidates"))
 # the merge check's synthetic shapes: lists (1221 = the candidates kernel's
 # blocks at 20M items), list length and rows
@@ -327,7 +363,9 @@ MERGE_M = (1, 16, 64, 128)
 MERGE_ROWS = (1, CANDIDATES_BATCH)
 # (points, features, clusters) of the k-means kernel phase; the first is
 # the repo's k-means training shape (tools/train_benchmark.py:161-170)
-KMEANS_SHAPES = ((200_000, 20, 10), (10_000_000, 20, 10), (1_000_000, 256, 256))
+# (10,000,000 x 20, k = 10 too until the tenants phase joined the run: cut
+# to keep the whole run inside its limit; printed on the "cuts" line)
+KMEANS_SHAPES = ((200_000, 20, 10), (1_000_000, 256, 256))
 # shapes that take the kernel's other paths: d * 4 not a multiple of 16
 # (checked from an unaligned address too), kp > 256 (two center tiles),
 # rows too wide for a whole 64-point tile in shared memory (staged in
@@ -1173,7 +1211,7 @@ def kmeans_config(broker_loc: str, root: str, d: int, k: int, minibatch: int | N
 def check_served_clusters(what, base, clusters, lines, pts, true_centers, gen):
     """/assign and /distanceToNearest for 1,000 sampled points against a
     float64 numpy nearest-center search over the served centers (a list
-    of ClusterInfo); every true center within 0.5 of a trained one."""
+    of ClusterInfo); every true center given within 0.5 of a trained one."""
     ids = np.array([c.id for c in clusters])
     centers = np.stack([c.center for c in clusters]).astype(np.float64)
     for true in true_centers:
@@ -2243,6 +2281,13 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
         out["float32_launches"] = launches1 = serving_launches(ports["serving"])
         if device == "cuda" and launches1.get("topn_scan.tc_f32", 0) <= launches0.get("topn_scan.tc_f32", 0):
             raise AssertionError(f"float32 serving launched {launches0} -> {launches1}")
+        # the int8 process's port, taken now: one chosen at the phase's
+        # start can be taken meanwhile as a client connection's ephemeral
+        # port (the phase polls over thousands of short connections)
+        ports["serving8"] = free_port()
+        base8 = f"http://127.0.0.1:{ports['serving8']}"
+        with open(confs["int8"], "w") as f:
+            f.write(als_lambda_conf(root, ports, batch_interval, "int8", ports["serving8"]))
         serving8_log = start("serving", run=8, dtype="int8")
         wait_until("int8 serving", lambda: status_of(base8 + "/ready") == 200, procs=live())
         if not log_has(serving8_log, f"ALS serving: {store_kind} vector store"):
@@ -2910,6 +2955,526 @@ def phase_buses(seed: int, scale: float = 1.0, device: str = "cuda",
     return out
 
 
+# -- phase 9c: tenants, an online experiment, lineage ---------------------------------
+
+TENANT_ALS_CLIENTS = 32  # closed-loop clients on each ALS tenant at once
+TENANT_SIDE_CLIENTS = 4  # on /t/sensors/assign and on /t/churn/predict each
+TENANT_LOAD_S = 10.0
+TENANT_RDF_ROWS = 50_000  # covtype's 581,012 cut (the cuts line)
+TENANT_SHOP_FEATURES = 10  # conf/als-example.conf's width
+TENANT_SHOP_DROPPED = 40  # shop's draw leaves out movies' last 40 users: /t/shop/ 404s them
+TENANT_PROBE_USERS = 4096  # users of each ALS tenant's load paths
+TENANT_MIN_SHARE = 0.25  # of the ALS answers, for either ALS tenant
+EXP_SHAPE = (3_000, 1_500, 150_000)  # (b)'s MovieLens-shaped set: users, items, ratings
+EXP_FEATURES = 10
+EXP_USERS = 2_000
+EXP_MIN_SAMPLES = 50
+EXP_PROMOTE_S = 30.0
+EXP_PROBES = 64
+
+
+def tenants_config(loc: str, root: str):
+    """One base config on an inproc bus, four tenants (docs/multi-tenancy.md):
+    two ALS apps (50 and 10 features), k-means at phase 6's shape and RDF
+    with conf/rdf-example.conf's schema and model; every other setting is
+    reference.conf's, the default request path included."""
+    from oryx_tpu_torch.common import config as config_utils
+
+    sensors = ", ".join(f'"{j}"' for j in range(20))
+    numerics = ", ".join(f'"{j}"' for j in range(10))
+    return config_utils.get_default().with_overlay(f"""
+    oryx {{
+      id = "ChipSmokeTenants"
+      input-topic.broker = "{loc}"
+      update-topic.broker = "{loc}"
+      batch {{
+        streaming.generation-interval-sec = 3600
+        storage {{ data-dir = "{root}/data/", model-dir = "{root}/model/" }}
+      }}
+      serving.api.port = 0
+      tenancy {{
+        enabled = true
+        tenants {{
+          movies = {{ app = als, weight = 2,
+                      config {{ oryx.als.hyperparams.features = {ALS_LAMBDA_FEATURES} }} }}
+          shop = {{ app = als, weight = 1,
+                    config {{ oryx.als.hyperparams.features = {TENANT_SHOP_FEATURES} }} }}
+          sensors = {{ app = kmeans, config {{ oryx {{
+            input-schema {{ num-features = 20, numeric-features = [{sensors}] }}
+            kmeans.hyperparams.k = 10 }} }} }}
+          churn = {{ app = rdf, config {{ oryx {{
+            input-schema {{ num-features = 55, numeric-features = [{numerics}],
+                            target-feature = "54" }}
+            rdf {{ num-trees = {RDF_LAMBDA_TREES},
+                   hyperparams {{ max-depth = {RDF_LAMBDA_DEPTH}, impurity = "entropy" }} }}
+            ml.eval.test-fraction = 0.1 }} }} }}
+        }}
+      }}
+    }}
+    """)
+
+
+def recall_of_answers(model, answers: dict) -> float:
+    """recall@10 of served (user -> ids) against the exact float32 scan of
+    the model's own factors (all items: the answers consider known ones)."""
+    y_ids = model.all_item_ids()
+    y = np.stack([model.get_item_vector(i) for i in y_ids]).astype(np.float32)
+    users = sorted(answers)
+    xu = np.stack([model.get_user_vector(u) for u in users]).astype(np.float32)
+    scores = xu @ y.T
+    top = np.argpartition(-scores, 10, axis=1)[:, :10]
+    hits = sum(len(set(answers[u]) & {y_ids[j] for j in top[r]}) for r, u in enumerate(users))
+    return hits / (10.0 * len(users))
+
+
+def tenants_part(torch, stn, pk, seed: int, scale: float, device: str,
+                 rdf_rows: int, load_s: float) -> dict:
+    """(a): four tenants trained in one TenantPipelines round and served by
+    one ServingLayer (native front, admission ladder with a ladder per
+    tenant), clients in another process on all four at once."""
+    import io
+    import tempfile
+
+    from oryx_tpu_torch import bus
+    from oryx_tpu_torch.app.rdf.serving import RDFServingModel
+    from oryx_tpu_torch.app.schema import InputSchema
+    from oryx_tpu_torch.serving.layer import ServingLayer
+    from oryx_tpu_torch.tenancy import TenantRegistry, tenant_config
+    from oryx_tpu_torch.tenancy.pipelines import TenantPipelines
+
+    num_users, num_items, nnz = ML1M
+    nnz = max(20_000, int(nnz * scale))
+    lines = {}
+    for tid, s in (("movies", seed + 1300), ("shop", seed + 1301)):
+        u, i, v = movielens_shape(num_users, num_items, nnz, s)
+        if tid == "shop":
+            keep = u < num_users - TENANT_SHOP_DROPPED
+            u, i, v = u[keep], i[keep], v[keep]
+        lines[tid] = [f"u{a},i{b},{c:.0f},{t}" for t, (a, b, c) in
+                      enumerate(zip(u.tolist(), i.tolist(), v.tolist()), start=1)]
+    n = max(1024, int(KMEANS_SHAPES[0][0] * scale))
+    pts32, true_centers = gaussian_blobs(n, 20, 10, seed + 1302)
+    buf = io.StringIO()
+    np.savetxt(buf, pts32, fmt="%.6f", delimiter=",")
+    lines["sensors"] = buf.getvalue().splitlines()
+    pts = np.loadtxt(io.StringIO(buf.getvalue()), delimiter=",", dtype=np.float64)
+    del buf
+    x, y = covtype_shape(rdf_rows + RDF_PREDICT_LINES, seed=seed + 1303)
+    lines["churn"] = covtype_lines(x[:rdf_rows], y[:rdf_rows])
+    held_out = covtype_lines(x[rdf_rows:], None)
+    gen = np.random.default_rng(seed + 1304)
+
+    loc = "inproc://chip-smoke-tenants"
+    root = tempfile.mkdtemp(prefix="chip-smoke-tenants-")
+    cfg = tenants_config(loc, root)
+    tenants = TenantRegistry.from_config(cfg)
+    out = {"phase": "tenants", "part": "four tenants", "bus": "inproc",
+           "tenants": {tid: {"app": s.app, "weight": s.weight, "lines": len(lines[tid])}
+                       for tid, s in tenants.specs.items()}}
+    serving = ServingLayer(cfg)
+    serving.start()
+    base = f"http://127.0.0.1:{serving.port}"
+    batch = TenantPipelines(cfg, tenants, "batch")
+    try:
+        if serving.admission is None or (device == "cuda" and serving._native_front is None):
+            raise AssertionError("tenants: the default request path is not up")
+        batch.start()
+        broker = bus.get_broker(loc)
+        t0 = time.perf_counter()
+        for tid, ls in lines.items():
+            tcfg = tenant_config(cfg, tenants.require(tid))
+            topic = tcfg.get_string("oryx.input-topic.message.topic")
+            want = (f"OryxInput.{tid}", f"OryxUpdate.{tid}", f"{root}/model/{tid}")
+            got = (topic, tcfg.get_string("oryx.update-topic.message.topic"),
+                   tcfg.get_string("oryx.batch.storage.model-dir").rstrip("/"))
+            if got != want:
+                raise AssertionError(f"tenants: {tid} is namespaced as {got}, not {want}")
+            with broker.producer(topic) as p:
+                for s in range(0, len(ls), 100_000):
+                    p.send_many([(None, line) for line in ls[s:s + 100_000]])
+        out["ingest_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        done = batch.run_round()
+        out["round_s"] = time.perf_counter() - t0
+        if done != {tid: 1 for tid in tenants.ids()}:
+            raise AssertionError(f"tenants: one round trained {done}")
+        out["mlupdate_phase_s"] = {
+            tid: dict(getattr(layer._update, "last_phase_seconds", {}))
+            for tid, layer in batch.layers.items()
+        }
+        generations = {}
+        for tid in tenants.ids():
+            d = os.path.join(root, "model", tid)
+            gens = [g for g in os.listdir(d) if os.path.isfile(os.path.join(d, g, "model.pmml"))]
+            if len(gens) != 1:
+                raise AssertionError(f"tenants: {d} holds generations {gens}")
+            generations[tid] = gens[0]
+        runtimes = serving.tenant_mux.runtimes()
+
+        def loaded():
+            for rt in runtimes.values():
+                model = rt.manager.get_model()
+                if (model is None or rt.health.live_generation is None
+                        or model.get_fraction_loaded() < 1.0):
+                    return False
+            return http_get(base + "/ready")[0] == 200
+
+        t0 = time.perf_counter()
+        wait_until("tenants: every tenant served", loaded, timeout=300)
+        out["served_after_s"] = time.perf_counter() - t0
+        health = json.loads(http_get(base + "/healthz")[1])
+        if health.get("tenants") != generations:
+            raise AssertionError(f"tenants: /healthz lists {health.get('tenants')}, "
+                                 f"not {generations}")
+        models = {tid: rt.manager.get_model() for tid, rt in runtimes.items()}
+
+        # a tenant's answers are its own: a user of both ALS tenants gets
+        # shop's answer under /t/shop/, a movies-only user 404s there
+        both = [u for u in (f"u{j}" for j in range(num_users - TENANT_SHOP_DROPPED))
+                if models["movies"].get_user_vector(u) is not None
+                and models["shop"].get_user_vector(u) is not None][:20]
+        movies_only = [f"u{num_users - 1 - j}" for j in range(5)]
+        got: dict = {"movies": {}, "shop": {}}
+        for user in both:
+            for tid in ("movies", "shop"):
+                status, body, _ = http_get(
+                    f"{base}/t/{tid}/recommend/{user}?howMany=10&considerKnownItems=true")
+                if status != 200:
+                    raise AssertionError(f"tenants: /t/{tid}/recommend/{user} answered {status}")
+                got[tid][user] = [r["id"] for r in json.loads(body)]
+        own = recall_of_answers(models["shop"], got["shop"])
+        other = recall_of_answers(models["movies"], got["shop"])
+        out["shop_answers_recall"] = {"shop": own, "movies": other}
+        if own < 0.99 or other > 0.5:
+            raise AssertionError(f"tenants: /t/shop/ answers hold {own} of shop's top-10s "
+                                 f"and {other} of movies'")
+        for user in movies_only:
+            if models["movies"].get_user_vector(user) is None:
+                raise AssertionError(f"tenants: movies does not know {user}")
+            status = http_get(f"{base}/t/shop/recommend/{user}")[0]
+            if status != 404:
+                raise AssertionError(f"tenants: /t/shop/recommend/{user} answered {status}")
+        if http_get(f"{base}/t/nope/recommend/u0")[0] != 404:
+            raise AssertionError("tenants: an undeclared tenant was served")
+
+        # the load: 32 clients on each ALS tenant, 4 on /assign, 4 on /predict
+        als_users = {}
+        for tid in ("movies", "shop"):
+            known = [u for u in (f"u{j}" for j in range(num_users))
+                     if models[tid].get_user_vector(u) is not None]
+            als_users[tid] = [known[j] for j in
+                              gen.choice(len(known), min(TENANT_PROBE_USERS, len(known)),
+                                         replace=False)]
+        groups = [
+            {"clients": TENANT_ALS_CLIENTS,
+             "paths": [f"/t/{tid}/recommend/{u}?howMany=10&considerKnownItems=true"
+                       for u in als_users[tid]]}
+            for tid in ("movies", "shop")
+        ] + [
+            {"clients": TENANT_SIDE_CLIENTS,
+             "paths": [f"/t/sensors/assign/{lines['sensors'][j]}"
+                       for j in gen.choice(len(lines["sensors"]), 512, replace=False)]},
+            {"clients": TENANT_SIDE_CLIENTS,
+             "paths": [f"/t/churn/predict/{line}" for line in held_out[:512]]},
+        ]
+        res = run_clients({"base": base, "paths": [], "steps": [
+            {"seconds": load_s, "groups": groups}]}, timeout=load_s + 300)
+        seconds = res["end"] - res["step_starts"][0]
+        by_tenant: dict = {tid: [] for tid in tenants.ids()}
+        for r in res["records"]:
+            by_tenant[r[6].split("/")[2]].append(r)
+        load = {}
+        for tid, recs in by_tenant.items():
+            statuses: dict = {}
+            for r in recs:
+                statuses[str(r[3])] = statuses.get(str(r[3]), 0) + 1
+            stages: dict = {}
+            for r in recs:
+                stages[r[4] or "full"] = stages.get(r[4] or "full", 0) + 1
+            load[tid] = {**latency_summary(recs, seconds), "statuses": statuses,
+                         "stages": stages}
+            bad = [r for r in recs if r[3] != 200 and r[3] != 429]
+            if not recs or bad:
+                raise AssertionError(f"tenants: {tid} load: {len(recs)} requests, "
+                                     f"{len(bad)} failed, e.g. {bad[:1]}")
+        ok = {tid: [r for r in by_tenant[tid] if r[3] == 200] for tid in ("movies", "shop")}
+        share = len(ok["movies"]) / max(1, len(ok["movies"]) + len(ok["shop"]))
+        out["load"] = load
+        out["load_s"] = seconds
+        out["served_ratio_movies_to_shop"] = len(ok["movies"]) / max(1, len(ok["shop"]))
+        if not TENANT_MIN_SHARE <= share <= 1.0 - TENANT_MIN_SHARE:
+            raise AssertionError(f"tenants: movies took {share:.3f} of the ALS answers")
+        out["recall_at_10"] = {}
+        for tid in ("movies", "shop"):
+            answers = {r[6].split("/")[4].split("?")[0]: [a["id"] for a in json.loads(r[7])]
+                       for r in ok[tid]}
+            out["recall_at_10"][tid] = recall_of_answers(models[tid], answers)
+            if out["recall_at_10"][tid] < 0.99:
+                raise AssertionError(f"tenants: {tid} recall@10 {out['recall_at_10'][tid]}")
+        for r in by_tenant["sensors"] + by_tenant["churn"]:
+            if r[3] == 200 and not json.loads(r[7]):
+                raise AssertionError(f"tenants: an empty answer on {r[6]}")
+
+        # the ladders walk back to full once the load stops
+        adm = serving.admission
+        wait_until("tenants: the ladders back at full",
+                   lambda: adm.evaluate() == 0 and all(adm.tenant_stage(t) == 0
+                                                       for t in tenants.ids()), timeout=120)
+        # /assign against the float64 nearest center; /predict against the
+        # trained forest's host prediction
+        # the served centers are the published generation's, bit for bit
+        # (no blob-recovery bar: k-means|| at reference.conf's 3 runs
+        # misses a blob in a few percent of generations at this shape,
+        # on the card and on the CPU alike; ROADMAP, Queue C)
+        from oryx_tpu_torch.app.kmeans import common as km
+        from oryx_tpu_torch.common import pmml as pmml_io
+
+        published = km.pmml_to_clusters(pmml_io.read_pmml(
+            os.path.join(root, "model", "sensors", generations["sensors"], "model.pmml")))
+        served = models["sensors"].clusters()
+        if not np.array_equal(np.stack([c.center for c in served]),
+                              np.stack([c.center for c in published])):
+            raise AssertionError("tenants: sensors serves other centers than it published")
+        out["sensors_blob_gap"] = max(float(np.min(np.linalg.norm(
+            np.stack([c.center for c in served]) - t, axis=1))) for t in true_centers)
+        check_served_clusters("tenants: sensors", base + "/t/sensors", served,
+                              lines["sensors"], pts, [], gen)
+        schema = InputSchema(tenant_config(cfg, tenants.require("churn")))
+        forest, encodings, kind = rdf_published(loc, schema, topic="OryxUpdate.churn")
+        if kind != "MiningModel" or len(forest.trees) != RDF_LAMBDA_TREES:
+            raise AssertionError(f"tenants: churn published a {kind} of {len(forest.trees)}")
+        local = RDFServingModel(forest, encodings, schema)
+        tfi = schema.target_feature_index
+        req = urllib.request.Request(base + "/t/churn/predict", method="POST",
+                                     data="\n".join(held_out).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            served = json.loads(resp.read())
+        want = [encodings.value_for(tfi, local.predict(d).most_probable_index) for d in held_out]
+        if served != want:
+            bad = sum(a != b for a, b in zip(served, want))
+            raise AssertionError(f"tenants: /t/churn/predict: {bad} of {len(want)} lines differ")
+        out["predict_lines_checked"] = len(want)
+
+        # every tenant counted through the front's dispatch core
+        if serving._native_front is not None:
+            serving._native_front.push_control()  # drains the native stats
+        snap = serving.instance_metrics.snapshot()
+        counted = {tid: snap.get(f"serving.requests.tenant.{tid}", {}).get("value", 0)
+                   for tid in tenants.ids()}
+        out["requests_by_tenant"] = counted
+        out["native_front"] = serving._native_front is not None
+        if not all(counted.values()):
+            raise AssertionError(f"tenants: per-tenant request counters {counted}")
+    finally:
+        serving.close()
+        batch.close()
+    emit(out)
+    return out
+
+
+def experiment_config(loc: str, root: str):
+    """One ALS layer on a file: bus: half the users in the challenger arm,
+    the online gate on at 50 samples, MODEL-REF generations (the update
+    topic's message bound below the PMML) restaged under root/stage."""
+    from oryx_tpu_torch.common import config as config_utils
+
+    return config_utils.get_default().with_overlay(f"""
+    oryx {{
+      id = "ChipSmokeExperiment"
+      input-topic.broker = "{loc}"
+      update-topic.broker = "{loc}"
+      update-topic.message.max-size = 16384
+      als.hyperparams.features = {EXP_FEATURES}
+      batch.storage {{ data-dir = "{root}/data/", model-dir = "{root}/model/" }}
+      ml {{
+        warm-start = false
+        gate.online {{ enabled = true, min-samples = {EXP_MIN_SAMPLES},
+                      check-interval-s = 0.5 }}
+      }}
+      serving {{
+        api.port = 0
+        model-manager-class = "oryx_tpu_torch.app.als.serving_model:ALSServingModelManager"
+        application-resources = "oryx_tpu_torch.app.als.endpoints"
+        ab.fraction = 0.5
+        restage-dir = "{root}/stage"
+      }}
+    }}
+    """)
+
+
+def experiment_part(seed: int, device: str) -> dict:
+    """(b): generation 1 the champion, generation 2 the online challenger
+    (the same ratings and seed, warm start off: its factors equal
+    generation 1's), 2,000 users split by arm and their interactions fed
+    back until the gate promotes; then a rollback to generation 1 and
+    the lineage endpoints."""
+    import tempfile
+
+    from oryx_tpu_torch import bus
+    from oryx_tpu_torch.app.als.update import ALSUpdate, _load_features
+    from oryx_tpu_torch.bus.core import KeyMessage
+    from oryx_tpu_torch.common import rng
+    from oryx_tpu_torch.experiments.routing import ABConfig, bucket_of
+    from oryx_tpu_torch.registry.store import RegistryStore
+    from oryx_tpu_torch.serving.layer import ServingLayer
+
+    users, items, nnz = EXP_SHAPE
+    u, i, v = movielens_shape(users, items, nnz, seed + 1400)
+    data = [KeyMessage(None, f"u{a},i{b},{c:.0f},{t}") for t, (a, b, c) in
+            enumerate(zip(u.tolist(), i.tolist(), v.tolist()), start=1)]
+    root = tempfile.mkdtemp(prefix="chip-smoke-experiment-")
+    loc = f"file:{root}/bus"
+    cfg = experiment_config(loc, root)
+    salt = ABConfig.from_config(cfg).salt
+    store = RegistryStore(f"{root}/model")
+    out = {"phase": "tenants", "part": "experiment", "bus": "file:", "users": users,
+           "items": items, "ratings": nnz, "features": EXP_FEATURES}
+    layer = ServingLayer(cfg)
+    layer.start()
+    base = f"http://127.0.0.1:{layer.port}"
+    broker = bus.get_broker(loc)
+
+    def generation(ts: int) -> float:
+        t0 = time.perf_counter()
+        rng.use_test_seed()  # one seed for both generations
+        try:
+            with broker.producer("OryxUpdate") as p:
+                ALSUpdate(cfg).run_update(ts, data, [], f"{root}/model", p)
+        finally:
+            rng.clear_test_seed()
+        return time.perf_counter() - t0
+
+    def fetch(user: str, header: bool = True):
+        req = urllib.request.Request(f"{base}/recommend/{user}",
+                                     headers={"X-Oryx-User": user} if header else {})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.read(), resp.headers.get("X-Oryx-Experiment-Arm")
+
+    try:
+        if layer.experiments is None or layer.model_stager is None:
+            raise AssertionError("experiment: no coordinator or no restage cache")
+        g1, g2 = "1700000000000", "1700000100000"
+        out["generation_s"] = [generation(int(g1))]
+        if store.champion_id() != g1:
+            raise AssertionError(f"experiment: CHAMPION is {store.champion_id()}, not {g1}")
+        wait_until("experiment: generation 1 served", lambda: layer.health.live_generation == g1
+                   and layer.model_manager.get_model() is not None
+                   and layer.model_manager.get_model().get_fraction_loaded() >= 1.0, timeout=120)
+        probes = [f"u{j}" for j in range(EXP_PROBES)]
+        before = {p: fetch(p, header=False)[0] for p in probes}
+        out["generation_s"].append(generation(int(g2)))
+        manifest = store.read_manifest(g2)
+        if store.champion_id() != g1 or manifest.online_status != "pending":
+            raise AssertionError(f"experiment: generation 2 is {manifest.online_status}, "
+                                 f"CHAMPION {store.champion_id()}")
+        wait_until("experiment: the challenger tracked",
+                   lambda: layer.health.challenger_generation == g2
+                   and layer.experiments.active, timeout=120)
+        out["factors_equal"] = all(
+            np.array_equal(_load_features(f"{root}/model/{g1}/{m}")[1],
+                           _load_features(f"{root}/model/{g2}/{m}")[1]) for m in ("X", "Y"))
+        time.sleep(1.0)  # the serving model's refresh window after generation 2's rows
+
+        # 2,000 users, twice each, from the client process: the arm is
+        # bucket_of's and sticky
+        exp_users = [f"u{j}" for j in range(EXP_USERS)]
+        res = run_clients({
+            "base": base, "paths": [f"/recommend/{u}" for u in exp_users],
+            "user_header": "X-Oryx-User",
+            # 8 clients: in flight stays far below the ladder's budget
+            "steps": [{"clients": 8, "partition": True}, {"clients": 8, "partition": True}],
+        }, timeout=300)
+        out["arm_requests_s"] = res["end"]
+        asked: dict = {}
+        for r in res["records"]:
+            if r[3] != 200:
+                raise AssertionError(f"experiment: {r[6]} answered {r[3]}")
+            asked.setdefault(r[6].rsplit("/", 1)[1], []).append((r[7], r[8]))
+        events, arms = [], {"champion": 0, "challenger": 0}
+        for user in exp_users:
+            want = "challenger" if bucket_of(user, salt) < 0.5 else "champion"
+            got = [arm for _, arm in asked.get(user, [])]
+            if got != [want, want]:
+                raise AssertionError(f"experiment: {user} got arms {got}, not twice {want}")
+            arm, body = want, asked[user][0][0]
+            arms[arm] += 1
+            served = [r["id"] for r in json.loads(body)]
+            # the challenger arm interacts with its first item, the
+            # champion arm with an item outside its list
+            item = served[0] if arm == "challenger" else next(
+                f"i{j}" for j in range(items) if f"i{j}" not in served)
+            events.append((None, f"{user},{item},1"))
+        out["arms"] = arms
+        t0 = time.perf_counter()
+        with broker.producer("OryxInput") as p:
+            p.send_many(events)
+
+        def promoted():
+            m = store.read_manifest(g2)
+            return (m.online_status == "promoted" and store.champion_id() == g2
+                    and json.loads(http_get(base + "/healthz")[1])["live_generation"] == g2)
+
+        wait_until("experiment: the gate promoted generation 2", promoted, timeout=EXP_PROMOTE_S)
+        out["promoted_after_s"] = time.perf_counter() - t0
+        report = json.loads(http_get(base + "/experiments")[1])
+        resolved = {arm: s["resolved"] for arm, s in report["report"]["arms"].items()}
+        out["resolved"] = resolved
+        out["decision"] = report["decision"]
+        if min(resolved.values()) < EXP_MIN_SAMPLES:
+            raise AssertionError(f"experiment: resolved {resolved}")
+
+        # rollback: CHAMPION back, generation 1 republished and adopted
+        req = urllib.request.Request(f"{base}/model/rollback/{g1}", method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            out["rollback"] = json.loads(resp.read())
+        if store.champion_id() != g1:
+            raise AssertionError(f"experiment: CHAMPION is {store.champion_id()} after rollback")
+        wait_until("experiment: generation 1 live again",
+                   lambda: json.loads(http_get(base + "/healthz")[1])["live_generation"] == g1,
+                   timeout=60)
+        time.sleep(1.0)  # the refresh window
+        after = {p: fetch(p, header=False)[0] for p in probes}
+        if after != before:
+            bad = sum(after[p] != before[p] for p in probes)
+            raise AssertionError(f"experiment: {bad} of {len(probes)} probe answers changed")
+        listing = json.loads(http_get(base + "/model/generations")[1])
+        statuses = {g["generation_id"]: g["status"] for g in listing["generations"]}
+        out["generations"] = statuses
+        if statuses != {g1: "published", g2: "published"} or listing["champion"] != g1:
+            raise AssertionError(f"experiment: /model/generations lists {listing}")
+        staged = sorted(os.listdir(f"{root}/stage"))
+        out["staged"] = staged
+        if staged != [g1, g2] or not all(
+                os.path.isfile(f"{root}/stage/{g}/model.pmml") for g in staged):
+            raise AssertionError(f"experiment: the restage dir holds {staged}")
+    finally:
+        layer.close()
+    emit(out)
+    return out
+
+
+def phase_tenants(torch, stn, pk, seed: int, scale: float = 1.0, device: str = "cuda",
+                  rdf_rows: int = TENANT_RDF_ROWS, load_s: float = TENANT_LOAD_S) -> dict:
+    """Tenancy, an online experiment and the lineage endpoints: (a) four
+    tenants on one layer, (b) one experiment, then a rollback. Returns the
+    kernels' launches of both, counted from zero here."""
+    t0 = time.perf_counter()
+    stn.reset_launch_counts()  # the tenants' main path starts here
+    pk.reset_launch_counts()
+    tenants_part(torch, stn, pk, seed, scale, device, rdf_rows, load_s)
+    experiment_part(seed, device)
+    launches = {**stn.launch_counts(), **pk.launch_counts()}  # and ends here
+    torch.cuda.empty_cache()
+    out = {"phase": "tenants", "launches": launches, "s": time.perf_counter() - t0}
+    emit(out)
+    if device == "cuda":
+        scans = launches.get("topn_scan.tc", 0) + launches.get("topn_scan.tc_f32", 0)
+        if scans <= 0 or launches.get("topn_merge", 0) <= 0 or \
+                launches.get("kmeans_sweep.tc", 0) <= 0:
+            raise AssertionError(f"tenants: launched {launches}")
+    return out
+
+
 # -- phases 10-11: random decision forests -------------------------------------------
 
 RDF_ROWS = 100_000  # bench_rdf's training rows (tools/train_benchmark.py:215-248)
@@ -3332,7 +3897,7 @@ def post_train(base: str, lines: list[str]) -> float:
     return post_bodies(base + "/train", lines, RDF_TRAIN_LINES)
 
 
-def rdf_published(loc: str, schema):
+def rdf_published(loc: str, schema, topic: str = "OryxUpdate"):
     """The last MODEL on the update topic as the port's forest: (forest,
     encodings, the PMML's model element name)."""
     from oryx_tpu_torch import bus
@@ -3340,7 +3905,7 @@ def rdf_published(loc: str, schema):
     from oryx_tpu_torch.app.rdf import forest_pmml
     from oryx_tpu_torch.common import pmml as pmml_io
 
-    consumer = bus.get_broker(loc).consumer("OryxUpdate", from_beginning=True)
+    consumer = bus.get_broker(loc).consumer(topic, from_beginning=True)
     last = None
     try:
         while True:
@@ -4069,7 +4634,7 @@ def phase_ivf_serving(torch, args, stn, pk, seed: int, items: int = 1_000_000,
 
 # each front's closed loop (a): clients and requests
 FRONT_CLIENTS = 64
-FRONT_REQUESTS = 4096
+FRONT_REQUESTS = 2048  # 4,096 until the tenants phase joined the run (the cuts line)
 # the ladder's load (b), from the client process: (clients, seconds) per
 # step: below budget, overload (four clients for each of the front's 64
 # dispatch workers), back below
@@ -4089,9 +4654,13 @@ def client_main(spec_path: str, out_path: str) -> None:
     so that its clients do not share the server's interpreter lock:
     closed-loop threads over keep-alive ``http.client`` connections, one
     step after another, each response recorded as [step, start s,
-    latency ms, status, X-Oryx-Shed-Stage, Retry-After, body]; with
-    ``sample``, a thread reads that path every ``sample_s`` and records
-    [s, status, shed_stage]."""
+    latency ms, status, X-Oryx-Shed-Stage, Retry-After, path, body,
+    X-Oryx-Experiment-Arm]; a step with ``groups`` runs each group's
+    clients on the group's own paths, all at once, and one with
+    ``partition`` asks each path once, client c taking paths[c::clients];
+    ``user_header`` names a header sent with each path's last segment;
+    with ``sample``, a thread reads that path every ``sample_s`` and
+    records [s, status, shed_stage]."""
     import http.client
     from urllib.parse import urlsplit
 
@@ -4122,7 +4691,7 @@ def client_main(spec_path: str, out_path: str) -> None:
             stop_sampling.wait(max(0.0, spec["sample_s"] - (time.perf_counter() - t_zero - t)))
         conn.close()
 
-    def client(step: int, slot: int, deadline, budget):
+    def client(step: int, slot: int, deadline, budget, paths, once=None):
         conn = connect()
         i = slot
         local = []
@@ -4134,16 +4703,23 @@ def client_main(spec_path: str, out_path: str) -> None:
                     if budget[0] <= 0:
                         break
                     budget[0] -= 1
-            path = paths[i % len(paths)]
-            i += 7
+            if once is not None:  # a partition of the paths, each asked once
+                if not once:
+                    break
+                path = once.pop()
+            else:
+                path = paths[i % len(paths)]
+                i += 7
+            headers = ({spec["user_header"]: path.split("?")[0].rsplit("/", 1)[1]}
+                       if spec.get("user_header") else {})
             t0 = time.perf_counter()
             try:
-                conn.request("GET", path)
+                conn.request("GET", path, headers=headers)
                 resp = conn.getresponse()
                 body = resp.read().decode("utf-8", "replace")
                 local.append([step, t0 - t_zero, 1e3 * (time.perf_counter() - t0), resp.status,
                               resp.getheader("X-Oryx-Shed-Stage"), resp.getheader("Retry-After"),
-                              path, body])
+                              path, body, resp.getheader("X-Oryx-Experiment-Arm")])
             except (OSError, http.client.HTTPException) as e:
                 local.append([step, t0 - t_zero, 1e3 * (time.perf_counter() - t0), -1, None,
                               None, path, repr(e)])
@@ -4162,9 +4738,13 @@ def client_main(spec_path: str, out_path: str) -> None:
         starts.append(time.perf_counter() - t_zero)
         deadline = None if st.get("seconds") is None else time.perf_counter() + st["seconds"]
         budget = None if st.get("requests") is None else [st["requests"]]
+        groups = st.get("groups") or [{"clients": st["clients"], "paths": paths}]
         threads = [
-            threading.Thread(target=client, args=(step, c * 7919, deadline, budget))
-            for c in range(st["clients"])
+            threading.Thread(target=client, args=(
+                step, c * 7919, deadline, budget, g["paths"],
+                g["paths"][c::g["clients"]][::-1] if st.get("partition") else None))
+            for g in groups
+            for c in range(g["clients"])
         ]
         for t in threads:
             t.start()
@@ -4412,22 +4992,30 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
                 raise AssertionError(f"serving-front ({front}): recall@10 {row['recall_at_10']}")
             step(f"{front}_a")
 
-        # byte parity, with both ladders at full (the stdlib layer's ladder
-        # moves only on requests or an evaluation)
+        # byte parity, with both ladders back at full (the stdlib layer's
+        # ladder moves only on requests or an evaluation) and held there
+        # while the fronts are read: the native front's control tick
+        # evaluates its ladder on the real signals every 50 ms, and the
+        # queue-wait EWMA of (a)'s load can lift it a rung between the
+        # wait and the reads
         def ladders_full():
             for layer in layers.values():
                 layer.admission.evaluate()
             return all(layer.admission.stage == overload.STAGE_FULL for layer in layers.values())
 
         wait_for("both ladders back at full", ladders_full, 60, phase="serving-front")
-        layers["native"]._native_front.push_control()
         parity = {}
-        for path in ("/healthz", "/readyz", "/ready", paths[0]):
-            got = {front: raw_fetch(layer.port, path) for front, layer in layers.items()}
-            if masked(got["native"]) != masked(got["stdlib"]):
-                raise AssertionError(f"serving-front: {path} differs between the fronts:\n"
-                                     f"native {got['native'][:600]!r}\nstdlib {got['stdlib'][:600]!r}")
-            parity[path] = len(got["native"])
+        with contextlib.ExitStack() as held:
+            for layer in layers.values():
+                held.enter_context(ladder_held_at_full(layer))
+            layers["native"]._native_front.push_control()
+            for path in ("/healthz", "/readyz", "/ready", paths[0]):
+                got = {front: raw_fetch(layer.port, path) for front, layer in layers.items()}
+                if masked(got["native"]) != masked(got["stdlib"]):
+                    raise AssertionError(
+                        f"serving-front: {path} differs between the fronts:\n"
+                        f"native {got['native'][:600]!r}\nstdlib {got['stdlib'][:600]!r}")
+                parity[path] = len(got["native"])
         layers["native"]._native_front.push_control()
         snapshots = registry.counter("serving.http.native-answered.snapshot").value
         if snapshots <= 0:
@@ -4563,7 +5151,7 @@ NATIVE_FORMAT_ROWS = 100_000
 NATIVE_PY_FORMAT_ROWS = 10_000
 NATIVE_FORMAT_FEATURES = (50, 250)
 NATIVE_READBACK_PROCS = 8  # processes that json.loads the messages back, one per core
-NATIVE_STORE_ROWS = 1_000_000
+NATIVE_STORE_ROWS = 500_000  # 1,000,000 until the tenants phase joined the run (the cuts line)
 NATIVE_STORE_FEATURES = 50
 NATIVE_STORE_BATCH = 4_096
 NATIVE_VTV_RTOL = 1e-9  # the two stores sum the float64 Gramian in different orders
@@ -5027,6 +5615,11 @@ def main() -> int:
           "als_scale_iterations": [ALS_SCALE_ITERATIONS, args.als_iterations],
           "phase2_plain_and_library_times": f"dot, b in {PHASE2_TIMED} (once all cases)",
           "wide_scan_items": [262_144, WIDE_ITEMS],
+          "wide_scan_features": [[1056, 2048, 4096], list(WIDE_FEATURES)],
+          "kmeans_kernel_shapes": "10,000,000 x 20 dropped",
+          "native_host_store_rows": [1_000_000, NATIVE_STORE_ROWS],
+          "serving_front_requests": [4096, FRONT_REQUESTS],
+          "tenants_rdf_rows": [COVTYPE_ROWS, TENANT_RDF_ROWS],
           "native_host_tier_index": "ivf-serving's catalog and centroids, not its own",
           "native_host_python_formatter_rows": [NATIVE_FORMAT_ROWS, NATIVE_PY_FORMAT_ROWS],
           "native_host_p0.3_queries": [TIER_QUERIES, TIER_WIDE_QUERIES]})
@@ -5147,6 +5740,8 @@ def main() -> int:
     }
     bus_launches = phase_buses(args.seed)["launches"]
     clock("buses")
+    tenant_launches = phase_tenants(torch, stn, pk, args.seed)["launches"]
+    clock("tenants")
     rdf_rows = phase_rdf_train(torch, args.seed, args.rdf_rows)
     clock("rdf-train")
     phase_rdf_lambda(args.seed, args.rdf_rows)
@@ -5177,6 +5772,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches[name], "als_lambda_launches": als_launches[name],
             "buses_launches": bus_launches.get(name, 0),
+            "tenants_launches": tenant_launches.get(name, 0),
             "ivf_launches": ivf_launches[name], "front_launches": front_launches.get(name, 0),
             "parity": "ok", "library_topk_ms": None,
             **kernels[name],

@@ -8,8 +8,8 @@ PMML, "MODEL-REF" carries a path to read it from
 (readPMMLFromUpdateKeyMessage, AppPMMLUtils.java:256-285).
 
 Port note: a copy of ``oryx_tpu/app/pmml.py`` (JAX-free), with its imports
-pointed at ``oryx_tpu_torch``. MODEL-REF resolves without the restage
-cache, which the port has not taken over yet.
+pointed at ``oryx_tpu_torch``. A MODEL-REF resolves through the serving
+layer's restage cache (``serving/restage.py``) when one is registered.
 """
 
 from __future__ import annotations
@@ -159,6 +159,11 @@ def read_pmml_from_update_message(key: str, message: str) -> Element | None:
         # resolve to None.
         try:
             ref = message
+            stager = _active_stager()
+            if stager is not None:
+                staged = stager.stage(ref)
+                if staged is not None:
+                    ref = str(staged)
             in_dir = storage.join(ref, MODEL_FILE_NAME)
             if storage.exists(in_dir):
                 return pmml_io.from_string(storage.read_text(in_dir))
@@ -170,3 +175,14 @@ def read_pmml_from_update_message(key: str, message: str) -> Element | None:
             return None
     return None
 
+
+def _active_stager():
+    """The serving layer's restage cache, when one is registered
+    (oryx.serving.restage-dir). Lazy import: app must not pull the
+    serving package in at module load."""
+    try:
+        from oryx_tpu_torch.serving import restage
+
+        return restage.active()
+    except Exception:  # pragma: no cover - serving package unavailable
+        return None

@@ -1,8 +1,10 @@
 """Model registry (counterpart of ``oryx_tpu/registry``): per-generation
 manifests, the CHAMPION pointer and retention GC (``store``), the
 champion/challenger gate (``gate``) and serving-side generation tracking
-with duplicate-MODEL suppression (``tracking``). Rollback is not ported
-yet.
+with duplicate-MODEL suppression (``tracking``). The serving layer's
+``/model/generations`` and ``/model/rollback/<generation>`` read and move
+them; ``testing`` holds the probe app (a scripted-metric update and a
+generation-aware serving manager).
 """
 
 from oryx_tpu_torch.registry.gate import ChampionGate, GateDecision

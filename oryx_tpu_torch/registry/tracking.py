@@ -31,9 +31,9 @@ generation). Duplicate suppression covers both ids, and a champion
 swap mid-experiment keeps the challenger in place.
 
 Port note: a copy of ``oryx_tpu/registry/tracking.py`` (JAX-free), with its imports
-pointed at ``oryx_tpu_torch``. Online experiments are
-not ported (the serving layer refuses ``oryx.serving.ab.fraction > 0``),
-so the challenger half stays idle.
+pointed at ``oryx_tpu_torch``. The serving layer attaches its
+``ExperimentCoordinator`` when ``oryx.serving.ab.fraction`` is above 0,
+which brings the challenger half into play as in the JAX package.
 """
 
 from __future__ import annotations

@@ -32,8 +32,12 @@ Before a vector group's submit, an IVF index with a tiered host plane
 gets the advisory ``prefetch_for_queries`` hint (a failing hint never
 fails the dispatch).
 
-Not ported yet: tenancy (the deficit-round-robin queue serves the single
-default tenant, and no tenant's share of the bound is kept).
+Tenancy as in the JAX package: each entry carries the tenant its request
+was served for (snapshotted from ``tenancy.context`` at enqueue), the
+queue serves per-tenant sub-queues deficit-round-robin by the weights
+:func:`configure_fairness` pins, and under contention a tenant that holds
+its weighted share of the bounded queue is refused at once. Entries
+group by matrix snapshot, so one scan never mixes two tenants' planes.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from oryx_tpu_torch.common import tracing
 from oryx_tpu_torch.common.metrics import registry as _metrics
 from oryx_tpu_torch.ops import topn as topn_ops
 from oryx_tpu_torch.serving.overload import active_probe_fraction
+from oryx_tpu_torch.tenancy.context import current_tenant
 
 log = logging.getLogger(__name__)
 
@@ -109,6 +114,10 @@ class _Entry:
     t_q: float = 0.0
     probe_fraction: float | None = None
     nprobe_applied: int | None = None
+    # multi-tenancy: the tenant identity snapshotted from the request
+    # thread's contextvar at enqueue — the DRR queue services per-tenant
+    # sub-queues by fair-share weight (docs/multi-tenancy.md)
+    tenant: str | None = None
 
 
 def _k_bucket(k: int) -> int:
@@ -151,17 +160,36 @@ def _record_entry_spans(e: _Entry, t_done: float) -> None:
 
 
 class _FairQueue:
-    """Deficit-round-robin queue over per-tenant sub-queues, serving the
-    single default tenant (plain FIFO) until tenancy is ported.
+    """Deficit-round-robin queue over per-tenant sub-queues.
+
+    Drop-in for the subset of :class:`queue.Queue` the batcher uses
+    (``put`` / ``get`` / ``get_nowait`` / ``qsize``), plus per-tenant
+    depth accounting for the admission controller. Entries without a
+    tenant ride a default sub-queue at weight 1.0, so with tenancy off
+    every entry lands there and service order is plain FIFO — the wired
+    -but-single-tenant overhead bench measures exactly this path.
+
+    Fairness semantics (docs/multi-tenancy.md): each tenant with queued
+    entries holds a credit; the queue serves the head tenant while its
+    credit lasts (one request costs 1), then rotates it to the tail with
+    a fresh quantum of ``quantum * weight`` credits. A hot tenant's
+    backlog therefore waits behind at most one quantum from each other
+    active tenant per rotation, bounding victim queue-wait regardless of
+    attacker depth.
 
     The close sentinel (``put(None)``) is a flag, not a queued item:
     ``get`` keeps draining real entries first and only yields ``None``
-    once every sub-queue is empty."""
+    once every sub-queue is empty — the drain-then-stop contract the
+    dispatcher shutdown relies on.
+    """
 
     _DEFAULT = ""  # sub-queue key for untenanted entries
 
-    def __init__(self, quantum: float = 8.0) -> None:
+    def __init__(
+        self, weights: dict[str, float] | None = None, quantum: float = 8.0
+    ) -> None:
         self._cv = threading.Condition()
+        self._weights = dict(weights or {})
         self._quantum = max(1.0, float(quantum))
         self._queues: dict[str, "deque[_Entry]"] = {}
         self._rr: "deque[str]" = deque()  # tenants with queued entries
@@ -169,19 +197,22 @@ class _FairQueue:
         self._size = 0
         self._sentinel = False
 
+    def _refill(self, key: str) -> float:
+        return max(1.0, self._quantum * self._weights.get(key, 1.0))
+
     def put(self, e) -> None:
         with self._cv:
             if e is None:
                 self._sentinel = True
                 self._cv.notify_all()
                 return
-            key = self._DEFAULT
+            key = e.tenant or self._DEFAULT
             q = self._queues.get(key)
             if q is None:
                 q = self._queues[key] = deque()
             if not q:
                 self._rr.append(key)
-                self._credit[key] = self._quantum
+                self._credit[key] = self._refill(key)
             q.append(e)
             self._size += 1
             self._cv.notify()
@@ -195,10 +226,11 @@ class _FairQueue:
                 e = q.popleft()
                 self._size -= 1
                 if not q:
-                    self._rr.popleft()
+                    self._rr.popleft()  # re-enters the rotation on next put
                 return e
+            # credit spent: rotate to the tail with a fresh quantum
             self._rr.rotate(-1)
-            self._credit[key] = self._quantum
+            self._credit[key] = self._refill(key)
 
     def get(self, block: bool = True, timeout: float | None = None):
         with self._cv:
@@ -227,6 +259,42 @@ class _FairQueue:
         with self._cv:
             return self._size
 
+    def depth(self, tenant: str) -> int:
+        with self._cv:
+            q = self._queues.get(tenant)
+            return len(q) if q else 0
+
+    def tenant_depths(self) -> dict[str, int]:
+        """Queued entries per tenant (default sub-queue excluded) — the
+        admission controller's per-tenant pressure signal."""
+        with self._cv:
+            return {
+                k: len(q) for k, q in self._queues.items() if k and len(q)
+            }
+
+    def share_limit(self, tenant: str, max_queue: int) -> int:
+        """`tenant`'s slice of a bounded queue, by fair-share weight."""
+        weights = self._weights
+        total = sum(weights.values()) or 1.0
+        share = weights.get(tenant, 1.0) / max(total, weights.get(tenant, 1.0))
+        return max(1, int(max_queue * share))
+
+    def over_share(self, tenant: str, max_queue: int) -> bool:
+        """True when `tenant` has exhausted its weighted slice of the
+        bounded queue WHILE other tenants are queueing too. A lone
+        burster may use the whole queue — the per-tenant bound only
+        bites under contention, which is exactly when isolation matters."""
+        with self._cv:
+            q = self._queues.get(tenant)
+            if q is None or not q:
+                return False
+            contended = any(
+                k != tenant and len(other) for k, other in self._queues.items()
+            )
+            if not contended:
+                return False
+        return len(q) >= self.share_limit(tenant, max_queue)
+
 
 class TopNBatcher:
     """Coalesces concurrent ``score`` calls into batched submits.
@@ -242,6 +310,8 @@ class TopNBatcher:
         max_batch: int | None = None,
         max_inflight: int | None = None,
         max_queue: int | None = None,
+        tenant_weights: dict[str, float] | None = None,
+        fair_quantum: float = 8.0,
     ) -> None:
         # None => adaptive: the completer resizes the knob from its EWMA
         # of dispatch latency; an explicit value pins it
@@ -256,7 +326,9 @@ class TopNBatcher:
         self._last_wait_obs = time.monotonic()
         # queued entries past this raise BatcherOverloadedError; None = unbounded
         self._max_queue = None if max_queue is None else int(max_queue)
-        self._queue = _FairQueue()
+        # DRR service across per-tenant sub-queues; FIFO-equivalent when
+        # every entry is untenanted (docs/multi-tenancy.md)
+        self._queue = _FairQueue(tenant_weights, fair_quantum)
         self._pending: queue.Queue = queue.Queue()
         # inflight tracked under a Condition so the adaptive cap can move
         # while dispatches are blocked on it
@@ -297,9 +369,11 @@ class TopNBatcher:
             if ctx is not None and ctx.sampled:
                 e.trace_ctx = ctx
                 e.t_enqueue = time.time()
-        # the admission controller's reduced-probe override, read here on
-        # the request thread that carries the contextvar
+        # the admission controller's reduced-probe override and the tenant
+        # identity, read here on the request thread that carries both
+        # contextvars
         e.probe_fraction = active_probe_fraction()
+        e.tenant = current_tenant()
         e.t_q = time.monotonic()
         with self._state_lock:  # an entry can never land after the sentinel
             if self._closed:
@@ -309,6 +383,17 @@ class TopNBatcher:
                 # few entries) — exactness doesn't matter, unboundedness does
                 _metrics.counter("serving.batcher.queue.rejected").inc()
                 raise BatcherOverloadedError(f"batcher queue full ({self._max_queue} entries)")
+            if (
+                e.tenant is not None
+                and self._max_queue is not None
+                and self._queue.over_share(e.tenant, self._max_queue)
+            ):
+                # noisy-neighbor bound: under contention a tenant only
+                # gets its weighted slice of the bounded queue; alone it
+                # may still fill the whole thing
+                _metrics.counter("serving.batcher.queue.rejected").inc()
+                _metrics.counter(f"serving.batcher.queue.rejected.tenant.{e.tenant}").inc()
+                raise BatcherOverloadedError(f"tenant {e.tenant} over fair queue share")
             self._queue.put(e)
             _metrics.gauge("serving.batcher.queue.depth").set(self._queue.qsize())
         e.done.wait()
@@ -581,6 +666,16 @@ def configure_scheduler(
             LATENCY_BUDGET_MS = float(latency_budget_ms)
 
 
+def configure_fairness(tenant_weights: dict[str, float] | None, quantum: float = 8.0) -> None:
+    """Pin the DRR fair-share weights for the process-wide batcher (the
+    serving layer maps ``oryx.tenancy.tenants.<id>.weight`` and
+    ``oryx.tenancy.fair-share.quantum`` here at startup). ``None``
+    weights keep tenancy-agnostic FIFO behavior."""
+    with _default_lock:
+        _default_init["tenant_weights"] = tenant_weights
+        _default_init["fair_quantum"] = quantum
+
+
 def default_batcher_signals() -> tuple[float, int]:
     """(queue_wait_ewma_ms, queue_depth) of the live default batcher, or
     zeros when none is running — the admission controller polls this on
@@ -591,6 +686,17 @@ def default_batcher_signals() -> tuple[float, int]:
     if b is None or b._closed:
         return 0.0, 0
     return b.queue_wait_ewma_ms(), b._queue.qsize()
+
+
+def default_tenant_depths() -> dict[str, int]:
+    """Per-tenant queued-entry counts of the live default batcher ({} when
+    none is running) — the per-tenant admission ladders poll this the same
+    way the global ladder polls :func:`default_batcher_signals`."""
+    with _default_lock:
+        b = _default
+    if b is None or b._closed:
+        return {}
+    return b._queue.tenant_depths()
 
 
 def get_default_batcher() -> TopNBatcher:

@@ -50,13 +50,32 @@ IVF tier's batches by path: as JSON, or as Prometheus text 0.0.4 for
 ``?format=prometheus`` or an ``Accept`` naming ``text/plain`` or
 ``openmetrics`` (``?format=json`` wins), as the JAX package negotiates.
 
-Not ported yet: tenancy and online experiments (a config that declares
-enabled tenants or sets ``oryx.serving.ab.fraction`` above 0 is refused
-at construction, so the per-tenant ladders and the experiment arm stay
-out), ``/model/generations`` and rollback, MODEL-REF restage, TLS and
-auth (a config that sets a key file or credentials is refused at
-construction), tracing export routes, profiling and the per-instance
-metrics registry.
+Tenancy as in the JAX package (docs/multi-tenancy.md): with
+``oryx.tenancy.enabled`` and declared tenants, one layer serves every
+tenant's app. Each tenant gets its own model manager, health, generation
+tracker, registry store and update consumer on its namespaced topic
+(``tenancy.spec.tenant_config``), behind the ``TenantServingMux``; a
+request's tenant comes from the ``/t/<tenant>/`` prefix, else the
+``X-Oryx-Tenant`` header, else the default tenant; the batcher serves the
+tenants deficit-round-robin by weight and the admission controller keeps
+a ladder per tenant. ``/healthz`` lists every tenant's live generation
+and the request counters carry ``tenant.<id>`` twins.
+
+Online experiments as in the JAX package (docs/experiments.md): with
+``oryx.serving.ab.fraction`` above 0 and a model dir, an
+``ExperimentCoordinator`` assigns each attributed request an arm
+(``X-Oryx-Experiment-Arm``), joins interaction events from the input
+topic back to the served lists, and promotes or refuses the challenger
+through the registry (``GET /experiments`` reports it). The model
+registry answers ``GET /model/generations`` and
+``POST /model/rollback/<generation>``, and ``oryx.serving.restage-dir``
+stages MODEL-REF generations into a local cache (``serving/restage.py``).
+Each layer keeps its own metrics registry (``instance_metrics``), which
+``/metrics`` lays over the process-wide one.
+
+Not ported yet: TLS and auth (a config that sets a key file or
+credentials is refused at construction), autoscaling, the console,
+the tracing export routes and profiling.
 """
 
 from __future__ import annotations
@@ -77,8 +96,8 @@ from oryx_tpu_torch.common import ledger, metrics, tracing
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
-from oryx_tpu_torch.tenancy import context as _tenancy
 from oryx_tpu_torch.device import default_device
+from oryx_tpu_torch.experiments import routing as _exp_routing
 from oryx_tpu_torch.registry.tracking import GenerationTracker
 from oryx_tpu_torch.serving import overload as _overload
 from oryx_tpu_torch.serving.batcher import BatcherOverloadedError
@@ -91,6 +110,7 @@ from oryx_tpu_torch.serving.web import (
     render,
     resource,
 )
+from oryx_tpu_torch.tenancy import context as _tenancy
 
 log = logging.getLogger(__name__)
 
@@ -225,8 +245,8 @@ class ServingHealth:
         with self._mu:
             self._live_generation = value
 
-    # generation id of an online experiment's challenger arm; always None
-    # in the port, which refuses experiments
+    # generation id of the challenger arm while an online experiment is
+    # active (docs/experiments.md); None otherwise
     @property
     def challenger_generation(self) -> str | None:
         with self._mu:
@@ -316,6 +336,11 @@ def _healthz(ctx: ServingContext, req: Request) -> Response:
         "live_generation": health.live_generation,
         "challenger_generation": health.challenger_generation,
     }
+    # multi-tenant serving: the model manager is a TenantServingMux and
+    # each tenant has its own live generation
+    live_generations = getattr(ctx.model_manager, "live_generations", None)
+    if callable(live_generations):
+        body["tenants"] = live_generations()
     return Response(200 if health.alive else 503, body, content_type="application/json")
 
 
@@ -351,6 +376,11 @@ def _metrics(ctx: ServingContext, req: Request) -> Response:
         # resources.<kind>.live gauges: the leak alarm for week-long runs
         ledger.ledger.refresh()
     snap = metrics.registry.snapshot()
+    if ctx.instance_metrics is not None:
+        # instance-scoped values shadow the process-global ones: with
+        # several layers in one process the shared registry sums them all,
+        # the instance registry is this layer alone
+        snap.update(ctx.instance_metrics.snapshot())
     manager = ctx.model_manager
     model = manager.get_model() if manager is not None else None
     if model is not None:
@@ -390,21 +420,116 @@ def _non_numeric(entry) -> bool:
         return True
 
 
+@resource("GET", "/model/generations")
+def _model_generations(ctx: ServingContext, req: Request) -> Response:
+    """The registry's view of the model dir plus what this instance is
+    actually serving — the skew between the two is what the `health` CLI
+    probe alerts on (docs/model-registry.md)."""
+    registry = ctx.registry
+    if registry is None:
+        raise OryxServingException(404, "no model registry configured")
+    generations = []
+    for gen_id in registry.list_generations():
+        manifest = registry.read_manifest(gen_id)
+        entry = {"generation_id": gen_id}
+        if manifest is not None:
+            entry.update(
+                status=manifest.status,
+                parent_id=manifest.parent_id,
+                eval_metric=manifest.eval_metric,
+                created_at_ms=manifest.created_at_ms,
+            )
+        generations.append(entry)
+    body = {
+        "live_generation": ctx.health.live_generation if ctx.health else None,
+        "champion": registry.champion_id(),
+        "generations": generations,
+    }
+    return Response(200, body, content_type="application/json")
+
+
+@resource("POST", "/model/rollback/{generationID}")
+def _model_rollback(ctx: ServingContext, req: Request) -> Response:
+    """Republish an archived generation onto the update topic so every
+    consumer (this instance, other serving replicas, the speed layer)
+    converges on it, and move the CHAMPION pointer so subsequent batch
+    runs gate/warm-start against the rolled-back generation."""
+    registry = ctx.registry
+    if registry is None:
+        raise OryxServingException(404, "no model registry configured")
+    if ctx.config.get_bool("oryx.serving.api.read-only"):
+        raise OryxServingException(403, "serving layer is read-only")
+    if ctx.rollback_publisher is None:
+        raise OryxServingException(503, "no update topic configured")
+    generation_id = req.params["generationID"]
+    if not registry.has_generation(generation_id):
+        raise OryxServingException(404, f"no such generation {generation_id}")
+    key = ctx.rollback_publisher(generation_id)
+    registry.set_champion(generation_id)
+    metrics.registry.counter("serving.model.rollbacks").inc()
+    log.warning("rollback: republished generation %s as %s", generation_id, key)
+    body = {"generation_id": generation_id, "published_as": key}
+    return Response(200, body, content_type="application/json")
+
+
+@resource("GET", "/experiments")
+def _experiments_report(ctx: ServingContext, req: Request) -> Response:
+    """Online-experiment report (docs/experiments.md): arm assignment
+    config, champion/challenger generations, per-arm online metrics and
+    the standing online-gate decision. Always answers — with experiments
+    disabled the body just says so."""
+    if ctx.experiments is None:
+        return Response(200, {"enabled": False, "active": False}, content_type="application/json")
+    return Response(200, ctx.experiments.report(), content_type="application/json")
+
+
 def _model_ready(ctx: ServingContext) -> bool:
     manager = ctx.model_manager
     if manager is None:
         return False
+    min_fraction = ctx.config.get_float("oryx.serving.min-model-load-fraction")
+    tenant_models = getattr(manager, "tenant_models", None)
+    if tenant_models is not None:
+        # multi-tenant mux: ready when EVERY tenant's model is loaded past
+        # the threshold, since a replica missing one tenant's model would
+        # answer that tenant 503
+        models = tenant_models()
+        if not models:
+            return False
+        return all(
+            m is not None and getattr(m, "get_fraction_loaded", lambda: 1.0)() >= min_fraction
+            for m in models.values()
+        )
     model = manager.get_model()
     if model is None:
         return False
-    min_fraction = ctx.config.get_float("oryx.serving.min-model-load-fraction")
     return getattr(model, "get_fraction_loaded", lambda: 1.0)() >= min_fraction
 
 
-def _observe_request(method: str, status: int, t0: float) -> None:
+def _observe_request(
+    method: str, status: int, t0: float, layer=None, tenant: str | None = None
+) -> None:
+    dt = time.perf_counter() - t0
     metrics.registry.counter(f"serving.requests.{method}").inc()
     metrics.registry.counter(f"serving.responses.{status // 100}xx").inc()
-    metrics.registry.histogram("serving.request.seconds").observe(time.perf_counter() - t0)
+    metrics.registry.histogram("serving.request.seconds").observe(dt)
+    if layer is None:
+        return
+    # instance-scoped mirrors plus the per-generation counter that makes
+    # a rotation observable: the live generation at response time is
+    # stamped on the request
+    im = layer.instance_metrics
+    im.counter(f"serving.requests.{method}").inc()
+    im.counter(f"serving.responses.{status // 100}xx").inc()
+    im.histogram("serving.request.seconds").observe(dt)
+    generation = layer.health.live_generation or "none"
+    im.counter(f"serving.requests.generation.{generation}").inc()
+    im.histogram(f"serving.request.seconds.generation.{generation}").observe(dt)
+    if tenant is not None:
+        # tenant-labeled twins: per-tenant rate and latency on a shared
+        # multi-tenant layer (docs/multi-tenancy.md)
+        im.counter(f"serving.requests.tenant.{tenant}").inc()
+        im.histogram(f"serving.request.seconds.tenant.{tenant}").observe(dt)
 
 
 def _refuse_tls_and_auth(config: Config) -> None:
@@ -449,29 +574,10 @@ def _configure_ann(config: Config) -> None:
     )
 
 
-def _refuse_tenancy_and_experiments(config: Config) -> None:
-    """Tenancy and online experiments are not ported: a config that
-    declares tenants (the JAX package serves them when
-    ``oryx.tenancy.enabled`` is on) or splits traffic to a challenger must
-    not come up as one untenanted app serving the champion alone."""
-    if config.get("oryx.tenancy.enabled", None) and config.get("oryx.tenancy.tenants", None):
-        raise NotYetPortedError(
-            "oryx.tenancy.tenants declares tenants, but tenancy is not yet ported "
-            "to oryx_tpu_torch"
-        )
-    fraction = config.get_optional_float("oryx.serving.ab.fraction")
-    if fraction is not None and fraction > 0:
-        raise NotYetPortedError(
-            f"oryx.serving.ab.fraction = {fraction}, but online experiments are not yet "
-            "ported to oryx_tpu_torch"
-        )
-
-
 class ServingLayer:
     def __init__(self, config: Config) -> None:
         default_device()  # the port serves from the card: fail now, not per request
         _refuse_tls_and_auth(config)
-        _refuse_tenancy_and_experiments(config)
         self.config = config
         tracing.configure_from(config)
         self.port = config.get_int("oryx.serving.api.port")
@@ -489,11 +595,31 @@ class ServingLayer:
         for mod in self.app_resources or []:
             check_port_module(mod, "oryx.serving.application-resources")
 
+        # multi-tenant mode (docs/multi-tenancy.md): the oryx.tenancy
+        # block declares N tenants this one layer serves — None keeps the
+        # single-tenant wiring
+        from oryx_tpu_torch.tenancy.spec import TenantRegistry
+
+        self.tenants = TenantRegistry.from_config(config)
+        self.tenant_mux = None
+        if self.tenants is not None:
+            # one router hosts every tenant's app endpoints (a tenant's
+            # class overrides were held to the port's modules at parse)
+            merged = list(self.app_resources or [])
+            for mod in self.tenants.resource_modules():
+                if mod not in merged:
+                    merged.append(mod)
+            self.app_resources = merged
+
         # push oryx.serving.scan.* into the batcher's scheduler and the
         # scan before either spins up (the default batcher starts on first use)
         from oryx_tpu_torch.ops.streaming_topn import configure_scan
-        from oryx_tpu_torch.serving.batcher import configure_scheduler
+        from oryx_tpu_torch.serving.batcher import configure_fairness, configure_scheduler
 
+        if self.tenants is not None and self.tenants.fair_share:
+            # DRR fair scheduling in the batcher: each tenant's entries
+            # drain from a private queue at its weighted share
+            configure_fairness(self.tenants.weights(), self.tenants.quantum)
         configure_scheduler(
             max_batch=config.get_optional_int("oryx.serving.scan.max-batch"),
             max_inflight=config.get_optional_int("oryx.serving.scan.max-inflight"),
@@ -515,14 +641,16 @@ class ServingLayer:
             spill_dir=config.get_optional_string("oryx.serving.store.tier.spill-dir"),
         )
 
-        # the model registry over the batch model dir: index generations
-        # are written under it
+        # the model registry over the batch model dir: /model/generations
+        # and rollback, the CHAMPION pointer that classifies a challenger,
+        # and the index generations written under it
         from oryx_tpu_torch.registry.store import RegistryStore
 
         model_dir = config.get_optional_string("oryx.batch.storage.model-dir")
         self.registry_store = RegistryStore(model_dir) if model_dir else None
-        # the update-topic producer, opened on first use (an index
-        # generation's INDEX-REF)
+        # the update-topic producer, opened on first use (a rollback's
+        # republish, an index generation's INDEX-REF); its lock serialises
+        # whole publishes, so two rollbacks never interleave their bytes
         self._update_producer = None
         self._update_producer_lock = threading.Lock()
         self._index_maintainer = None
@@ -538,12 +666,42 @@ class ServingLayer:
         self._batcher_retained = False
         self.health = ServingHealth()
         self.retry_policy = RetryPolicy.from_config(config, "oryx.serving.retry")
+        # this layer's own metrics: with several layers in one process the
+        # module-global registry sums them, this one is the layer alone
+        self.instance_metrics = metrics.MetricsRegistry()
         self._inflight = 0
         self._inflight_cond = threading.Condition()
         self._close_lock = threading.Lock()
         self._close_done = False
-        # live generation and duplicate-MODEL suppression on the update stream
-        self.generation_tracker = GenerationTracker(self.health)
+
+        # MODEL-REF restage cache (docs/durability.md): referenced
+        # generation dirs download locally through an atomic temp-dir +
+        # rename; registered process-wide, so layers sharing a process
+        # share one staged copy per generation
+        self.model_stager = None
+        restage_dir = config.get_optional_string("oryx.serving.restage-dir")
+        if restage_dir:
+            from oryx_tpu_torch.serving import restage
+
+            self.model_stager = restage.ModelStager(restage_dir)
+            restage.set_active(self.model_stager)
+
+        # online experiments (docs/experiments.md): arm router, online
+        # evaluator and evidence-gated promotion, built only with
+        # oryx.serving.ab.fraction > 0 AND a registry (the CHAMPION
+        # pointer classifies challenger publishes)
+        self.experiments = None
+        if self.registry_store is not None and config.get_float("oryx.serving.ab.fraction") > 0:
+            from oryx_tpu_torch.experiments.coordinator import ExperimentCoordinator
+
+            self.experiments = ExperimentCoordinator(
+                config, self.registry_store, instance_metrics=self.instance_metrics
+            )
+        # live generation (and challenger) and duplicate-MODEL suppression
+        # on the update stream
+        self.generation_tracker = GenerationTracker(self.health, experiments=self.experiments)
+        if self.experiments is not None:
+            self.experiments.attach_tracker(self.generation_tracker)
 
         # adaptive overload control: the admission controller watches the
         # batcher's queue-wait EWMA, its queue depth and the requests in
@@ -554,11 +712,18 @@ class ServingLayer:
             _overload.AdmissionController(
                 self.overload_config,
                 signals=self._overload_signals,
+                instance_metrics=self.instance_metrics,
                 generation_fn=lambda: self.health.live_generation,
             )
             if self.overload_config.enabled
             else None
         )
+        if self.admission is not None and self.tenants is not None:
+            from oryx_tpu_torch.serving.batcher import default_tenant_depths
+
+            # per-tenant shed ladders: a noisy tenant's own queue depth
+            # (against its weighted share) walks its private ladder
+            self.admission.configure_tenants(self.tenants.weights(), default_tenant_depths)
 
         self.router = Router()
         for mod in self.app_resources or []:
@@ -586,7 +751,7 @@ class ServingLayer:
         update_broker_loc = cfg.get_optional_string("oryx.update-topic.broker")
         update_topic = cfg.get_optional_string("oryx.update-topic.message.topic")
 
-        if input_broker_loc and input_topic and not self.read_only:
+        if self.tenants is None and input_broker_loc and input_topic and not self.read_only:
             broker = get_broker(input_broker_loc)
             if not self.no_init_topics:
                 broker.create_topic(
@@ -594,7 +759,21 @@ class ServingLayer:
                 )
             self.input_producer = broker.producer(input_topic)
 
-        if self.model_manager_class:
+        if self.experiments is not None and input_broker_loc and input_topic:
+            # online evaluator: follow the input topic live (new events
+            # only — historical interactions can't join future serves)
+            broker = get_broker(input_broker_loc)
+            if not self.no_init_topics:
+                broker.create_topic(
+                    input_topic, cfg.get_optional_int("oryx.input-topic.message.partitions") or 1
+                )
+            self.experiments.start(broker.consumer(input_topic))
+
+        if self.tenants is not None:
+            # one runtime per tenant behind the mux facades replaces the
+            # single manager/consumer pair
+            self._start_tenants(cfg, input_broker_loc, update_broker_loc)
+        elif self.model_manager_class:
             self.model_manager = load_instance_of(self.model_manager_class, cfg)
             if update_broker_loc and update_topic:
                 broker = get_broker(update_broker_loc)
@@ -618,9 +797,38 @@ class ServingLayer:
                 self._consume_thread.start()
 
         self._start_index_maintainer(update_broker_loc, update_topic)
+        rollback_publisher = None
+        if self.registry_store is not None and update_broker_loc and update_topic:
+            max_size = cfg.get_int("oryx.update-topic.message.max-size")
+
+            def rollback_publisher(generation_id: str) -> str:
+                from oryx_tpu_torch.registry.store import publish_generation
+
+                # the lock covers the whole publish: concurrent rollbacks
+                # serialise, so the last one to publish wins cleanly
+                with self._update_producer_lock:
+                    if self._update_producer is None:
+                        self._update_producer = get_broker(update_broker_loc).producer(
+                            update_topic
+                        )
+                    return publish_generation(
+                        self.registry_store,
+                        generation_id,
+                        self._update_producer,
+                        max_size,
+                        retry_policy=self.retry_policy,
+                    )
+
         ctx = ServingContext(
-            self.model_manager, self.input_producer, self.config, self.health,
+            self.model_manager,
+            self.input_producer,
+            self.config,
+            self.health,
+            registry=self.registry_store,
+            rollback_publisher=rollback_publisher,
+            instance_metrics=self.instance_metrics,
             admission=self.admission,
+            experiments=self.experiments,
         )
         threads = cfg.get_optional_int("oryx.serving.api.threads") or 64
         # the native front when oryx.serving.native.* allows it and g++
@@ -704,24 +912,113 @@ class ServingLayer:
             # MODEL before the manager sees the block
             block = self.generation_tracker.filter_block(block)
             if block is not None and len(block) > 0:
-                yield block
+                # generation-aware managers read the challenger id while
+                # they consume, to load a challenger without swapping it live
+                with _exp_routing.consume_challenger(
+                    self.generation_tracker.challenger_generation
+                ):
+                    yield block
                 self.health.mark_update()
                 if self._native_front is not None and _block_has_model(block):
                     # a MODEL apply flips readiness and the live generation
                     # now: the native snapshots do not wait for the next tick
                     self._native_front.push_snapshots()
 
+    # -- multi-tenant wiring (docs/multi-tenancy.md) ---------------------------
+
+    def _start_tenants(self, cfg, input_broker_loc, update_broker_loc) -> None:
+        """One serving runtime per tenant — private model manager, health,
+        generation tracker, registry store, and a namespaced update-topic
+        consumer replaying from offset 0 — multiplexed behind the single
+        ``ServingContext`` surface the resource handlers already use."""
+        from functools import partial
+
+        from oryx_tpu_torch.registry.store import RegistryStore
+        from oryx_tpu_torch.tenancy.mux import TenantInputMux, TenantRuntime, TenantServingMux
+        from oryx_tpu_torch.tenancy.spec import tenant_config
+
+        runtimes: dict[str, TenantRuntime] = {}
+        producers: dict = {}
+        for spec in self.tenants:
+            tid = spec.tenant_id
+            tcfg = tenant_config(cfg, spec)
+            manager = load_instance_of(spec.wiring("serving-manager"), tcfg)
+            health = ServingHealth()
+            tracker = GenerationTracker(health)
+            model_dir = tcfg.get_optional_string("oryx.batch.storage.model-dir")
+            rt = TenantRuntime(
+                spec, tcfg, manager, health, tracker,
+                store=RegistryStore(model_dir) if model_dir else None,
+            )
+            tenant_input = tcfg.get_optional_string("oryx.input-topic.message.topic")
+            if input_broker_loc and tenant_input and not self.read_only:
+                broker = get_broker(input_broker_loc)
+                if not self.no_init_topics:
+                    broker.create_topic(
+                        tenant_input,
+                        tcfg.get_optional_int("oryx.input-topic.message.partitions") or 1,
+                    )
+                rt.producer = broker.producer(tenant_input)
+                producers[tid] = rt.producer
+            tenant_update = tcfg.get_optional_string("oryx.update-topic.message.topic")
+            if update_broker_loc and tenant_update:
+                broker = get_broker(update_broker_loc)
+                if not self.no_init_topics:
+                    broker.create_topic(
+                        tenant_update,
+                        tcfg.get_optional_int("oryx.update-topic.message.partitions") or 1,
+                    )
+                rt.consumer = broker.consumer(tenant_update, from_beginning=True)
+                rt.thread = SupervisedThread(
+                    f"ServingUpdateConsumer-{tid}",
+                    partial(self._consume_tenant_updates, rt),
+                    self.retry_policy,
+                    self._stop_event,
+                    metrics_prefix="serving.consume",
+                )
+                health.consume_thread = rt.thread
+                rt.thread.start()
+            runtimes[tid] = rt
+        self.tenant_mux = TenantServingMux(runtimes, self.tenants.default_tenant)
+        self.model_manager = self.tenant_mux
+        if producers:
+            self.input_producer = TenantInputMux(producers, self.tenants.default_tenant)
+
+    def _consume_tenant_updates(self, rt) -> None:
+        rt.manager.consume_blocks(self._tenant_blocks(rt))
+
+    def _tenant_blocks(self, rt):
+        """The per-tenant twin of :meth:`_health_blocks`: the same stream
+        health marks and duplicate-MODEL suppression, against the
+        tenant's own consumer, tracker and health."""
+        consumer = rt.consumer
+        while not self._stop_event.is_set() and not consumer.closed():
+            try:
+                block = consumer.poll_block(max_records=10_000, timeout=0.2)
+            except Exception:
+                rt.health.mark_stream_down()
+                raise
+            rt.health.mark_stream_ok()
+            block = rt.tracker.filter_block(block)
+            if block is not None and len(block) > 0:
+                yield block
+                rt.health.mark_update()
+
     # -- in-flight requests and drain ----------------------------------------
 
     def _request_began(self) -> None:
         with self._inflight_cond:
             self._inflight += 1
+            n = self._inflight
+        self.instance_metrics.gauge("serving.requests.in-flight").set(n)
 
     def _request_ended(self) -> None:
         with self._inflight_cond:
             self._inflight -= 1
-            if self._inflight <= 0:
+            n = self._inflight
+            if n <= 0:
                 self._inflight_cond.notify_all()
+        self.instance_metrics.gauge("serving.requests.in-flight").set(n)
 
     @property
     def inflight_requests(self) -> int:
@@ -742,6 +1039,7 @@ class ServingLayer:
         answer 503 so load balancers stop sending here, while requests in
         flight complete."""
         self.health.draining = True
+        self.instance_metrics.gauge("serving.draining").set(1)
         if self._native_front is not None:
             # the native /readyz snapshot flips now, not at the next tick
             self._native_front.push_snapshots()
@@ -787,10 +1085,24 @@ class ServingLayer:
             self._consume_thread.join(timeout=5)
             if self._consume_thread.is_alive():
                 log.warning("serving thread %r still alive after 5s join", self._consume_thread.name)
+        if self.tenant_mux is not None:
+            # close every tenant consumer first (unblocks the polls), then
+            # join the consume threads
+            runtimes = self.tenant_mux.runtimes()
+            for rt in runtimes.values():
+                if rt.consumer is not None:
+                    rt.consumer.close()
+            for rt in runtimes.values():
+                if rt.thread is not None:
+                    rt.thread.join(timeout=5)
+                    if rt.thread.is_alive():
+                        log.warning("serving thread %r still alive after 5s join", rt.thread.name)
         if self._index_maintainer is not None:
             self._index_maintainer.close()
         if self.model_manager is not None:
             self.model_manager.close()
+        if self.experiments is not None:
+            self.experiments.close()
         if self.input_producer is not None:
             self.input_producer.close()
         with self._update_producer_lock:
@@ -802,6 +1114,13 @@ class ServingLayer:
             from oryx_tpu_torch.serving.batcher import release_default_batcher
 
             release_default_batcher()
+        if self.model_stager is not None:
+            from oryx_tpu_torch.serving import restage
+
+            # clear the process-wide hook only while it is still ours: a
+            # layer started after this one may have registered its own
+            if restage.active() is self.model_stager:
+                restage.set_active(None)
 
     def __enter__(self) -> "ServingLayer":
         self.start()
@@ -837,7 +1156,29 @@ def _admit_and_route(layer: ServingLayer, ctx: ServingContext, req, cache_key, s
     request that misses the answer cache falls through to a reduced-probe
     scan, and a full-quality request that finds the batcher queue full is
     shed at the door. The served stage is stamped on the response header,
-    the request span and the per-stage counters."""
+    the request span and the per-stage counters.
+
+    While an online experiment is active the request is first assigned an
+    arm: dispatch runs under a generation override (generation-aware
+    managers serve the challenger's model to the challenger arm), the arm
+    lands on the X-Oryx-Experiment-Arm header and the request span, and
+    the serve is recorded with the evaluator for the interaction join."""
+    t_arrive = time.perf_counter()
+    experiments = layer.experiments
+    assignment = (
+        experiments.assign_request(req.path, req.headers) if experiments is not None else None
+    )
+
+    def _dispatch():
+        if experiments is not None:
+            # pin every request to the tracker's generation for its arm
+            # (challenger for the challenger arm, live for everything
+            # else); managers without per-generation retention ignore it
+            generation = assignment[1] if assignment is not None else layer.health.live_generation
+            with _exp_routing.serve_generation(generation):
+                return layer.router.dispatch(ctx, req)
+        return layer.router.dispatch(ctx, req)
+
     tenant = _tenancy.current_tenant()
     admission = layer.admission
     decision = (
@@ -848,7 +1189,11 @@ def _admit_and_route(layer: ServingLayer, ctx: ServingContext, req, cache_key, s
 
     def _champion_generation():
         # the generation stale-cache entries are stamped with and checked
-        # against: the tracker's live one
+        # against: the tenant's own live one on a multi-tenant layer (each
+        # tenant has a private lineage), the tracker's otherwise
+        if tenant is not None and layer.tenant_mux is not None:
+            rt = layer.tenant_mux.runtime(tenant)
+            return rt.health.live_generation if rt is not None else None
         return admission.generation() if admission is not None else None
 
     served = None  # stage name actually used; None = full quality
@@ -869,11 +1214,11 @@ def _admit_and_route(layer: ServingLayer, ctx: ServingContext, req, cache_key, s
         try:
             if decision is not None and decision.probe_fraction is not None:
                 with _overload.probe_override(decision.probe_fraction):
-                    response = layer.router.dispatch(ctx, req)
+                    response = _dispatch()
                 if getattr(response, "status", 200) == 200:
                     served = "reduced-probe"
             else:
-                response = layer.router.dispatch(ctx, req)
+                response = _dispatch()
         except BatcherOverloadedError:
             # bounded-queue rejection (oryx.serving.overload.max-queue):
             # an immediate shed instead of unbounded queueing, taken even
@@ -887,6 +1232,9 @@ def _admit_and_route(layer: ServingLayer, ctx: ServingContext, req, cache_key, s
                 and req.method == "GET"
                 and getattr(response, "status", 200) == 200
                 and _champion_generation() is not None
+                # challenger answers never enter the stale cache: it is
+                # stamped with the champion generation
+                and (assignment is None or assignment[0] != _exp_routing.ARM_CHALLENGER)
             ):
                 # feed the stale-answer cache with full-quality answers
                 # only, stamped with the champion generation
@@ -900,13 +1248,72 @@ def _admit_and_route(layer: ServingLayer, ctx: ServingContext, req, cache_key, s
                     ),
                 )
     if served is not None:
-        _overload.count_shed(served, tenant=tenant)
+        _overload.count_shed(
+            served,
+            layer.instance_metrics,
+            generation=(
+                assignment[1]
+                if assignment is not None
+                else (_champion_generation() or layer.health.live_generation)
+            ),
+            tenant=tenant,
+        )
         headers = getattr(response, "headers", None)
         if headers is not None:
             headers[_overload.SHED_HEADER] = served
         if sp is not None:
             sp.set("shed_stage", served)
+    if assignment is not None:
+        arm, generation, user = assignment
+        headers = getattr(response, "headers", None)
+        if headers is not None:
+            headers[_exp_routing.ARM_HEADER] = arm
+        if sp is not None:
+            sp.set("experiment_arm", arm)
+            if generation is not None:
+                sp.set("experiment_generation", generation)
+        items = (
+            _served_items(getattr(response, "body", None))
+            if getattr(response, "status", 200) == 200
+            else ()
+        )
+        experiments.observe_request(
+            user,
+            arm,
+            generation,
+            items,
+            latency_s=time.perf_counter() - t_arrive,
+            shed_stage=served,
+        )
     return response
+
+
+def _served_items(body):
+    """Item ids in a recommendation response body, in rank order, for the
+    online join. Understands the shapes the app endpoints produce: a dict
+    with an ``items`` list, and a ranked list of item / (item, score) /
+    id-value entries.
+
+    The id-value records (``IDValue``, what ALS's /recommend returns) are
+    the port's addition: the JAX package reads them as no items, so its
+    ALS serves never join an interaction and the online gate never
+    concludes on an ALS experiment."""
+    if isinstance(body, dict):
+        items = body.get("items")
+        if isinstance(items, list):
+            return [str(i) for i in items]
+        return ()
+    if isinstance(body, list):
+        out = []
+        for entry in body:
+            if isinstance(entry, (list, tuple)) and entry:
+                out.append(str(entry[0]))
+            elif isinstance(entry, (str, int)):
+                out.append(str(entry))
+            elif isinstance(getattr(entry, "id", None), str):
+                out.append(entry.id)
+        return out
+    return ()
 
 
 def gzip_compress(body: bytes) -> bytes:
@@ -917,20 +1324,37 @@ def gzip_compress(body: bytes) -> bytes:
 
 
 def _dispatch_parsed(layer: ServingLayer, ctx: ServingContext, method: str, raw_path: str,
-                     headers, body: bytes):
+                     headers, body: bytes, tenant_box):
     """The front-agnostic request core: everything between a parsed
     request and a rendered (status, payload, content-type, extra headers)
     tuple. The stdlib handler and the native front's dispatch workers
-    (``serving/native_front.py``) both call it, so admission, tracing
-    and rendering cannot drift between fronts. ``headers`` needs a
-    case-insensitive ``get`` and ``items()`` (``email.Message`` and
-    ``native_front._Headers`` both qualify)."""
+    (``serving/native_front.py``) both call it, so tenant resolution,
+    admission, tracing, experiments and rendering cannot drift between
+    fronts. ``headers`` needs a case-insensitive ``get`` and ``items()``
+    (``email.Message`` and ``native_front._Headers`` both qualify);
+    ``tenant_box[0]`` receives the resolved tenant even when dispatch
+    later raises."""
     split = urlsplit(raw_path)
     path = split.path
     if layer.context_path:
         if not path.startswith(layer.context_path):
             raise OryxServingException(404, "outside context path")
         path = path[len(layer.context_path):] or "/"
+    # tenant resolution (docs/multi-tenancy.md): the /t/<tenant>/ prefix
+    # wins over the X-Oryx-Tenant header; untenanted data-plane requests
+    # fall to the default tenant. Resolved before routing so the stripped
+    # path matches the resources, and scoped over the dispatch so the
+    # batcher, admission and mux all see it.
+    tenant = None
+    if layer.tenants is not None:
+        tenant, path = _tenancy.split_tenant_path(path)
+        if tenant is None:
+            tenant = headers.get(_tenancy.TENANT_HEADER)
+        if tenant is None and not _overload.exempt(path):
+            tenant = layer.tenants.default_tenant
+        if tenant is not None and tenant not in layer.tenants:
+            raise OryxServingException(404, f"unknown tenant {tenant!r}")
+        tenant_box[0] = tenant
     if headers.get("Content-Encoding") == "gzip":
         body = gzip.decompress(body)
     req = Request(
@@ -942,12 +1366,16 @@ def _dispatch_parsed(layer: ServingLayer, ctx: ServingContext, method: str, raw_
         body=body,
     )
     # answer-cache key: path + raw query, the whole identity of a GET the
-    # stale rung serves
+    # stale rung serves; the tenant rides in front so two tenants'
+    # answers for the same path never alias in the cache
     cache_key = path + ("?" + split.query if split.query else "")
+    if tenant is not None:
+        cache_key = f"/t/{tenant}{cache_key}"
     attrs = {"path": path, "method": req.method}
+    if tenant is not None:
+        attrs["tenant"] = tenant
     incoming = tracing.parse_traceparent(headers.get("traceparent"))
-    # untenanted: the port refuses declared tenants
-    with _tenancy.tenant_scope(None):
+    with _tenancy.tenant_scope(tenant):
         if incoming is not None and incoming.sampled:
             with tracing.use(incoming):
                 with tracing.span("serving.request", attrs=attrs) as sp:
@@ -980,22 +1408,23 @@ def _make_handler(layer: ServingLayer, ctx: ServingContext):
                 layer._request_ended()
 
         def _handle_counted(self, method: str, t0: float) -> None:
+            tenant_box = [None]
             try:
                 length = int(self.headers.get("Content-Length") or 0)
                 body = self.rfile.read(length) if length else b""
                 status, payload, ct, extra = _dispatch_parsed(
-                    layer, ctx, method, self.path, self.headers, body
+                    layer, ctx, method, self.path, self.headers, body, tenant_box
                 )
             except OryxServingException as e:
-                _observe_request(method, e.status, t0)
+                _observe_request(method, e.status, t0, layer, tenant_box[0])
                 self._send_error(e.status, e.message)
                 return
             except Exception:
                 log.exception("internal error handling %s %s", method, self.path)
-                _observe_request(method, 500, t0)
+                _observe_request(method, 500, t0, layer, tenant_box[0])
                 self._send_error(500, "internal error")
                 return
-            _observe_request(method, status, t0)
+            _observe_request(method, status, t0, layer, tenant_box[0])
             headers = dict(extra)
             if len(payload) > 1024 and "gzip" in self.headers.get("Accept-Encoding", ""):
                 payload = gzip_compress(payload)

@@ -19,9 +19,10 @@ The division of labor (docs/serving-native.md):
   IMF-fixdate format).
 - Everything else crosses the boundary once, as a micro-batched RBLK
   KIND_HTTP frame (bus/blockcodec.py), and runs through the exact same
-  ``layer._dispatch_parsed`` core the stdlib handler uses — admission
-  ladder, tracing and rendering cannot drift between fronts.
-- A control thread pushes ladder snapshots down (overload.py
+  ``layer._dispatch_parsed`` core the stdlib handler uses — tenant
+  resolution, admission ladder, tracing, experiments, rendering cannot
+  drift between fronts.
+- A control thread pushes ladder/tenant snapshots down (overload.py
   stays the single decision-maker; C++ only applies the last pushed
   stage), mirrors answer-cache puts, re-renders liveness snapshots, and
   drains native stats/trace events back into the Python registries.
@@ -29,16 +30,14 @@ The division of labor (docs/serving-native.md):
 Parity contract: for every request the native front chooses to answer,
 the response bytes are identical to what the Python front would have
 produced (tests/test_torch_native_front.py holds the line). When in
-doubt the front forwards — csv Accept negotiation and gzip-eligible
-bodies route through Python rather than risk divergence.
+doubt the front forwards — csv Accept negotiation, gzip-eligible bodies,
+tenant-prefixed control paths, experiments (A/B arms) all route through
+Python rather than risk divergence.
 
-Port note: a copy with the port's imports. Left out, as the port's
-serving layer refuses or lacks them: tenants (no tenant
-table is pushed, and no per-tenant stats are drained), online
-experiments (the native rungs are never switched off for an A/B arm)
-and per-instance metrics (natively answered requests feed the process
-registry only). The C++ side, ``oryx_tpu_torch/native/httpfront.cpp``,
-is the JAX package's byte for byte.
+Port note: a copy with the port's imports. The C++ side,
+``oryx_tpu_torch/native/httpfront.cpp``, is the JAX package's byte for
+byte, so the tenant table pushed here and the per-tenant stats slots
+drained here keep that package's wire layout.
 """
 
 from __future__ import annotations
@@ -58,7 +57,7 @@ from oryx_tpu_torch import native
 from oryx_tpu_torch.bus import blockcodec
 from oryx_tpu_torch.common import metrics, tracing
 from oryx_tpu_torch.serving import overload as _overload
-from oryx_tpu_torch.serving.web import OryxServingException, Request, Response, render
+from oryx_tpu_torch.serving.web import OryxServingException, Request, render
 from oryx_tpu_torch.tenancy import context as _tenancy
 
 log = logging.getLogger(__name__)
@@ -80,6 +79,7 @@ _SCALARS = (
     "bytes_in", "bytes_out", "pending_hwm",
 )
 _N_BUCKETS = 29  # 28 latency buckets + overflow (metrics.Histogram mirror)
+_TENANT_SLOTS = 4 + _N_BUCKETS
 _TRACE_REC = 184
 _TRACE_CAP = 4096  # matches kMaxEvents so one drain empties the ring
 
@@ -168,6 +168,7 @@ def maybe_start(layer, ctx, threads):
       and the 401 gate; a native snapshot answer would bypass auth (the
       port's layer refuses both at construction, so this decline is the
       reference's guard, kept)
+    - more tenants than the C++ table holds
     - toolchain missing / native build disabled (ORYX_NATIVE=0)
     """
     cfg = layer.config
@@ -183,6 +184,13 @@ def maybe_start(layer, ctx, threads):
         if forced:
             log.warning(
                 "oryx.serving.native.enabled=true but TLS/auth is configured; "
+                "falling back to the Python front"
+            )
+        return None
+    if layer.tenants is not None and len(layer.tenants.ids()) > 64:
+        if forced:
+            log.warning(
+                "oryx.serving.native.enabled=true but >64 tenants configured; "
                 "falling back to the Python front"
             )
         return None
@@ -230,7 +238,11 @@ class NativeFront:
         self._poll_cap = 64 * 1024 + int(max_header) + int(max_body) + 256
         self._poll_buf = (ctypes.c_uint8 * self._poll_cap)()
         self._trace_buf = (ctypes.c_uint8 * (_TRACE_CAP * _TRACE_REC))()
-        self._stats_need = len(_SCALARS) + _N_BUCKETS  # no tenant slots
+        self._tenant_names = (
+            list(layer.tenants.ids()) if layer.tenants is not None else []
+        )
+        self._stats_need = len(_SCALARS) + _N_BUCKETS + \
+            len(self._tenant_names) * _TENANT_SLOTS
         self._stats_buf = (ctypes.c_uint64 * self._stats_need)()
         # _stats_buf/_trace_buf are shared between the control tick and
         # the on-demand scrape drain in _serve_one
@@ -348,24 +360,26 @@ class NativeFront:
                 self._drain_stats()
                 self._drain_trace()
             headers = _Headers(rec.headers)
+            tenant_box = [None]
             try:
                 from oryx_tpu_torch.serving.layer import (_dispatch_parsed,
-                                                          _observe_request)
+                                                    _observe_request)
                 status, payload, ct, extra = _dispatch_parsed(
                     layer, self._ctx, rec.method, rec.target, headers,
-                    rec.body,
+                    rec.body, tenant_box,
                 )
             except OryxServingException as e:
-                _observe_request(rec.method, e.status, t0)
+                _observe_request(rec.method, e.status, t0, layer,
+                                 tenant_box[0])
                 self._respond(rec, self._error_bytes(e.status, e.message))
                 return
             except Exception:
                 log.exception("internal error handling %s %s", rec.method,
                               rec.target)
-                _observe_request(rec.method, 500, t0)
+                _observe_request(rec.method, 500, t0, layer, tenant_box[0])
                 self._respond(rec, self._error_bytes(500, "internal error"))
                 return
-            _observe_request(rec.method, status, t0)
+            _observe_request(rec.method, status, t0, layer, tenant_box[0])
             self._respond(
                 rec,
                 self._assemble(status, payload, ct, extra,
@@ -429,8 +443,8 @@ class NativeFront:
                 log.exception("native front control tick failed")
 
     def push_control(self) -> None:
-        """One control tick: evaluate the ladder, push its stage and
-        fresh snapshots down, mirror cache puts, drain stats and
+        """One control tick: evaluate the ladder, push stages + tenant
+        stages + fresh snapshots down, mirror cache puts, drain stats and
         trace events back up. Public so tests can force a tick."""
         adm = self._layer.admission
         if adm is not None:
@@ -445,9 +459,17 @@ class NativeFront:
         self._drain_trace()
 
     def _flags(self) -> int:
-        flags = 1  # snapshots
-        if self._layer.admission is not None:
-            flags |= 2 | 4  # shed fast-429 + stale cache rungs
+        layer = self._layer
+        flags = 0
+        # experiments assign sticky A/B arms and stamp ARM_HEADER on
+        # data-plane responses; every native rung would skip that, so all
+        # native answering is off while an experiment coordinator exists
+        if layer.experiments is None:
+            flags |= 1  # snapshots
+            if layer.admission is not None:
+                flags |= 2 | 4  # shed fast-429 + stale cache rungs
+        if layer.tenants is not None:
+            flags |= 8
         return flags
 
     def _push_ladder(self) -> None:
@@ -456,6 +478,21 @@ class NativeFront:
         stage = adm.stage if adm is not None else 0
         retry = layer.overload_config.retry_after_s
         self._lib.hf_set_ladder(self._handle, stage, retry, self._flags())
+        if layer.tenants is not None and adm is not None:
+            names = self._tenant_names
+            try:
+                default_idx = names.index(layer.tenants.default_tenant)
+            except ValueError:
+                default_idx = -1
+            parts = [struct.pack("<iI", default_idx, len(names))]
+            for name in names:
+                nb = name.encode("utf-8")
+                parts.append(
+                    struct.pack("<HBB", len(nb), adm.tenant_stage(name), 0)
+                    + nb
+                )
+            blob = b"".join(parts)
+            self._lib.hf_set_tenants(self._handle, _u8(blob), len(blob))
 
     def _push_shed_template(self) -> None:
         from oryx_tpu_torch.serving.layer import _shed_response
@@ -525,6 +562,8 @@ class NativeFront:
                 break
             if answer.generation != champion:
                 continue
+            from oryx_tpu_torch.serving.web import Response
+
             resp = Response(
                 answer.status, answer.payload, answer.content_type,
                 headers={_overload.SHED_HEADER: "stale"},
@@ -550,8 +589,9 @@ class NativeFront:
             self._drain_stats_locked()
 
     def _drain_stats_locked(self) -> None:
+        n_tenants = len(self._tenant_names)
         got = self._lib.hf_stats(self._handle, self._stats_buf,
-                                 self._stats_need, 0)
+                                 self._stats_need, n_tenants)
         if got != self._stats_need:
             return
         vals = list(self._stats_buf)
@@ -560,6 +600,7 @@ class NativeFront:
         s = dict(zip(_SCALARS, vals))
         buckets = vals[len(_SCALARS):len(_SCALARS) + _N_BUCKETS]
         reg = metrics.registry
+        im = self._layer.instance_metrics
 
         def bump(name, n):
             if n:
@@ -575,20 +616,64 @@ class NativeFront:
         bump("serving.http.native-answered.snapshot", s["ans_snapshot"])
         bump("serving.http.native-answered.shed", s["ans_shed"])
         bump("serving.http.native-answered.stale", s["ans_stale"])
-        reg.gauge("serving.http.queue.depth").set(s["pending_hwm"])
+        im.gauge("serving.http.queue.depth").set(s["pending_hwm"])
         # natively-answered requests feed the same serving.* families the
         # Python front's _observe_request feeds, so dashboards see one
         # stream regardless of which side answered
         for i, mname in enumerate(_METHOD_NAMES[:4]):
-            bump(f"serving.requests.{mname}", vals[8 + i])
+            n = vals[8 + i]
+            if n:
+                reg.counter(f"serving.requests.{mname}").inc(n)
+                im.counter(f"serving.requests.{mname}").inc(n)
         for cls in range(1, 6):
-            bump(f"serving.responses.{cls}xx", s[f"c{cls}xx"])
+            n = s[f"c{cls}xx"]
+            if n:
+                reg.counter(f"serving.responses.{cls}xx").inc(n)
+                im.counter(f"serving.responses.{cls}xx").inc(n)
         if s["lat_count"]:
+            secs = s["lat_sum_us"] / 1e6
             reg.histogram("serving.request.seconds").merge_buckets(
-                buckets, s["lat_sum_us"] / 1e6
+                buckets, secs
             )
-        bump("serving.overload.shed.shed", s["ans_shed"])
-        bump("serving.overload.shed.stale", s["ans_stale"])
+            im.histogram("serving.request.seconds").merge_buckets(
+                buckets, secs
+            )
+            generation = self._layer.health.live_generation or "none"
+            im.counter(f"serving.requests.generation.{generation}").inc(
+                s["lat_count"]
+            )
+            im.histogram(
+                f"serving.request.seconds.generation.{generation}"
+            ).merge_buckets(buckets, secs)
+        adm = self._layer.admission
+        champion = adm.generation() if adm is not None else None
+        for stage_name, n in (("shed", s["ans_shed"]),
+                              ("stale", s["ans_stale"])):
+            if not n:
+                continue
+            name = f"serving.overload.shed.{stage_name}"
+            reg.counter(name).inc(n)
+            im.counter(name).inc(n)
+            generation = champion or self._layer.health.live_generation
+            if generation:
+                im.counter(f"{name}.generation.{generation}").inc(n)
+        off = len(_SCALARS) + _N_BUCKETS
+        for i, tenant in enumerate(self._tenant_names):
+            blk = vals[off + i * _TENANT_SLOTS: off + (i + 1) * _TENANT_SLOTS]
+            count, sum_us, shed_stale, shed_shed = blk[:4]
+            if count:
+                im.counter(f"serving.requests.tenant.{tenant}").inc(count)
+                im.histogram(
+                    f"serving.request.seconds.tenant.{tenant}"
+                ).merge_buckets(blk[4:], sum_us / 1e6)
+            if shed_shed:
+                im.counter(
+                    f"serving.overload.shed.shed.tenant.{tenant}"
+                ).inc(shed_shed)
+            if shed_stale:
+                im.counter(
+                    f"serving.overload.shed.stale.tenant.{tenant}"
+                ).inc(shed_stale)
 
     def _drain_trace(self) -> None:
         with self._drain_lock:
@@ -606,7 +691,7 @@ class NativeFront:
             dur_us, status = struct.unpack_from("<IH", buf, base + 8)
             rung = buf[base + 14]
             method = buf[base + 15]
-            _tenant_idx, tp_len, path_len = struct.unpack_from(
+            tenant_idx, tp_len, path_len = struct.unpack_from(
                 "<hHH", buf, base + 16
             )
             tp = buf[base + 24: base + 24 + tp_len].decode(
@@ -624,6 +709,8 @@ class NativeFront:
                 "status": status,
                 "native_rung": _RUNG_NAMES[rung] if rung < 3 else "?",
             }
+            if 0 <= tenant_idx < len(self._tenant_names):
+                attrs["tenant"] = self._tenant_names[tenant_idx]
             tracing.record_span(
                 "serving.request", parent.child(), parent.span_id,
                 wall_ms / 1000.0, dur_us / 1e6, attrs,

@@ -9,10 +9,8 @@ uses for the reduced-probe fraction: the batcher snapshots the value
 into its entry on the request thread, so the dispatcher thread never
 touches the ContextVar.
 
-Port note: a copy of ``oryx_tpu/tenancy/context.py`` (JAX-free), with its imports
-pointed at ``oryx_tpu_torch``. Tenancy itself is not
-ported: the serving layer refuses declared tenants, so the current
-tenant is always None in the port.
+Port note: a copy of ``oryx_tpu/tenancy/context.py`` (JAX-free), with
+its imports pointed at ``oryx_tpu_torch``.
 """
 
 from __future__ import annotations

@@ -397,3 +397,29 @@ def test_clusters_to_pmml_identical_to_jax_without_header():
     back = tcommon.pmml_to_clusters(tpmml.from_string(out["jax"]))
     assert [(c.id, c.count) for c in back] == list(enumerate(counts))
     np.testing.assert_array_equal(np.stack([c.center for c in back]), centers)
+
+
+def test_kmeans_parallel_init_misses_a_blob_alike_in_both_packages():
+    """k-means|| (2 rounds of 2k) then weighted k-means++ on chip_smoke's
+    blob shape (20 features, k = 10, centers at 6 N(0, 1), unit noise):
+    the candidates cover every blob, but the D^2 sampling over them picks
+    a second candidate of a covered blob before the last uncovered one in
+    a fair share of seeds, in both packages alike (the same numpy draws:
+    exact). Lloyd cannot move a center across a blob gap, so such a run
+    ends in a local minimum; ``oryx.kmeans.runs`` restarts are the
+    remedy, and at reference.conf's 3 a generation still misses a blob
+    now and then."""
+    gen = np.random.default_rng(1309)
+    true = 6.0 * gen.standard_normal((10, 20))
+    pts = (true[gen.integers(0, 10, 40_000)]
+           + gen.standard_normal((40_000, 20))).astype(np.float32)
+
+    def covered(centers):
+        return len(set(np.argmin(((centers[:, None, :] - true[None]) ** 2).sum(-1), axis=1)))
+
+    misses = {}
+    for name, mod in (("jax", jkm), ("torch", tkm)):
+        misses[name] = [s for s in range(40)
+                        if covered(mod._kmeans_parallel_init(pts, 10, np.random.default_rng(s))) < 10]
+    assert misses["torch"] == misses["jax"]
+    assert 4 <= len(misses["torch"]) <= 24, misses

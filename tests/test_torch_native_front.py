@@ -11,7 +11,11 @@ the port's k-means app in place of the example app: routes, gzip, the
 shed and stale rungs, seeded fuzz with dropped connections, the native
 parser's hardening (oversized head and body, bad wire, slowloris,
 pipelining, keep-alive concurrency, a mid-request disconnect), and the
-declines. The tenant and fleet cases wait for tenancy. One case holds the
+declines. The tenant cases run two k-means tenants behind each front: the
+path, header and default-tenant forms alike on both, a tenant's own shed
+rung answered natively from the pushed tenant table with its per-tenant
+counters drained, and the decline above the table's 64 tenants. The fleet
+cases wait for the fleet harness. One case holds the
 port's layer to the JAX package's, each behind its native front, on the
 same request sequence. The rest cover what the layer wires around the
 front: the default config's admission ladder and native front, each one
@@ -542,6 +546,135 @@ def test_tls_and_auth_stay_refused(key, value):
     refuses both before any front starts."""
     with pytest.raises(NotYetPortedError):
         ServingLayer(make_config("inproc://tnf-auth", **{"native.enabled": '"true"', key: value}))
+
+
+# -- tenants: the tenant table and its counters ------------------------------------
+
+TENANTS = 'tenancy { enabled = true, default-tenant = %s, tenants { %s } }'
+TWO_TENANTS = 'acme { app = "kmeans", weight = 2.0 }, bob { app = "kmeans", weight = 1.0 }'
+
+
+def tenant_config(broker, tenants_block, default="acme", **overrides):
+    return make_config(broker, **overrides).with_overlay(
+        "oryx { %s }" % (TENANTS % (json.dumps(default), tenants_block))
+    )
+
+
+class TenantPair(Pair):
+    """Pair's two fronts, each layer serving the tenants acme (2 centers,
+    the default tenant) and bob (3 centers) from their own update topics."""
+
+    def __init__(self, broker_loc, max_queue=None):
+        self.broker = tbus.get_broker(broker_loc)
+        extra = {} if max_queue is None else {"overload.max-queue": str(max_queue)}
+        self.native, self.python = (
+            ServingLayer(tenant_config(broker_loc, TWO_TENANTS,
+                                       **{"native.enabled": mode}, **extra))
+            for mode in ('"true"', '"false"')
+        )
+        self.native.start()
+        self.python.start()
+        assert self.native._native_front is not None, "native front must start"
+        assert self.python._native_front is None
+        for tid, clusters in (("acme", 2), ("bob", 3)):
+            with self.broker.producer(f"OryxUpdate.{tid}") as p:
+                p.send("MODEL", kmeans_model(clusters=clusters))
+
+
+@pytest.fixture()
+def tenant_pair(request):
+    name = re.sub(r"[^a-z0-9]+", "-", request.node.name.lower())[:48]
+    p = TenantPair(f"inproc://tnf-{name}", max_queue=64)
+    try:
+        p.loaded()
+        yield p
+    finally:
+        p.close()
+
+
+@needs_native
+def test_parity_tenants(tenant_pair):
+    """tests/serving/test_native_front.py::test_parity_tenants on the port:
+    the path-scoped, header-scoped and default-tenant forms, an unknown
+    tenant and a tenant's control path answer alike on both fronts."""
+    pair = tenant_pair
+    # at (9, 9) acme's nearest of its centers (0, 0), (5, 5) is 1, bob's
+    # of (0, 0), (5, 5), (10, 10) is 2: each form reaches its own tenant
+    r = pair.assert_parity("GET", "/t/acme/assign/9,9")
+    assert r.startswith(b"HTTP/1.1 200") and r.endswith(b'"1"')
+    r = pair.assert_parity("GET", "/assign/9,9", headers={"X-Oryx-Tenant": "bob"})
+    assert r.endswith(b'"2"')
+    r = pair.assert_parity("GET", "/t/bob/assign/9,9", headers={"X-Oryx-Tenant": "acme"})
+    assert r.endswith(b'"2"')  # the prefix wins over the header
+    r = pair.assert_parity("GET", "/assign/9,9")  # the default tenant, acme
+    assert r.endswith(b'"1"')
+    nope = pair.assert_parity("GET", "/t/nope/assign/1,1")
+    assert nope.startswith(b"HTTP/1.1 404")
+    pair.assert_parity("GET", "/t/acme/nope")
+    ready = pair.assert_parity("GET", "/t/acme/ready")
+    assert ready.startswith(b"HTTP/1.1 200")
+    healthz = json.loads(mask(fetch(pair.native.port, path="/healthz")).split(b"\r\n\r\n", 1)[1])
+    assert healthz["tenants"] == {"acme": GENERATION, "bob": GENERATION}
+    pair.assert_parity("GET", "/healthz")
+
+
+@needs_native
+def test_native_front_sheds_one_tenant_from_its_table(tenant_pair):
+    """A tenant's own ladder at shed reaches the C++ table on the next
+    control tick: its requests are answered 429 natively (the same bytes
+    as the stdlib front's), the other tenant's are served, and the drained
+    stats slots count the tenant's requests and sheds on the layer's own
+    registry."""
+    pair = tenant_pair
+    for layer in pair.layers():
+        adm = layer.admission
+        adm.evaluate = lambda *a, **k: adm._stage  # freeze the ladders
+        adm._tenants["bob"].stage = 3
+    pair.tick()
+    im = pair.native.instance_metrics
+    shed_before = im.counter("serving.overload.shed.shed.tenant.bob").value
+    req_before = im.counter("serving.requests.tenant.bob").value
+    native_before = metrics.registry.counter("serving.http.native-answered.shed").value
+    shed = pair.assert_parity("GET", "/t/bob/assign/1,1", label="(bob at shed)")
+    assert shed.startswith(b"HTTP/1.1 429") and b"X-Oryx-Shed-Stage: shed" in shed
+    pair.assert_parity("GET", "/assign/1,1", headers={"X-Oryx-Tenant": "bob"})
+    ok = pair.assert_parity("GET", "/t/acme/assign/1,1", label="(acme at full)")
+    assert ok.startswith(b"HTTP/1.1 200")
+    pair.tick()  # drains the stats
+    assert metrics.registry.counter("serving.http.native-answered.shed").value >= native_before + 2
+    assert im.counter("serving.overload.shed.shed.tenant.bob").value == shed_before + 2
+    assert im.counter("serving.requests.tenant.bob").value == req_before + 2
+    # the forwarded acme request counted through the layer's dispatch core
+    assert im.counter("serving.requests.tenant.acme").value >= 1
+    py = pair.python.instance_metrics
+    assert py.counter("serving.overload.shed.shed.tenant.bob").value == 2
+
+
+@needs_native
+def test_native_front_declines_above_64_tenants():
+    """The C++ tenant table holds 64 tenants: a layer with 65 declines the
+    native front even when it is forced on, and the stdlib front serves
+    every tenant."""
+    block = ", ".join(f't{i} {{ app = "kmeans" }}' for i in range(65))
+    layer = ServingLayer(tenant_config("inproc://tnf-65", block, "t0", **{"native.enabled": '"true"'}))
+    layer.start()
+    try:
+        assert layer._native_front is None
+        assert len(layer.tenants.ids()) == 65
+        with tbus.get_broker("inproc://tnf-65").producer("OryxUpdate.t64") as p:
+            p.send("MODEL", kmeans_model(clusters=3))
+        assert wait_for(lambda: fetch(layer.port, path="/t/t64/assign/11,11").endswith(b'"2"'))
+        assert fetch(layer.port, path="/t/t3/assign/1,1").startswith(b"HTTP/1.1 503")
+    finally:
+        layer.close()
+    # 64 fit: the native front starts
+    block = ", ".join(f't{i} {{ app = "kmeans" }}' for i in range(64))
+    layer = ServingLayer(tenant_config("inproc://tnf-64", block, "t0", **{"native.enabled": '"true"'}))
+    layer.start()
+    try:
+        assert layer._native_front is not None
+    finally:
+        layer.close()
 
 
 # -- the default request path ----------------------------------------------------

@@ -9,7 +9,7 @@ JAX package's, on the CPU, fed the same MODEL/UP messages.
   dot products may sum in another order.
 - The index-submit freshness contract holds on the port.
 - Settings the port does not serve yet raise instead of serving
-  something else.
+  something else; a declared tenant and an A/B split start and serve.
 """
 
 import json
@@ -468,22 +468,101 @@ def test_tls_and_auth_settings_raise(key):
         ServingLayer(cfg)
 
 
-def test_declared_tenants_raise():
-    """Tenancy is not ported: enabled tenants must not be served as one
-    untenanted app (the JAX package builds a tenant per block); a block
-    that tenancy leaves disabled is ignored by both packages."""
-    tenants = 'tenancy { enabled = %s, tenants { shop { app = "als", weight = 2.0 } } }'
-    with pytest.raises(tsm.NotYetPortedError, match="tenancy"):
-        ServingLayer(serving_config("torch", "inproc://unused6", tenants % "true"))
-    ServingLayer(serving_config("torch", "inproc://unused6", tenants % "false"))
+def _tenant_layer(pkg, broker_loc, enabled):
+    """A layer whose config declares one ALS tenant, ``shop``, fed the
+    hand-built model on the tenant's update topic when tenancy is on (on
+    the shared one otherwise)."""
+    *_, bus, layer_cls, name = PACKAGES[pkg]
+    tenants = (
+        "tenancy { enabled = %s, tenants { shop { app = \"als\", weight = 2.0 } } }"
+        % ("true" if enabled else "false")
+    )
+    layer = layer_cls(serving_config(pkg, broker_loc, tenants))
+    layer.start()
+    topic = "OryxUpdate.shop" if enabled else "OryxUpdate"
+    broker = bus.get_broker(broker_loc)
+    broker.create_topic(topic, 1)
+    with broker.producer(topic) as p:
+        p.send("MODEL", model_message(pkg, list(USER_VECS), list(ITEM_VECS)))
+        for i, v in ITEM_VECS.items():
+            p.send("UP", join_json(["Y", i, v]))
+        for u, v in USER_VECS.items():
+            p.send("UP", join_json(["X", u, v, KNOWN.get(u, [])]))
+    base = f"http://127.0.0.1:{layer.port}"
+    deadline = time.monotonic() + 20
+    while http("GET", f"{base}/ready")[0] != 200:
+        assert time.monotonic() < deadline, f"{pkg} tenant layer never became ready"
+        time.sleep(0.05)
+    time.sleep(0.3)  # the serving model's refresh window
+    return layer, base
 
 
-def test_ab_fraction_raises():
-    """Online experiments are not ported: a challenger split must not be
-    served as the champion alone."""
-    with pytest.raises(tsm.NotYetPortedError, match="ab.fraction"):
-        ServingLayer(serving_config("torch", "inproc://unused7", "serving.ab.fraction = 0.1"))
-    ServingLayer(serving_config("torch", "inproc://unused7", "serving.ab.fraction = 0.0"))
+def test_declared_tenants_start_and_serve():
+    """A config that declares an enabled ALS tenant starts the port's
+    layer and serves the tenant under ``/t/shop/`` exactly as the JAX
+    package does (the answers, the tenant's live generation on /healthz,
+    404 for an undeclared tenant); the same block left disabled is
+    ignored by both packages, which serve untenanted."""
+    bodies = {}
+    for pkg in sorted(PACKAGES):
+        for enabled in (True, False):
+            layer, base = _tenant_layer(pkg, f"inproc://tenants-{pkg}-{enabled}", enabled)
+            try:
+                prefix = "/t/shop" if enabled else ""
+                status, body, _ = http("GET", f"{base}{prefix}/recommend/U0?howMany=3")
+                assert status == 200, (pkg, enabled, body)
+                bodies[pkg, enabled] = body
+                health = json.loads(http("GET", f"{base}/healthz")[1])
+                if enabled:
+                    assert sorted(health["tenants"]) == ["shop"]
+                    assert http("GET", f"{base}/t/nope/recommend/U0")[0] == 404
+                    # the default tenant is unset: an untenanted data-plane
+                    # request finds no model
+                    assert http("GET", f"{base}/recommend/U0")[0] == 503
+                else:
+                    assert "tenants" not in health
+                    assert layer.tenants is None
+            finally:
+                layer.close()
+    assert bodies["torch", True] == bodies["jax", True] == bodies["torch", False]
+
+
+def test_ab_fraction_starts_and_serves(tmp_path):
+    """A config that splits traffic to a challenger
+    (``oryx.serving.ab.fraction = 0.1``) starts the port's layer with an
+    experiment coordinator when a model dir is set, and without one when
+    it is unset, as the JAX package does; /recommend is served either way
+    and GET /experiments reports the split (no challenger yet: inactive)."""
+    reports = {}
+    for pkg in sorted(PACKAGES):
+        for with_registry in (True, False):
+            model_dir = (
+                f'batch.storage.model-dir = "{tmp_path}/{pkg}/model/"'
+                if with_registry
+                else "batch.storage.model-dir = null"
+            )
+            extra = "serving.ab.fraction = 0.1\n" + model_dir
+            *_, layer_cls, _ = PACKAGES[pkg]
+            broker_loc = f"inproc://ab-{pkg}-{with_registry}"
+            layer, base, _ = _start(pkg, broker_loc, ITEM_VECS, USER_VECS, KNOWN, 2, extra)
+            try:
+                assert (layer.experiments is not None) == with_registry
+                status, body, headers = http("GET", f"{base}/recommend/U0")
+                assert status == 200
+                # no challenger: no arm is assigned, no header stamped
+                assert "X-Oryx-Experiment-Arm" not in headers
+                report = json.loads(http("GET", f"{base}/experiments")[1])
+                reports[pkg, with_registry] = report
+            finally:
+                layer.close()
+    for with_registry in (True, False):
+        got, want = reports["torch", with_registry], reports["jax", with_registry]
+        assert got.keys() == want.keys()
+        if with_registry:
+            assert got["enabled"] and got["fraction"] == 0.1 and not got["active"]
+            assert got["online_gate"] == want["online_gate"]
+        else:
+            assert got == want == {"enabled": False, "active": False}
 
 
 def test_batcher_queue_bound_raises_past_it():

@@ -39,7 +39,12 @@ Phases, each printing one JSON line:
 4. serving, float32, on the same factors: /recommend ids must equal the
    exact top-10 (ties to the lowest id), and a 512-query batch through
    ``topn.top_k_scores_batch`` (the candidates kernel) must too; every
-   scan takes the ``tc_f32`` path (six bf16 passes);
+   scan takes the ``tc_f32`` path (six bf16 passes); with
+   ``oryx.serving.compute.profile-dir`` set, a ``POST /debug/profile``
+   of 2 s while 64 clients keep sending /recommend: its Chrome trace
+   must hold ``topn_tc_kernel`` and ``topn_merge_kernel`` events (or the
+   phase prints that the profiler saw no CUDA activity), with the card's
+   busy share over the window and its five costliest device ops;
 5. kmeans-kernels: the Lloyd sweep (``pallas_kmeans.sweep``, one launch
    of ``kmeans_sweep.tc``) against its plain version on Gaussian blobs at
    200,000 x 20 (k = 10, the repo's k-means shape), 10,000,000 x 20
@@ -63,7 +68,9 @@ Phases, each printing one JSON line:
    /distanceToNearest for 1,000 sampled points exactly as a float64
    numpy nearest-center search does, and every true blob center has a
    trained center within 0.5; a second generation with mini-batch size
-   10,000 warm-starts from the champion under the same checks;
+   10,000 warm-starts from the champion under the same checks; the
+   first generation runs under ``oryx.batch.compute.profile-dir`` and its
+   trace must hold the ``sweep_kernel`` events of its sweeps;
 7. kmeans-lambda: the k-means lambda loop as three OS processes
    (``python -m oryx_tpu_torch batch|speed|serving``) on one ``file:``
    bus: wave 1, the phase-6 training set (200,000 x 20, k = 10), POSTed
@@ -86,7 +93,8 @@ Phases, each printing one JSON line:
    same code, held-out predictions within 1e-3 and RMSE within 1e-4, in
    float32; bfloat16 Gramians printed beside it; (b) a MovieLens-25M-
    shaped implicit set (162,541 x 59,047, 25,000,095 power-law ratings)
-   at rank 200, lam 0.01, alpha 1, 10 iterations, float32 and bfloat16:
+   at rank 200, lam 0.01, alpha 1, 3 iterations (reference.conf's 10, cut),
+   float32 and bfloat16:
    packing through forked workers after CUDA is up, finite factors, one
    half-sweep each way timed by stage (gather + Gramian, solve), 512 of
    its user rows solved again on the CPU within rtol 2e-2, atol 2e-3,
@@ -152,7 +160,8 @@ Phases, each printing one JSON line:
    tenant's live generation on /healthz; a user of both ALS tenants gets
    shop's answer under /t/shop/, a movies-only user 404; clients in
    another process (``client_main``), 32 on each ALS tenant, 4 on
-   /t/sensors/assign and 4 on /t/churn/predict, for 10 s: p50, p99 and
+   /t/sensors/assign and 4 on /t/churn/predict, for 5 s (10 s before a
+   cut): p50, p99 and
    requests per second by tenant, recall@10 of every ALS answer against
    the exact float32 scan of its tenant's factors at least 0.99, each
    ALS tenant at least 25% of the ALS answers; then the served k-means
@@ -162,7 +171,8 @@ Phases, each printing one JSON line:
    counted for all four; (b) one ALS layer on a ``file:`` bus with
    ``oryx.serving.ab.fraction = 0.5``, the online gate at 50 samples and
    a restage dir: generation 1 the champion, generation 2 (the same
-   ratings and seed, warm start off) the online challenger; 2,000 users
+   ratings and seed, warm start off) the online challenger; 1,000 users
+   (2,000 before a cut)
    twice each, every arm ``bucket_of``'s and sticky; the challenger arm
    interacting with its first item, the champion arm with another, until
    the gate promotes (within 30 s: the manifest, CHAMPION, /healthz,
@@ -229,7 +239,8 @@ Phases, each printing one JSON line:
    centers, 100,000 users near them; 64 concurrent /recommend (p50, p99,
    recall@10 against the exact float32 top-10 at least 0.95, the first
    request's seconds with the build); a second layer on the bus that
-   builds its own index; 10,000 item fold-ins (and a user pointing at
+   builds its own index; 6,000 item fold-ins (10,000 before a cut;
+   and a user pointing at
    each) as UP lines, past the overlay's 4,096 slots: the spill wakes the
    maintainer (interval 1 s), whose compaction publishes an index
    generation under the model dir; the second layer adopts the INDEX-REF
@@ -239,8 +250,9 @@ Phases, each printing one JSON line:
    admission ladder with the reference's overload defaults, the native
    HTTP front) over phase 13's catalog on an inproc bus, the MODEL
    carrying a generation; clients in another process (``client_main``),
-   threads over keep-alive connections: (a) 64 clients, 2,048
-   /recommend (4,096 until PR 13's cut) over 4,096 users, through the stdlib front and then the
+   threads over keep-alive connections: (a) 64 clients, 1,024
+   /recommend (4,096, then 2,048, before cuts) over 4,096
+   users, through the stdlib front and then the
    native one, each with its ladder held at full (idle signals fed to
    its controller) so that both do the same work (p50, p99, requests
    per second, recall@10 against the exact float32 top-10 at least
@@ -259,17 +271,33 @@ Phases, each printing one JSON line:
    the answer's largest) and one stale answer (an earlier full answer's
    bytes), IVF batches below the full nprobe, back at full within 10 x
    hold-s of the last step and every answer full from then on;
+14b. serving-surface: one ServingLayer over TLS (a self-signed
+   ``localhost`` PEM pair made by ``openssl``) with HTTP Basic auth and a
+   profile dir, serving ALS at ``oryx.als.sample-rate = 0.3`` (LSH) over
+   phase 3's 250 x 1,000,000 item factors: (a) plain HTTP to the TLS port
+   fails, no or wrong credentials get 401 with ``WWW-Authenticate``, the
+   right ones 200, and nothing reaches the native front (it declined);
+   (b) 512 /recommend over HTTPS from 8 clients on kept-alive
+   connections, each answer's ids the exact float32 top-10 of its
+   candidate rows (the model's partitions, held against float64 signs of
+   the hash dots, and its ``candidate_indices``), values within 1e-5,
+   with the mean candidate share, recall@10 against the exact float32
+   scan, p50, p99 and answers/s beside ``BASELINE.md:21``'s, the host's
+   core count and the hash count it chose; (c) ``GET /trace?trace=<id>``
+   holding a traced request's ``serving.request`` span; (d) ``GET /``
+   the ALS console's bytes;
 15. native-host: the C++ host code the JAX package moved out of the
    interpreter, each part against its Python path on the same inputs,
    with the seconds of both: (a) 1,000,209 MovieLens-1M-shaped lines
    through the native columnar parser at the speed layer's thread count
    and through the Python parser (the same columns, ids, values and
    timestamps, and the same RatingMatrix); (b) update messages with
-   known-id lists and vector JSON for 100,000 rows at 50 and 250
+   known-id lists and vector JSON for 25,000 rows (100,000 before a
+   cut) at 50 and 250
    features, every vector read back equal to its row and non-finite
    values as 0, the Python path on the first 10,000 rows (a cut); (c) the
-   native and the Python store filled with the same 500,000 x 50 vectors
-   (1M until PR 13's cut):
+   native and the Python store filled with the same 250,000 x 50 vectors
+   (1M, then 500,000, before cuts):
    ``get_batch`` of 4,096 ids, ``to_matrix``, ``get_vtv`` (within 1e-9
    relative) and ``retain_recent_and_ids`` alike; (d) an IVF index on
    phase 13's catalog and centroids (250 x 1M int8 items, 1,000 cells)
@@ -286,9 +314,18 @@ Phases, each printing one JSON line:
    main paths (ALS during phases 3-4, k-means during phase 6, each
    counted from zero just before; the scans also by batch rows, per path;
    the als-lambda serving processes' own; those of phase 9b's two; the
-   IVF phases' builds and serving; phase 9c's; and phase 14's) and the numbers of phases 2 and 5, B3's also
+   IVF phases' builds and serving; phase 9c's; phase 14's; and phase
+   14b's) and the numbers of phases 2 and 5, B3's also
    at phase 12's shape;
 17. the card's name and power limit, then ``{"ok": true, "device": ...}``.
+
+The run's order is not the phases' numbers: 1-5, 8, 10 and 12 one
+after another; then 7, 9, 9b and 11 (each in a thread of this process,
+their layers processes of their own) and 9c (in a process of its own,
+``--alone tenants``) at once, beside 6 and 13 in this process; then 14,
+14b and 15. The phases that time kernels or host code run with nothing
+beside them; each phase's clock line gives its own seconds, and the
+"beside" line the rest of the wait.
 
 Any failure raises and the exit code is not 0. Without CUDA, or run
 from a directory that holds no ``oryx_tpu_torch``, it exits 2 before
@@ -303,8 +340,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -393,14 +432,31 @@ IVF_FULL_RTOL = 1e-5
 # fold-ins past the overlay's 4,096 slots
 IVF_SERVING_CENTERS = 1000
 IVF_SERVING_USERS = 100_000
-IVF_FOLDS = 10_000
+IVF_FOLDS = 6_000  # 10,000 before a cut (the cuts line)
 # users and items that arrive as UP lines on the update topic in serve();
 # the rest go through the batched setters
 SERVE_TOPIC_ROWS = 256
+PROFILE_S = 2.0  # phase 4's POST /debug/profile window
+# the CUDA function of each kernel family, as a profiler trace names it
+KERNEL_FUNCTIONS = {"topn_scan": "topn_tc_kernel", "topn_merge": "topn_merge",
+                    "kmeans_sweep": "sweep_kernel"}
+
+
+_OUT = threading.Lock()  # phases beside the main thread print too (main())
+
+
+def say(line: str) -> None:
+    """One line to stdout, whole, whichever thread prints it."""
+    with _OUT:
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    say(json.dumps(obj))
+
+
+ALONE_PHASES = ("tenants",)  # the phases main() runs in a process of their own
 
 
 def parse_args(argv=None):
@@ -416,6 +472,9 @@ def parse_args(argv=None):
     p.add_argument("--rdf-rows", type=int, default=RDF_ROWS,
                    help="training rows of rdf-train's parity run and of rdf-lambda; "
                         "rdf-train's covtype-size run scales with it (phases 10-11)")
+    # main() runs a phase so, in a process of its own, beside others
+    p.add_argument("--alone", choices=ALONE_PHASES, help=argparse.SUPPRESS)
+    p.add_argument("--alone-out", help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -872,6 +931,106 @@ def check_merge(torch, stn, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# -- profiler traces (phases 4 and 6) ---------------------------------------------
+
+
+def read_trace(directory: str) -> list:
+    """The events of the Chrome trace ``common/profiling.py`` wrote."""
+    with open(os.path.join(directory, "trace.json")) as f:
+        return json.load(f)["traceEvents"]
+
+
+def device_op_name(name: str) -> str:
+    """A device event's name less ``void``, the anonymous namespace and
+    the argument list: ``topn_tc_kernel<8, 0, false>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("(")[0][:80]
+
+
+def trace_summary(events: list, window: str) -> dict:
+    """The card's side of a trace over the ``window`` annotation's span:
+    its busy share (the union of kernel intervals over the window), the
+    kernel events by function, the five device ops (kernels, copies,
+    memsets) that took the most time, and the CPU-side events by kind."""
+    (win,) = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == window]
+    w0, w1 = win["ts"], win["ts"] + win["dur"]
+    spans = sorted(
+        (max(e["ts"], w0), min(e["ts"] + e["dur"], w1))
+        for e in events if e.get("cat") == "kernel"
+    )
+    busy, end = 0.0, w0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    totals, counts = {}, {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            name = device_op_name(e["name"])
+            totals[name] = totals.get(name, 0.0) + e["dur"] / 1e3
+            if e["cat"] == "kernel":
+                fn = name.split("<")[0]
+                counts[fn] = counts.get(fn, 0) + 1
+    cpu = {}
+    for e in events:
+        if e.get("cat") in ("cpu_op", "cuda_runtime", "user_annotation", "python_function"):
+            cpu[e["cat"]] = cpu.get(e["cat"], 0) + 1
+    return {
+        "window_ms": win["dur"] / 1e3, "busy_share": busy / win["dur"] if win["dur"] else 0.0,
+        "kernel_events": counts, "cpu_events": cpu,
+        "top_device_ops_ms": sorted(totals.items(), key=lambda t: -t[1])[:5],
+    }
+
+
+def check_trace_kernels(what: str, summary: dict, families) -> bool:
+    """Each kernel family of ``families`` in the trace; False, with the
+    finding printed on a line of its own, when the profiler recorded no
+    CUDA activity at all on this host."""
+    if not summary["kernel_events"]:
+        emit({"finding": f"{what}: torch.profiler recorded no CUDA activity on this host"})
+        return False
+    for family in families:
+        fn = KERNEL_FUNCTIONS[family]
+        if not any(name.startswith(fn) for name in summary["kernel_events"]):
+            raise AssertionError(f"{what}: no {fn} events in the trace: {summary}")
+    return True
+
+
+def profile_under_load(base: str, urls: list, seconds: float = PROFILE_S) -> dict:
+    """POST /debug/profile?seconds=N while ``len(urls)`` clients keep
+    sending ``urls``; returns the capture's trace summary."""
+    result = {}
+
+    def post():
+        req = urllib.request.Request(f"{base}/debug/profile?seconds={seconds}", data=b"",
+                                     method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                result["status"], result["body"] = resp.status, json.loads(resp.read())
+        except Exception as e:  # raised again below, in the phase's thread
+            result["error"] = e
+
+    poster = threading.Thread(target=post)
+    by_status = {}
+    with ThreadPoolExecutor(len(urls)) as pool:
+        poster.start()
+        while poster.is_alive():
+            for status, _, _ in pool.map(http_get, urls):
+                by_status[status] = by_status.get(status, 0) + 1
+    poster.join()
+    # the clients never pause, so the admission ladder may shed some (429)
+    if set(by_status) - {200, 429}:
+        raise AssertionError(f"/recommend under the profiler: {by_status}")
+    if "error" in result:
+        raise result["error"]
+    if result["status"] != 200 or result["body"]["seconds"] != seconds:
+        raise AssertionError(f"POST /debug/profile answered {result}")
+    summary = trace_summary(read_trace(result["body"]["path"]), "serving-ondemand")
+    if summary["cpu_events"].get("user_annotation", 0) < 1:
+        raise AssertionError("the profile holds no CPU events")
+    return {"requests_during": by_status, **summary}
+
+
 # -- phases 3 and 4 ---------------------------------------------------------------
 
 
@@ -915,27 +1074,19 @@ def serving_config(broker_loc: str, score_dtype: str, extra: str = ""):
     )
 
 
-def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_users,
-          broker_loc: str | None = None, extra: str = "", generation: str | None = None):
-    """Start the port's ServingLayer (on an inproc bus unless
-    ``broker_loc`` names one, ``extra`` added to its config), feed it over
-    the update topic (the MODEL carrying ``generation`` as the batch
-    layer's do, when given) and the batched setters, fire the requests;
-    returns (layer, model, {user: ids}, {user: values}, latencies,
-    statuses)."""
+def publish_model(broker_loc: str, features: int, x: np.ndarray, y: np.ndarray,
+                  generation: str | None = None) -> None:
+    """A MODEL naming the first SERVE_TOPIC_ROWS users and items (carrying
+    ``generation`` as the batch layer's do, when given), then their rows
+    as UP messages (each user knowing one item), on the update topic."""
     from oryx_tpu_torch import bus
     from oryx_tpu_torch.app import pmml as app_pmml
     from oryx_tpu_torch.common import pmml as pmml_io
     from oryx_tpu_torch.common.text import join_json
-    from oryx_tpu_torch.serving.layer import ServingLayer
 
-    broker_loc = broker_loc or f"inproc://chip-smoke-{score_dtype}"
-    t_start = time.perf_counter()
-    layer = ServingLayer(serving_config(broker_loc, score_dtype, extra))
-    layer.start()
     n_topic = SERVE_TOPIC_ROWS
     root = pmml_io.build_skeleton_pmml()
-    app_pmml.add_extension(root, "features", args.features)
+    app_pmml.add_extension(root, "features", features)
     app_pmml.add_extension(root, "implicit", "true")
     if generation is not None:
         app_pmml.add_extension(root, "generation", generation)
@@ -948,6 +1099,24 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
         for j in range(n_topic):
             known = [f"i{(j + 1) % n_topic}"]
             p.send("UP", join_json(["X", f"u{j}", [float(v) for v in x[j]], known]))
+
+
+def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_users,
+          broker_loc: str | None = None, extra: str = "", generation: str | None = None):
+    """Start the port's ServingLayer (on an inproc bus unless
+    ``broker_loc`` names one, ``extra`` added to its config), feed it over
+    the update topic (the MODEL carrying ``generation`` as the batch
+    layer's do, when given) and the batched setters, fire the requests;
+    returns (layer, model, {user: ids}, {user: values}, latencies,
+    statuses)."""
+    from oryx_tpu_torch.serving.layer import ServingLayer
+
+    broker_loc = broker_loc or f"inproc://chip-smoke-{score_dtype}"
+    t_start = time.perf_counter()
+    layer = ServingLayer(serving_config(broker_loc, score_dtype, extra))
+    layer.start()
+    n_topic = SERVE_TOPIC_ROWS
+    publish_model(broker_loc, args.features, x, y, generation)
     base = f"http://127.0.0.1:{layer.port}"
     deadline = time.monotonic() + 120
     while http_get(base + "/ready")[0] != 200:
@@ -1180,7 +1349,8 @@ def phase_kmeans_kernels(torch, pk, seed: int, scale: float = 1.0, device="cuda"
     return {name: dict(rec) for name in keys}
 
 
-def kmeans_config(broker_loc: str, root: str, d: int, k: int, minibatch: int | None):
+def kmeans_config(broker_loc: str, root: str, d: int, k: int, minibatch: int | None,
+                  extra: str = ""):
     from oryx_tpu_torch.common import config as config_utils
 
     features = ", ".join(f'"{j}"' for j in range(d))
@@ -1203,6 +1373,7 @@ def kmeans_config(broker_loc: str, root: str, d: int, k: int, minibatch: int | N
             application-resources = "oryx_tpu_torch.app.kmeans.serving"
           }}
           {mb}
+          {extra}
         }}
         """
     )
@@ -1267,8 +1438,11 @@ def phase_kmeans_batch(pk, seed: int, scale: float = 1.0) -> dict:
     serving.start()
     base = f"http://127.0.0.1:{serving.port}"
     pk.reset_launch_counts()  # the k-means main path starts here
+    profile_dir = os.path.join(root, "profile")
     try:
-        batch = BatchLayer(kmeans_config(loc, root, d, k, None))
+        # the first generation traced (oryx.batch.compute.profile-dir)
+        batch = BatchLayer(kmeans_config(
+            loc, root, d, k, None, f'batch.compute.profile-dir = "{profile_dir}"'))
         batch.prepare()
         with bus.get_broker(loc).producer("OryxInput") as producer:
             producer.send_many([(None, line) for line in lines])
@@ -1279,9 +1453,18 @@ def phase_kmeans_batch(pk, seed: int, scale: float = 1.0) -> dict:
                 batch = BatchLayer(kmeans_config(loc, root, d, k, minibatch))
                 batch.prepare()
             ts = int(time.time() * 1000)
+            sweeps0 = pk.launch_counts()["kmeans_sweep.tc"]
             t0 = time.perf_counter()
             batch.run_one_generation(timestamp_ms=ts)
             gen_s = time.perf_counter() - t0
+            profile = None
+            if gen_no == 1:
+                (traced,) = os.listdir(profile_dir)
+                profile = trace_summary(read_trace(os.path.join(profile_dir, traced)),
+                                        "batch-generation")
+                profile["sweep_launches"] = pk.launch_counts()["kmeans_sweep.tc"] - sweeps0
+                check_trace_kernels("kmeans-batch generation 1", profile, ("kmeans_sweep",))
+                shutil.rmtree(profile_dir)
             update = batch._update
             if minibatch and (update.minibatch_size != minibatch
                               or update.previous_generation_id is None):
@@ -1302,7 +1485,7 @@ def phase_kmeans_batch(pk, seed: int, scale: float = 1.0) -> dict:
                 f"generation {gen_no}", base, model.clusters(), lines, pts, true_centers, gen
             )
             out[f"gen{gen_no}"] = {
-                "seconds": gen_s, "minibatch": minibatch,
+                "seconds": gen_s, "minibatch": minibatch, "profile": profile,
                 "warm_start_from": update.previous_generation_id,
                 "train_kmeans_phase_s": dict(km_ops.last_phase_seconds),
                 "mlupdate_phase_s": dict(update.last_phase_seconds),
@@ -1323,19 +1506,34 @@ def phase_kmeans_batch(pk, seed: int, scale: float = 1.0) -> dict:
 
 LAMBDA_WAVE = 20_000  # points of waves 2 and 3
 LAMBDA_BODY_LINES = 4_000  # CSV lines per POST /add
-# the batch process's generation interval: once 45 s, cut to 30 s (the
-# three lambda phases wait it out) to keep the whole run inside its limit
-# with the IVF phases; printed as a cut
-LAMBDA_BATCH_INTERVAL_S = 30
+# the batch process's generation interval, which the lambda phases wait
+# out: once 45 s, cut to keep the whole run inside its limit (printed as
+# a cut): 20 s where the phase posts its input after the batch process
+# starts (als-lambda, rdf-lambda: 20 s leaves the POSTs more than 10 s),
+# 15 s for kmeans-lambda, which posts wave 1 before it starts (15 s
+# leaves the checks time to stop it before a second generation), 30 s
+# for buses (a), whose POSTs take 12 s under the faults
+LAMBDA_BATCH_INTERVAL_S = 20
+KMEANS_LAMBDA_INTERVAL_S = 15
+CHAOS_BATCH_INTERVAL_S = 30
 LAMBDA_TIMEOUT_S = 600  # the longest any one step may take
+
+
+_PORTS_GIVEN: set = set()  # never hand out one port twice, to phases running at once
+_PORTS_LOCK = threading.Lock()
 
 
 def free_port() -> int:
     import socket
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    with _PORTS_LOCK:
+        while True:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            if port not in _PORTS_GIVEN:
+                _PORTS_GIVEN.add(port)
+                return port
 
 
 def lambda_conf(root: str, d: int, k: int, ports: dict, batch_interval: int) -> str:
@@ -1522,7 +1720,7 @@ def served_matches(base: str, want: dict, cid: int) -> bool:
 
 
 def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
-                        batch_interval: int = LAMBDA_BATCH_INTERVAL_S) -> dict:
+                        batch_interval: int = KMEANS_LAMBDA_INTERVAL_S) -> dict:
     """The k-means lambda loop as three OS processes on one file: bus
     (``python -m oryx_tpu_torch batch|speed|serving``): wave 1, the
     training set, through serving's /add; the batch process, started
@@ -1696,9 +1894,9 @@ ML1M = (6_040, 3_706, 1_000_209)
 ML25M = (162_541, 59_047, 25_000_095)
 ALS_SCALE_RANK = 200  # BASELINE.json's MovieLens-25M configuration
 ALS_SCALE_ITERATIONS = 10  # reference.conf; bench_als_scale's 3 is the cut
-# the scale run's iterations by default: cut to 5 to keep the whole run
-# inside its limit with the IVF phases; the phase prints the cut
-ALS_RUN_ITERATIONS = 5
+# the scale run's iterations by default: cut to 5, then 3, to
+# keep the whole run inside its limit; the phase prints the cut
+ALS_RUN_ITERATIONS = 3
 ALS_CHECK_ROWS = 512  # user rows of the scale run solved again on the CPU
 ALS_FOLD_EVENTS = 100_000
 ALS_FOLD_RANKS = (50, 200)
@@ -2917,7 +3115,7 @@ def shm_tcp_part(seed: int, device: str, events: int = BUS_SHM_EVENTS,
 
 
 def phase_buses(seed: int, scale: float = 1.0, device: str = "cuda",
-                batch_interval: int = LAMBDA_BATCH_INTERVAL_S,
+                batch_interval: int = CHAOS_BATCH_INTERVAL_S,
                 events: int = BUS_SHM_EVENTS, ring_mb: float = BUS_SHM_RING_MB) -> dict:
     """The fault, shm and TCP buses under the ALS loop, as processes:
     (a) conf/chaos-example.conf's deployment and (b) the shm ring with a
@@ -2959,7 +3157,7 @@ def phase_buses(seed: int, scale: float = 1.0, device: str = "cuda",
 
 TENANT_ALS_CLIENTS = 32  # closed-loop clients on each ALS tenant at once
 TENANT_SIDE_CLIENTS = 4  # on /t/sensors/assign and on /t/churn/predict each
-TENANT_LOAD_S = 10.0
+TENANT_LOAD_S = 5.0  # 10 s before a cut (the cuts line)
 TENANT_RDF_ROWS = 50_000  # covtype's 581,012 cut (the cuts line)
 TENANT_SHOP_FEATURES = 10  # conf/als-example.conf's width
 TENANT_SHOP_DROPPED = 40  # shop's draw leaves out movies' last 40 users: /t/shop/ 404s them
@@ -2967,7 +3165,7 @@ TENANT_PROBE_USERS = 4096  # users of each ALS tenant's load paths
 TENANT_MIN_SHARE = 0.25  # of the ALS answers, for either ALS tenant
 EXP_SHAPE = (3_000, 1_500, 150_000)  # (b)'s MovieLens-shaped set: users, items, ratings
 EXP_FEATURES = 10
-EXP_USERS = 2_000
+EXP_USERS = 1_000  # 2,000 before a cut (the cuts line)
 EXP_MIN_SAMPLES = 50
 EXP_PROMOTE_S = 30.0
 EXP_PROBES = 64
@@ -3604,7 +3802,7 @@ def forest_parity(tf, card, cpu, binned, targets, kw: dict, num_bins: int, devic
                      and float(gains[0] - gains[1]) <= tol and float(gains[0]) - other_gain <= tol)
         tie = {"tree": t, "node": node, **seen}
         ties.append(tie)
-        print(f"rdf: tree {t} differs first at node {node}: {json.dumps(tie)}", flush=True)
+        say(f"rdf: tree {t} differs first at node {node}: {json.dumps(tie)}")
         if not near:
             raise AssertionError(f"tree {t} node {node}: not a near tie: {json.dumps(tie)}")
     return {"trees": card.num_trees, "identical_trees": identical, "near_ties": ties}
@@ -4361,7 +4559,7 @@ def phase_ivf_ops(torch, stn, pk, seed: int, items: int = IVF_ITEMS, features: i
             if pf == IVF_PROBE_FRACTIONS[0] and b == IVF_BATCHES[-1]:
                 batch_counts = counts
             rec = recall_of(ii.cpu().numpy(), ei.cpu().numpy())
-            reps = 2 if pf > 0.1 else 5
+            reps = 1 if pf > 0.1 else 5  # 2 at 0.3 before a cut (the cuts line)
             run = {
                 "probe_fraction": pf, "nprobe": nprobe, "b": b, "recall_at_10": rec,
                 "groups": counts["groups"], "stage1_pieces": counts["pieces"],
@@ -4575,7 +4773,7 @@ def phase_ivf_serving(torch, args, stn, pk, seed: int, items: int = 1_000_000,
         if missing:
             # what each of the first few saw: the answer, the item's own
             # score, and whether a full probe of the index finds its row
-            _, y_index, _ = model._ensure_y_matrix()
+            _, y_index, *_ = model._ensure_y_matrix()
             seen = []
             for j in missing[:3]:
                 status, body, _ = res[j]
@@ -4634,7 +4832,7 @@ def phase_ivf_serving(torch, args, stn, pk, seed: int, items: int = 1_000_000,
 
 # each front's closed loop (a): clients and requests
 FRONT_CLIENTS = 64
-FRONT_REQUESTS = 2048  # 4,096 until the tenants phase joined the run (the cuts line)
+FRONT_REQUESTS = 1024  # 4,096, then 2,048, before cuts (the cuts line)
 # the ladder's load (b), from the client process: (clients, seconds) per
 # step: below budget, overload (four clients for each of the front's 64
 # dispatch workers), back below
@@ -5143,15 +5341,289 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
         torch.cuda.empty_cache()
 
 
+# -- phase 14b: serving-surface, TLS, Basic auth, LSH, /trace and the console ----
+
+SURFACE_SAMPLE_RATE = 0.3  # BASELINE.md:21's LSH setting
+SURFACE_REQUESTS = 512
+SURFACE_CLIENTS = 8
+SURFACE_VALUE_ATOL = 1e-5
+SURFACE_USER = ("oryx", "chip-smoke")
+SURFACE_PARTITION_EPS = 1e-4  # |h . y| below which float32 and float64 may hash apart
+SURFACE_REFERENCE = {
+    "qps": 151, "ms": 13,
+    "source": "BASELINE.md:21: LSH 0.3, 250 features x 1M items, 32-core Xeon, "
+              "1-3 concurrent requests (a reference point, not a target)",
+}
+
+
+def self_signed_pem(directory: str) -> tuple[str, str]:
+    """A throwaway self-signed ``localhost`` certificate and its key, made
+    by the ``openssl`` command."""
+    cert, key = os.path.join(directory, "cert.pem"), os.path.join(directory, "key.pem")
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "ec", "-pkeyopt", "ec_paramgen_curve:prime256v1",
+         "-nodes", "-days", "1",
+         "-subj", "/CN=localhost", "-addext", "subjectAltName=DNS:localhost",
+         "-keyout", key, "-out", cert],
+        check=True, capture_output=True, timeout=120,
+    )
+    return cert, key
+
+
+def https_call(conn, path: str, headers=None):
+    """One GET on a kept-alive HTTPS connection: (status, body, headers,
+    seconds)."""
+    t0 = time.perf_counter()
+    conn.request("GET", path, headers=headers or {})
+    resp = conn.getresponse()
+    body = resp.read()
+    return resp.status, body, dict(resp.getheaders()), time.perf_counter() - t0
+
+
+def lsh_partitions_hold(lsh, y_host: np.ndarray, parts: np.ndarray) -> int:
+    """The model's partition of every item row against the float64 sign
+    pattern of its hash dots; a row may differ only where some dot lies
+    within SURFACE_PARTITION_EPS of its hyperplane. Returns those rows."""
+    hv = lsh.hash_vectors.astype(np.float64)
+    bits = np.arange(lsh.num_hashes)
+    near = 0
+    for lo in range(0, len(y_host), 1 << 17):
+        dots = y_host[lo:lo + (1 << 17)].astype(np.float64) @ hv.T
+        differ = ((dots > 0) << bits).sum(axis=1) != parts[lo:lo + (1 << 17)]
+        if differ.any():
+            if np.abs(dots[differ]).min(axis=1).max() > SURFACE_PARTITION_EPS:
+                raise AssertionError("serving-surface: an item's LSH partition is not its "
+                                     "hash vectors' sign pattern")
+            near += int(differ.sum())
+    return near
+
+
+def phase_serving_surface(torch, args, x: np.ndarray, y: np.ndarray, seed: int, smi: str,
+                          stn, device: str = "cuda") -> dict:
+    """The serving layer's remaining settings on one port ServingLayer:
+    TLS from a self-signed PEM pair, HTTP Basic auth, a profile dir and
+    ALS at ``oryx.als.sample-rate = 0.3`` over phase 3's factors. (a) the
+    TLS and auth gate; (b) 512 /recommend over HTTPS at 8 clients, each
+    answer the exact float32 top-10 of its LSH candidate rows; (c) GET
+    /trace for one traced request; (d) the console. Returns the path's
+    kernel launches."""
+    import base64
+    import http.client
+    import ssl
+
+    from oryx_tpu_torch.app.als import endpoints
+    from oryx_tpu_torch.common import tracing
+    from oryx_tpu_torch.common.metrics import registry
+    from oryx_tpu_torch.serving.layer import ServingLayer
+
+    steps_s, t_step = {}, [time.perf_counter()]
+
+    def step(name: str) -> None:
+        now = time.perf_counter()
+        steps_s[name], t_step[0] = now - t_step[0], now
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-surface-")
+    cert, key = self_signed_pem(root)
+    user, password = SURFACE_USER
+    loc = "inproc://chip-smoke-surface"
+    extra = "\n".join([
+        f"als.sample-rate = {SURFACE_SAMPLE_RATE}",
+        "serving.api.secure-port = 0",
+        f'serving.api.keystore-file = "{cert}"',
+        f'serving.api.key-file = "{key}"',
+        f'serving.api.user-name = "{user}"',
+        f'serving.api.password = "{password}"',
+        f'serving.compute.profile-dir = "{root}/profile"',
+    ])
+    n_items, n_topic = len(y), SERVE_TOPIC_ROWS
+    y32 = y.astype(np.float32)  # what the store holds (``factors()`` gives float64)
+    gen = np.random.default_rng(seed + 1401)
+    users = sorted(gen.choice(np.arange(n_topic, len(x)), size=SURFACE_REQUESTS,
+                              replace=False).tolist())
+    auth = {"Authorization": "Basic " + base64.b64encode(f"{user}:{password}".encode()).decode()}
+    tls = ssl.create_default_context(cafile=cert)
+
+    def connect():
+        return http.client.HTTPSConnection("localhost", layer.port, context=tls, timeout=120)
+
+    forwarded0 = registry.counter("serving.http.forwarded").value
+    step("pem")
+    stn.reset_launch_counts()  # this path starts here
+    layer = ServingLayer(serving_config(loc, "float32", extra))
+    layer.start()
+    out = {"phase": "serving-surface", "items": n_items, "features": y.shape[1],
+           "sample_rate": SURFACE_SAMPLE_RATE, "cpu_count": os.cpu_count(),
+           "steps_s": steps_s}
+    try:
+        publish_model(loc, y.shape[1], x, y)
+        conn = connect()
+        deadline = time.monotonic() + 120
+        while https_call(conn, "/ready", auth)[0] != 200:
+            if time.monotonic() > deadline:
+                raise AssertionError("serving-surface: /ready never turned 200")
+            time.sleep(0.05)
+        model = layer.model_manager.get_model()
+        model.set_item_vectors([f"i{j}" for j in range(n_topic, n_items)], y32[n_topic:])
+        model.set_user_vectors([f"u{u}" for u in users], x[users])
+        step("load")
+
+        # (a) TLS and Basic auth; the native front declined both
+        try:
+            urllib.request.urlopen(f"http://localhost:{layer.port}/ready", timeout=10)
+            plain = "answered"
+        except Exception as e:  # the handshake fails: any error will do
+            plain = type(e).__name__
+        if plain == "answered":
+            raise AssertionError("serving-surface: plain HTTP answered on the TLS port")
+        gate = {
+            "none": https_call(conn, "/ready"),
+            "wrong": https_call(conn, "/ready", {"Authorization": "Basic " + base64.b64encode(
+                f"{user}:wrong".encode()).decode()}),
+            "right": https_call(conn, "/ready", auth),
+        }
+        for case in ("none", "wrong"):
+            status, _, headers, _ = gate[case]
+            if status != 401 or headers.get("WWW-Authenticate") != 'Basic realm="Oryx"':
+                raise AssertionError(f"serving-surface: {case} credentials got {status} {headers}")
+        if gate["right"][0] != 200:
+            raise AssertionError(f"serving-surface: the right credentials got {gate['right'][0]}")
+        if layer._native_front is not None:
+            raise AssertionError("serving-surface: the native front served TLS and auth")
+        out["gate"] = {"plain_http": plain, **{k: v[0] for k, v in gate.items()}}
+
+        # the first request builds the card copy of Y, the host copy and
+        # the LSH partitions
+        status, _, _, first_s = https_call(conn, f"/recommend/u{users[0]}", auth)
+        if status != 200:
+            raise AssertionError(f"serving-surface: the first /recommend answered {status}")
+        ids, _, _, y_host, parts = model._ensure_y_matrix()
+        lsh = model.lsh
+        out.update(first_request_s=first_s, num_hashes=lsh.num_hashes,
+                   max_bits_differing=lsh.max_bits_differing,
+                   partitions=lsh.num_partitions)
+        conn.close()
+        step("first_request")
+
+        # (b) 512 /recommend over HTTPS, 8 clients on kept-alive connections
+        paths = [f"/recommend/u{u}" for u in users]
+        results = [None] * len(paths)
+
+        def client(w: int) -> None:
+            c = connect()
+            try:
+                for j in range(w, len(paths), SURFACE_CLIENTS):
+                    results[j] = https_call(c, paths[j], auth)
+            finally:
+                c.close()
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SURFACE_CLIENTS) as pool:
+            list(pool.map(client, range(SURFACE_CLIENTS)))
+        load_s = time.perf_counter() - t0
+        statuses = sorted({r[0] for r in results})
+        if statuses != [200]:
+            raise AssertionError(f"serving-surface: /recommend statuses {statuses}")
+        lat = sorted(r[3] * 1e3 for r in results)
+        step("requests")
+
+        # (c) GET /trace holds a traced request's serving.request span (on
+        # a new connection: the server drops one idle past its 30 s timeout)
+        conn = connect()
+        ctx = tracing.TraceContext(os.urandom(16).hex(), os.urandom(8).hex(), True)
+        status = https_call(conn, f"/recommend/u{users[1]}",
+                            {**auth, "traceparent": ctx.traceparent()})[0]
+        status_t, body, _, _ = https_call(conn, f"/trace?trace={ctx.trace_id}", auth)
+        spans = [e for e in json.loads(body)["traceEvents"]
+                 if e["name"] == "serving.request" and e["args"]["trace"] == ctx.trace_id]
+        if status != 200 or status_t != 200 or len(spans) != 1:
+            raise AssertionError(f"serving-surface: /trace answered {status_t} with {spans}")
+        # (d) the console
+        status, body, headers, _ = https_call(conn, "/", auth)
+        if (status, headers.get("Content-Type")) != (200, "text/html") or \
+                body != endpoints._CONSOLE_HTML.encode("utf-8"):
+            raise AssertionError(f"serving-surface: GET / answered {status} "
+                                 f"{headers.get('Content-Type')}")
+        conn.close()
+        out.update(trace_span_ms=spans[0]["dur"] / 1e3, console_bytes=len(body))
+        step("trace_console")
+
+        # each answer against numpy: the query's candidate partitions from
+        # the model's own LSH, then the exact float32 top-10 of those rows
+        order = np.fromiter((int(i[1:]) for i in ids), np.int64, len(ids))
+        if not np.array_equal(y_host, y32[order]):
+            raise AssertionError("serving-surface: the model's host copy of Y is not the factors")
+        near = lsh_partitions_hold(lsh, y_host, parts)
+        # each partition's rows, ascending; queries that share a candidate
+        # set share its rows: one gather each
+        by_part = np.argsort(parts, kind="stable")
+        bounds = np.searchsorted(parts[by_part], np.arange(lsh.num_partitions + 1))
+        groups = {}
+        for j, u in enumerate(users):
+            q = x[u].astype(np.float32)
+            groups.setdefault(lsh.candidate_indices(q).tobytes(), []).append((j, u, q))
+        fractions, err, served = [], 0.0, [None] * len(users)
+        for cand, members in groups.items():
+            rows = np.sort(np.concatenate(
+                [by_part[bounds[c]:bounds[c + 1]] for c in np.frombuffer(cand, np.int64)]))
+            sub = y_host[rows]
+            for j, u, q in members:
+                fractions.append(len(rows) / n_items)
+                scores = sub @ q
+                top = np.argpartition(-scores, 9)[:10]
+                top = top[np.lexsort((top, -scores[top]))]  # by score, ties to the lower row
+                body = json.loads(results[j][1])
+                got = [r["id"] for r in body]
+                if got != [ids[r] for r in rows[top]]:
+                    raise AssertionError(f"serving-surface: /recommend/u{u} answered {got}, "
+                                         f"the candidates' exact top-10 is "
+                                         f"{[ids[r] for r in rows[top]]}")
+                err = max(err, float(np.max(np.abs(np.array([r["value"] for r in body])
+                                                   - scores[top]))))
+                served[j] = [int(i[1:]) for i in got]
+        if err > SURFACE_VALUE_ATOL:
+            raise AssertionError(f"serving-surface: values differ by {err}")
+        step("recompute")
+        # recall@10 against the exact float32 scan of every item, on the card
+        y_dev = torch.from_numpy(y32).to(device)
+        q_dev = torch.from_numpy(x[users]).to(device=device, dtype=torch.float32)
+        exact = torch.topk(q_dev @ y_dev.T, 10, dim=1).indices.cpu().numpy()
+        del y_dev, q_dev
+        torch.cuda.empty_cache()
+        recall = sum(len(set(g) & set(e)) for g, e in zip(served, exact.tolist()))
+        recall /= 10.0 * len(users)
+        out.update(
+            requests=len(results), clients=SURFACE_CLIENTS, p50_ms=lat[len(lat) // 2],
+            p99_ms=lat[min(len(lat) - 1, int(len(lat) * 0.99))],
+            answers_per_s=len(results) / load_s, candidate_fraction=float(np.mean(fractions)),
+            recall_at_10=recall, max_abs_err=err, partition_rows_near_a_hyperplane=near,
+            reference=SURFACE_REFERENCE, nvidia_smi=smi,
+        )
+        step("recall")
+
+        forwarded = registry.counter("serving.http.forwarded").value - forwarded0
+        if forwarded:
+            raise AssertionError(f"serving-surface: {forwarded} requests reached the native front")
+        out["forwarded"] = forwarded
+    finally:
+        layer.close()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = stn.launch_counts()  # this path ends here
+    step("checks")
+    out["launches"] = launches
+    out["seconds"] = sum(steps_s.values())
+    emit(out)
+    return launches
+
+
 # -- phase 15: native-host, the C++ store, parser, formatters and tier -------------
 
-NATIVE_FORMAT_ROWS = 100_000
-# the Python formatter's rows, a prefix of the native one's (once all
-# 100,000 too; cut to keep the run inside its limit, printed as a cut)
+NATIVE_FORMAT_ROWS = 25_000  # 100,000 before a cut (the cuts line)
+# the Python formatter's rows, a prefix of the native one's (once all of
+# them; cut to keep the run inside its limit, printed as a cut)
 NATIVE_PY_FORMAT_ROWS = 10_000
 NATIVE_FORMAT_FEATURES = (50, 250)
 NATIVE_READBACK_PROCS = 8  # processes that json.loads the messages back, one per core
-NATIVE_STORE_ROWS = 500_000  # 1,000,000 until the tenants phase joined the run (the cuts line)
+NATIVE_STORE_ROWS = 250_000  # 1,000,000, then 500,000, before cuts (the cuts line)
 NATIVE_STORE_FEATURES = 50
 NATIVE_STORE_BATCH = 4_096
 NATIVE_VTV_RTOL = 1e-9  # the two stores sum the float64 Gramian in different orders
@@ -5548,6 +6020,76 @@ class PhaseClock:
         self.last = now
 
 
+def phase_alone(name: str, seed: int) -> dict:
+    """Runs ``chip_smoke.py --alone <name>``: one phase in a process of its
+    own, so that its kernels' counts are its own while other phases run in
+    this one. Prints its output when it ends; returns the phase's result."""
+    with tempfile.TemporaryDirectory(prefix=f"chip-smoke-{name}-") as tmp:
+        out, log = os.path.join(tmp, "result.json"), os.path.join(tmp, "out.log")
+        cmd = [sys.executable, os.path.abspath(__file__), "--alone", name,
+               "--alone-out", out, "--seed", str(seed)]
+        with open(log, "w") as log_file:
+            proc = subprocess.Popen(cmd, cwd=HERE, stdout=log_file, stderr=subprocess.STDOUT)
+            try:
+                rc = proc.wait(timeout=LAMBDA_TIMEOUT_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        with open(log) as f:
+            for line in f:
+                say(line.rstrip("\n"))
+        if rc != 0:
+            raise AssertionError(f"{name}, in a process of its own, exited {rc}")
+        with open(out) as f:
+            return json.load(f)
+
+
+def run_alone(torch, args) -> int:
+    """The ``--alone`` side of phase_alone(): the phase, then its result as
+    JSON in ``--alone-out``."""
+    from oryx_tpu_torch.ops import pallas_kmeans as pk
+    from oryx_tpu_torch.ops import streaming_topn as stn
+
+    if args.alone == "tenants":
+        result = {"launches": phase_tenants(torch, stn, pk, args.seed)["launches"]}
+    with open(args.alone_out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+class Beside:
+    """Phases run in threads beside the main thread's phases. Each one's
+    clock line gives its own wall seconds; join() waits for all of them
+    and raises the first one's error."""
+
+    def __init__(self) -> None:
+        self.threads: list[threading.Thread] = []
+        self.results: dict = {}
+
+    def start(self, name: str, fn, *args) -> None:
+        def run() -> None:
+            t0 = time.perf_counter()
+            try:
+                self.results[name] = (True, fn(*args))
+            except BaseException as e:  # noqa: BLE001 - raised again in join()
+                self.results[name] = (False, e)
+            emit({"phase": "clock", "after": name, "beside": True,
+                  "s": time.perf_counter() - t0})
+
+        thread = threading.Thread(target=run, name=name)
+        thread.start()
+        self.threads.append(thread)
+
+    def join(self) -> dict:
+        for thread in self.threads:
+            thread.join()
+        for ok, value in self.results.values():
+            if not ok:
+                raise value
+        return {name: value for name, (_, value) in self.results.items()}
+
+
 def main() -> int:
     args = parse_args()
     if not os.path.isdir(os.path.join(HERE, "oryx_tpu_torch", "csrc")):
@@ -5563,6 +6105,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     full_float32(torch)
+    if args.alone:
+        return run_alone(torch, args)
     from oryx_tpu_torch.common.metrics import registry as metrics
     from oryx_tpu_torch.ops import _build, topn
     from oryx_tpu_torch.ops import pallas_kmeans as pk
@@ -5611,7 +6155,11 @@ def main() -> int:
         "ptxas_kernels": ptxas_kernels(log),
     })
 
-    emit({"phase": "cuts", "lambda_batch_interval_s": [45, LAMBDA_BATCH_INTERVAL_S],
+    emit({"phase": "cuts", "lambda_batch_interval_s": {
+              "kmeans-lambda": [45, KMEANS_LAMBDA_INTERVAL_S],
+              "als-lambda": [45, LAMBDA_BATCH_INTERVAL_S],
+              "rdf-lambda": [45, LAMBDA_BATCH_INTERVAL_S],
+              "buses": [45, CHAOS_BATCH_INTERVAL_S]},
           "als_scale_iterations": [ALS_SCALE_ITERATIONS, args.als_iterations],
           "phase2_plain_and_library_times": f"dot, b in {PHASE2_TIMED} (once all cases)",
           "wide_scan_items": [262_144, WIDE_ITEMS],
@@ -5619,10 +6167,17 @@ def main() -> int:
           "kmeans_kernel_shapes": "10,000,000 x 20 dropped",
           "native_host_store_rows": [1_000_000, NATIVE_STORE_ROWS],
           "serving_front_requests": [4096, FRONT_REQUESTS],
+          "tenants_load_s": [10.0, TENANT_LOAD_S],
+          "tenants_experiment_users": [2_000, EXP_USERS],
+          "ivf_serving_folds": [10_000, IVF_FOLDS],
+          "ivf_ops_reps_at_0.3": [2, 1],
+          "native_host_formatter_rows": [100_000, NATIVE_FORMAT_ROWS],
           "tenants_rdf_rows": [COVTYPE_ROWS, TENANT_RDF_ROWS],
           "native_host_tier_index": "ivf-serving's catalog and centroids, not its own",
-          "native_host_python_formatter_rows": [NATIVE_FORMAT_ROWS, NATIVE_PY_FORMAT_ROWS],
-          "native_host_p0.3_queries": [TIER_QUERIES, TIER_WIDE_QUERIES]})
+          "native_host_python_formatter_rows": [100_000, NATIVE_PY_FORMAT_ROWS],
+          "native_host_p0.3_queries": [TIER_QUERIES, TIER_WIDE_QUERIES],
+          "run_at_once": "kmeans-lambda, als-lambda, buses, rdf-lambda and tenants (its own "
+                         "process), beside kmeans-batch and ivf-serving"})
     clock = PhaseClock(t0)
     gen = np.random.default_rng(args.seed)
     y = factors(gen, args.items, args.features)
@@ -5655,7 +6210,7 @@ def main() -> int:
         indexed = metrics.counter("serving.batcher.submitted.indexed").value
         # bulk scoring: 512 users in one call takes the candidates kernel;
         # the handle's rows are the store's order, mapped back to item ids
-        y_ids, _, handle = model._ensure_y_matrix()
+        y_ids, _, handle, *_ = model._ensure_y_matrix()
         bulk = np.arange(256, 768)
         bi, _ = topn.top_k_scores_batch(handle, x[bulk], 10)
         bi = np.array([int(i[1:]) for i in y_ids])[bi]
@@ -5683,7 +6238,10 @@ def main() -> int:
         layer.close()
     del model, layer
 
-    layer, model, bodies, statuses, lat, info = serve(torch, args, "float32", x, y, probe)
+    profile_root = tempfile.mkdtemp(prefix="chip-smoke-profile-")
+    layer, model, bodies, statuses, lat, info = serve(
+        torch, args, "float32", x, y, probe,
+        extra=f'serving.compute.profile-dir = "{profile_root}"')
     try:
         if any(s != 200 for s in statuses):
             raise AssertionError(f"float32 serving: statuses {sorted(set(statuses))}")
@@ -5691,12 +6249,23 @@ def main() -> int:
         got_v = np.array([[r["value"] for r in bodies[str(u)]] for u in probe])
         err = check_topk("float32 /recommend", got_v, got_i, ref_v, ref_i)
         # bulk scoring: 512 users in one call takes the candidates kernel
-        y_ids, _, handle = model._ensure_y_matrix()
+        y_ids, _, handle, *_ = model._ensure_y_matrix()
         bulk = np.arange(256, 768)
         bi, bv = topn.top_k_scores_batch(handle, x[bulk], 10)
         bi = np.array([int(i[1:]) for i in y_ids])[bi]
         rv, ri = exact_top(torch, stn, y_exact, x[bulk], 10)
         bulk_err = check_topk("float32 top_k_scores_batch b=512", bv, bi, rv, ri)
+        # the first profiler reading of the main path: a capture through
+        # POST /debug/profile while the clients keep sending /recommend
+        base = f"http://127.0.0.1:{layer.port}"
+        scans0 = stn.launch_counts()["topn_scan.tc_f32"]
+        profile = profile_under_load(base, [f"{base}/recommend/u{u}" for u in probe])
+        # beside the requests: the batcher coalesces them into scans, and
+        # the ladder's stale rung answers some with none
+        profile["scan_launches_during"] = stn.launch_counts()["topn_scan.tc_f32"] - scans0
+        check_trace_kernels("serving-float32 /debug/profile", profile,
+                            ("topn_scan", "topn_merge"))
+        shutil.rmtree(profile_root, ignore_errors=True)
         launches = stn.launch_counts()
         # phase 3 counted only the tc keys (checked there)
         batches_f32 = {
@@ -5707,7 +6276,7 @@ def main() -> int:
             "phase": "serving-float32", "requests": len(lat),
             "p50_ms": lat[len(lat) // 2], "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))],
             "recommend_max_abs_err": err, "bulk_512_max_abs_err": bulk_err,
-            "scan_batches": batches_f32, **info,
+            "scan_batches": batches_f32, "profile": profile, "nvidia_smi": smi, **info,
         })
         for name in ("topn_scan.tc", "topn_candidates.tc"):
             if launches[name] != launches_int8[name]:
@@ -5723,35 +6292,49 @@ def main() -> int:
 
     kernels.update(phase_kmeans_kernels(torch, pk, args.seed))
     clock("kmeans-kernels")
-    launches.update(phase_kmeans_batch(pk, args.seed))
-    clock("kmeans-batch")
-    torch.cuda.empty_cache()  # the lambda phase's batch process shares the card
-    lam = phase_kmeans_lambda(args.seed)
-    clock("kmeans-lambda")
-    if lam["batch_launches"].get("kmeans_sweep.tc", 0) <= 0:
-        raise AssertionError(f"the batch process launched {lam['batch_launches']}")
     als_rows = phase_als_train(torch, args.seed, args.als_iterations)
     clock("als-train")
-    als_lam = phase_als_lambda(args.seed)
-    clock("als-lambda")
+    rdf_rows = phase_rdf_train(torch, args.seed, args.rdf_rows)
+    clock("rdf-train")
+    ivf_ops = phase_ivf_ops(torch, stn, pk, args.seed, features=args.features)
+    torch.cuda.empty_cache()  # the lambda phases' processes share the card
+    clock("ivf-ops")
+    # The four lambda phases run their layers as processes of their own
+    # and wait most of their time on generation intervals, and the tenants
+    # phase times no kernel either: these five run at once, beside
+    # kmeans-batch and ivf-serving, which time nothing on the card and hold
+    # no latency to a limit. The phases that time kernels or host code run
+    # with nothing beside them, before and after.
+    beside = Beside()
+    beside.start("kmeans-lambda", phase_kmeans_lambda, args.seed)
+    beside.start("als-lambda", phase_als_lambda, args.seed)
+    beside.start("buses", phase_buses, args.seed)
+    beside.start("rdf-lambda", phase_rdf_lambda, args.seed, args.rdf_rows)
+    # the tenants phase counts its kernels from zero, as kmeans-batch and
+    # ivf-serving do in this process: it runs in a process of its own
+    beside.start("tenants", phase_alone, "tenants", args.seed)
+    try:
+        launches.update(phase_kmeans_batch(pk, args.seed))
+        clock("kmeans-batch")
+        ivf_srv = phase_ivf_serving(torch, args, stn, pk, args.seed)
+        clock("ivf-serving")
+    finally:
+        done_beside = beside.join()
+    clock("beside")
+    tenant_launches = done_beside["tenants"]["launches"]
+    lam = done_beside["kmeans-lambda"]
+    if lam["batch_launches"].get("kmeans_sweep.tc", 0) <= 0:
+        raise AssertionError(f"the batch process launched {lam['batch_launches']}")
+    als_lam = done_beside["als-lambda"]
     als_launches = {
         name: als_lam["serving_launches"].get(name, 0) + als_lam["int8_launches"].get(name, 0)
         for name in SOURCES
     }
-    bus_launches = phase_buses(args.seed)["launches"]
-    clock("buses")
-    tenant_launches = phase_tenants(torch, stn, pk, args.seed)["launches"]
-    clock("tenants")
-    rdf_rows = phase_rdf_train(torch, args.seed, args.rdf_rows)
-    clock("rdf-train")
-    phase_rdf_lambda(args.seed, args.rdf_rows)
-    clock("rdf-lambda")
-    ivf_ops = phase_ivf_ops(torch, stn, pk, args.seed, features=args.features)
-    clock("ivf-ops")
-    ivf_srv = phase_ivf_serving(torch, args, stn, pk, args.seed)
-    clock("ivf-serving")
+    bus_launches = done_beside["buses"]["launches"]
     front_launches = phase_serving_front(torch, args, stn, pk, args.seed)
     clock("serving-front")
+    surface_launches = phase_serving_surface(torch, args, x, y, args.seed, smi, stn)
+    clock("serving-surface")
     phase_native_host(torch, args, smi, args.seed, catalog=ivf_srv.pop("catalog"))
     clock("native-host")
     ivf_launches = {
@@ -5774,13 +6357,14 @@ def main() -> int:
             "buses_launches": bus_launches.get(name, 0),
             "tenants_launches": tenant_launches.get(name, 0),
             "ivf_launches": ivf_launches[name], "front_launches": front_launches.get(name, 0),
+            "surface_launches": surface_launches.get(name, 0),
             "parity": "ok", "library_topk_ms": None,
             **kernels[name],
         })
         if name == "kmeans_sweep.tc":
             table[-1]["ivf_sweep"] = ivf_ops["sweep"]
     emit({"kernels": table})
-    print(smi, flush=True)
+    say(smi)
     emit({
         "ok": True,
         "device": {

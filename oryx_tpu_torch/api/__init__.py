@@ -1,6 +1,5 @@
-"""User-facing SPI (counterpart of ``oryx_tpu/api``): the batch and
-serving interfaces apps implement. The speed interface is not ported
-yet.
+"""User-facing SPI (counterpart of ``oryx_tpu/api``): the batch, speed
+(``api/speed.py``) and serving interfaces apps implement.
 """
 
 from oryx_tpu_torch.api.batch import BatchLayerUpdate  # noqa: F401

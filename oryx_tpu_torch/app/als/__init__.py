@@ -1,4 +1,4 @@
-"""ALS collaborative-filtering application: serving model + REST
-endpoints (counterpart of ``oryx_tpu/app/als``; the batch trainer and the
-speed-layer fold-in are not ported yet).
+"""ALS collaborative-filtering application: batch trainer, speed-layer
+fold-in, serving model with LSH pruning, REST endpoints and HTML console
+(counterpart of ``oryx_tpu/app/als``).
 """

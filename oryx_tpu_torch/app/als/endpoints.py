@@ -8,8 +8,8 @@ paging, considerKnownItems, rescorerParams, multi-segment ID lists, and
 (e.g. RecommendToAnonymous.java:59, EstimateForAnonymous.java:47-87).
 Responses are (id, value) records rendered as JSON objects or text/csv.
 
-Every route of the JAX package's module is here; the HTML console
-(``/`` and ``/index.html``) is not ported yet.
+Every route of the JAX package's module is here, the HTML console
+(``/`` and ``/index.html``, ``serving/console.py``) among them.
 """
 
 from __future__ import annotations
@@ -382,7 +382,7 @@ def popular_representative_items(ctx: ServingContext, req: Request):
     picks one item per LSH partition; random projections give the same
     'spread across item space' without LSH state)."""
     model = _model(ctx)
-    ids, _, uploaded = model._ensure_y_matrix()
+    ids, _, uploaded, _y_host, _parts = model._ensure_y_matrix()
     if not ids:
         return []
     from oryx_tpu_torch.common import rng as rng_mod
@@ -457,3 +457,39 @@ def ingest(ctx: ServingContext, req: Request):
     check_not_read_only(ctx)
     send_inputs(ctx, read_ingest_lines(req))
     return Response(204)
+
+
+# ---------------------------------------------------------------------------
+# Console (als/Console.java:28 — HTML page at / and /index.html)
+# ---------------------------------------------------------------------------
+
+from oryx_tpu_torch.serving.console import ConsoleForm, console_response, render_console  # noqa: E402
+
+_CONSOLE_FORMS = [
+    ConsoleForm("Recommend to a user", "GET", "/recommend/{userID}",
+                query=("howMany", "offset", "considerKnownItems")),
+    ConsoleForm("Recommend to many users", "GET", "/recommendToMany/{userIDs:+}",
+                query=("howMany", "considerKnownItems"), note="separate user IDs with /"),
+    ConsoleForm("Recommend to anonymous", "GET", "/recommendToAnonymous/{itemValuePairs:+}",
+                query=("howMany",), note="item=value pairs separated with /"),
+    ConsoleForm("Similar items", "GET", "/similarity/{itemIDs:+}", query=("howMany",)),
+    ConsoleForm("Similarity to item", "GET", "/similarityToItem/{toItemID}/{itemIDs:+}"),
+    ConsoleForm("Estimate preference", "GET", "/estimate/{userID}/{itemIDs:+}"),
+    ConsoleForm("Because", "GET", "/because/{userID}/{itemID}", query=("howMany",)),
+    ConsoleForm("Known items", "GET", "/knownItems/{userID}"),
+    ConsoleForm("Most popular items", "GET", "/mostPopularItems", query=("howMany",)),
+    ConsoleForm("Most active users", "GET", "/mostActiveUsers", query=("howMany",)),
+    ConsoleForm("Set preference", "POST", "/pref/{userID}/{itemID}", body=True,
+                note="optional strength value in the body"),
+    ConsoleForm("Ingest", "POST", "/ingest", body=True,
+                note="user,item,strength CSV lines"),
+    ConsoleForm("Ready?", "GET", "/ready"),
+]
+
+_CONSOLE_HTML = render_console("Oryx ALS serving console", _CONSOLE_FORMS)
+
+
+@resource("GET", "/")
+@resource("GET", "/index.html")
+def console(ctx: ServingContext, req: Request):
+    return console_response(_CONSOLE_HTML)

@@ -25,14 +25,21 @@ built. X and Y live in the native sharded store where the library builds
 (``make_feature_vectors``), in the Python ``FeatureVectors`` otherwise;
 the manager logs which at start.
 
-Not ported yet, and refused at construction: LSH candidate pruning
-(``sample-rate < 1``) and the mesh-sharded item matrix (``shard-items``).
+With ``oryx.als.sample-rate < 1`` the model keeps a host copy of Y and
+each row's LSH partition (``lsh.py``), and ``top_n`` scores on the host
+only the rows whose partition lies in the query's Hamming ball, as the
+JAX package does; LSH turns off index submit, the incremental refresh,
+the IVF tier and index-generation adoption.
+
+Not ported yet, and refused at construction: the mesh-sharded item
+matrix (``shard-items``).
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import threading
 import time
 from typing import Iterable, Iterator
@@ -44,6 +51,7 @@ from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.api.serving import AbstractServingModelManager, ServingModel
 from oryx_tpu_torch.app import pmml as app_pmml
 from oryx_tpu_torch.app.als.common import apply_up_lines, consume_blocks_columnar
+from oryx_tpu_torch.app.als.lsh import LocalitySensitiveHash
 from oryx_tpu_torch.bus.core import KeyMessage
 from oryx_tpu_torch.common import tracing
 from oryx_tpu_torch.common.config import Config
@@ -83,11 +91,6 @@ class ALSServingModel(ServingModel):
         shard_items: bool = False,
         device_user_matrix: bool = True,
     ) -> None:
-        if sample_rate < 1.0:
-            raise NotYetPortedError(
-                "oryx.als.sample-rate < 1 (LSH candidate pruning) is not yet "
-                "ported to oryx_tpu_torch"
-            )
         if shard_items:
             raise NotYetPortedError(
                 "oryx.als.serving.shard-items = true (mesh-sharded item "
@@ -100,15 +103,21 @@ class ALSServingModel(ServingModel):
         self.features = features
         self.implicit = implicit
         # stage X on the card next to Y so /recommend for a known user
-        # ships an int32 row index instead of a query vector (index submit)
+        # ships an int32 row index instead of a query vector (index
+        # submit); only for the exact scan on the card
         self.device_user_matrix = device_user_matrix
-        self._x_staging = bool(device_user_matrix)
+        self._x_staging = bool(device_user_matrix) and sample_rate >= 1.0
         self.shard_items = False
         # item-matrix dtype on the card: bfloat16 halves the scanned bytes
         # at ~1e-2 relative score precision; int8 halves them again and
         # rescoring oversampled candidates against the residual plane
         # keeps top-10 recall >= 0.99 of float32
         self.score_dtype = score_dtype
+        # LSH candidate pruning is opt-in (sample-rate < 1): the pruned
+        # rows are scored on the host, the exact scan on the card otherwise
+        self.lsh = None
+        if sample_rate < 1.0:
+            self.lsh = LocalitySensitiveHash(sample_rate, features, os.cpu_count() or 1)
         self.x = make_feature_vectors()
         self.y = make_feature_vectors()
         self._known_lock = ReadWriteLock()
@@ -128,6 +137,8 @@ class ALSServingModel(ServingModel):
         self._y_ids: list[str] = []
         self._y_index: dict[str, int] = {}
         self._y_matrix = None  # StreamingItemMatrix or IVFIndex
+        self._y_host: np.ndarray | None = None  # host copy, LSH path only
+        self._y_partitions: np.ndarray | None = None  # LSH partition per row
         # incremental refresh state: ids written since the last build, and
         # whether membership may have shrunk (rotation) forcing a rebuild
         self._dirty_ids: set[str] = set()
@@ -336,12 +347,17 @@ class ALSServingModel(ServingModel):
                 refreshed = (
                     self._y_matrix is not None
                     and not self._y_full_rebuild
+                    and self.lsh is None
                     and bool(dirty)
                     and self._try_incremental_refresh(dirty)
                 )
                 if not refreshed:
                     ids, mat = self.y.to_matrix()
-                    ann = self.score_dtype == "int8" and ivf_ops.ann_active(len(ids))
+                    ann = (
+                        self.score_dtype == "int8"
+                        and self.lsh is None
+                        and ivf_ops.ann_active(len(ids))
+                    )
                     if ann:
                         ids, mat = _in_id_order(ids, mat)
                     self._y_ids = ids
@@ -357,6 +373,11 @@ class ALSServingModel(ServingModel):
                         self._y_matrix = topn_ops.upload(
                             mat, dtype=_SCORE_DTYPES[self.score_dtype]
                         )
+                    if self.lsh is not None:
+                        self._y_host = mat
+                        self._y_partitions = (
+                            self.lsh.partitions_for(mat) if len(ids) else None
+                        )
                     self._y_full_rebuild = False
                     # the id space changed: compaction snapshots in
                     # flight are stale and are discarded at install
@@ -364,9 +385,16 @@ class ALSServingModel(ServingModel):
                 self._dirty_ids.clear()
                 self._y_dirty = False
                 self._y_built_at = now
-            # one request sees one consistent (ids, index, matrix) snapshot
-            # even if a rebuild swaps them mid-flight
-            return self._y_ids, self._y_index, self._y_matrix
+            # one request sees one consistent (ids, index, matrix, host
+            # copy, partitions) snapshot even if a rebuild swaps them
+            # mid-flight
+            return (
+                self._y_ids,
+                self._y_index,
+                self._y_matrix,
+                self._y_host,
+                self._y_partitions,
+            )
 
     def _try_incremental_x_refresh(self, dirty: list[str]) -> bool:
         """Scatter the dirty rows of the card copy of X (caller holds the
@@ -503,7 +531,7 @@ class ALSServingModel(ServingModel):
         if self._x_staging:
             x_mat, row = self._user_scan_row(user)
             if row is not None:
-                ids, _index, y_mat = self._ensure_y_matrix()
+                ids, _index, y_mat, _h, _p = self._ensure_y_matrix()
                 if y_mat is not None:
                     return self._select_loop(
                         ids,
@@ -527,18 +555,27 @@ class ALSServingModel(ServingModel):
         cosine: bool = False,
     ) -> list[tuple[str, float]]:
         """Top-N items by dot (or cosine) score against `query`: an exact
-        scan of every item on the card, batched with concurrent requests."""
-        ids, _index, y_mat = self._ensure_y_matrix()
+        scan of every item on the card, batched with concurrent requests,
+        or with LSH the query's candidate rows scored on the host."""
+        ids, _index, y_mat, y_host, y_partitions = self._ensure_y_matrix()
         if y_mat is None:
             return []
-        return self._select_loop(
-            ids,
-            len(ids),
-            lambda k: score_default(y_mat, query, k, cosine=cosine),
-            how_many,
-            exclude,
-            rescorer,
-        )
+        # LSH pruning (sample-rate < 1): only rows whose partition lies in
+        # the query's Hamming ball are scored
+        lsh_rows: np.ndarray | None = None
+        if self.lsh is not None and y_partitions is not None:
+            cand = self.lsh.candidate_indices(query)
+            lsh_rows = np.flatnonzero(np.isin(y_partitions, cand))
+            if len(lsh_rows) == 0:
+                lsh_rows = None  # degenerate: fall back to the exact scan
+        num_candidates = len(lsh_rows) if lsh_rows is not None else len(ids)
+
+        def score_fn(k: int):
+            if lsh_rows is not None:
+                return _host_top_k(y_host, lsh_rows, query, k, cosine=cosine)
+            return score_default(y_mat, query, k, cosine=cosine)
+
+        return self._select_loop(ids, num_candidates, score_fn, how_many, exclude, rescorer)
 
     @staticmethod
     def _select_loop(
@@ -679,7 +716,7 @@ class ALSServingModel(ServingModel):
                 gid, manifest.get("features"), self.features,
             )
             return False
-        if self.score_dtype != "int8":
+        if self.lsh is not None or self.score_dtype != "int8":
             return False  # index generations only drive the IVF scan
         with self._cache_lock:
             rot0 = self._y_rotation_epoch
@@ -723,6 +760,8 @@ class ALSServingModel(ServingModel):
             t.join(timeout=10.0)
         with self._cache_lock:
             self._y_matrix = None
+            self._y_host = None
+            self._y_partitions = None
             self._x_matrix = None
             self._x_index = {}
             self._x_ids = []
@@ -735,6 +774,27 @@ class ALSServingModel(ServingModel):
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"ALSServingModel[features={self.features}, X={self.x.size()}, Y={self.y.size()}]"
+
+
+def _host_top_k(
+    y_host: np.ndarray,
+    rows: np.ndarray,
+    query: np.ndarray,
+    k: int,
+    cosine: bool = False,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Partial top-k over an LSH-pruned row subset, on the host: the
+    candidate set is already about sample-rate of the items."""
+    sub = y_host[rows]
+    scores = sub @ np.asarray(query, dtype=np.float32)
+    if cosine:
+        qn = float(np.linalg.norm(query))
+        norms = np.linalg.norm(sub, axis=1)
+        scores = scores / np.maximum(norms * qn, 1e-12)
+    k = max(1, min(int(k), len(rows)))
+    part = np.argpartition(-scores, k - 1)[:k]
+    order = part[np.argsort(-scores[part])]
+    return rows[order], scores[order]
 
 
 class ALSServingModelManager(AbstractServingModelManager):
@@ -753,11 +813,6 @@ class ALSServingModelManager(AbstractServingModelManager):
             raise ValueError(
                 f"oryx.als.serving.score-dtype must be float32, bfloat16, or "
                 f"int8, got {self.score_dtype!r}"
-            )
-        if self.sample_rate < 1.0:
-            raise NotYetPortedError(
-                "oryx.als.sample-rate < 1 (LSH candidate pruning) is not yet "
-                "ported to oryx_tpu_torch"
             )
         if self.shard_items:
             raise NotYetPortedError(

@@ -1,4 +1,4 @@
-"""K-means clustering application: batch trainer, serving model and REST
-endpoints (counterpart of ``oryx_tpu/app/kmeans``; the speed-layer
-centroid drift and the HTML console are not ported yet).
+"""K-means clustering application: batch trainer, speed-layer centroid
+drift, serving model, REST endpoints and HTML console (counterpart of
+``oryx_tpu/app/kmeans``).
 """

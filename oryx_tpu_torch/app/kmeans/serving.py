@@ -6,9 +6,9 @@ GET /assign (clustering/Assign.java:52), POST /add (clustering/Add.java:
 43), GET /distanceToNearest (kmeans/DistanceToNearest.java:40).
 
 Port note: a copy of ``oryx_tpu/app/kmeans/serving.py`` with its imports
-pointed at ``oryx_tpu_torch``, less the HTML console routes, which wait
-for the port's serving console (with the ALS console). ``/add`` sends a
-body's lines in one ``send_many`` (``app/serving_common.send_inputs``).
+pointed at ``oryx_tpu_torch``, the HTML console at ``/`` and
+``/index.html`` included. ``/add`` sends a body's lines in one
+``send_many`` (``app/serving_common.send_inputs``).
 """
 
 from __future__ import annotations
@@ -127,3 +127,28 @@ def add(ctx: ServingContext, req: Request) -> Response:
     check_not_read_only(ctx)
     send_inputs(ctx, [line.strip() for line in req.text().splitlines() if line.strip()])
     return Response(204)
+
+
+# ---------------------------------------------------------------------------
+# Console (kmeans/Console.java:28)
+# ---------------------------------------------------------------------------
+
+from oryx_tpu_torch.serving.console import ConsoleForm, console_response, render_console  # noqa: E402
+
+_CONSOLE_HTML = render_console(
+    "Oryx k-means serving console",
+    [
+        ConsoleForm("Assign to cluster", "GET", "/assign/{datum}",
+                    note="comma-separated numeric point"),
+        ConsoleForm("Distance to nearest", "GET", "/distanceToNearest/{datum}"),
+        ConsoleForm("Add points", "POST", "/add", body=True,
+                    note="one CSV point per line"),
+        ConsoleForm("Ready?", "GET", "/ready"),
+    ],
+)
+
+
+@resource("GET", "/")
+@resource("GET", "/index.html")
+def console(ctx: ServingContext, req: Request):
+    return console_response(_CONSOLE_HTML)

@@ -9,9 +9,8 @@ and the endpoints: GET/POST /predict (classreg/Predict.java:51), POST
 (rdf/FeatureImportance.java:46-63).
 
 Port note: a copy of ``oryx_tpu/app/rdf/serving.py`` with its imports
-pointed at ``oryx_tpu_torch``, less the HTML console routes, which wait
-for the port's serving console (with the ALS and k-means consoles).
-``/train`` sends a body's lines in one ``send_many``
+pointed at ``oryx_tpu_torch``, the HTML console at ``/`` and
+``/index.html`` included. ``/train`` sends a body's lines in one ``send_many``
 (``app/serving_common.send_inputs``), the records the JAX package sends
 one by one.
 """
@@ -205,3 +204,30 @@ def train(ctx: ServingContext, req: Request) -> Response:
     if lines:
         send_inputs(ctx, lines)
     return Response(204)
+
+
+# ---------------------------------------------------------------------------
+# Console (rdf/Console.java:28)
+# ---------------------------------------------------------------------------
+
+from oryx_tpu_torch.serving.console import ConsoleForm, console_response, render_console  # noqa: E402
+
+_CONSOLE_HTML = render_console(
+    "Oryx random decision forest serving console",
+    [
+        ConsoleForm("Predict", "GET", "/predict/{datum}",
+                    note="CSV example; blank target field"),
+        ConsoleForm("Classification distribution", "GET",
+                    "/classificationDistribution/{datum}"),
+        ConsoleForm("Feature importance", "GET", "/feature/importance"),
+        ConsoleForm("Train", "POST", "/train", body=True,
+                    note="one labeled CSV example per line"),
+        ConsoleForm("Ready?", "GET", "/ready"),
+    ],
+)
+
+
+@resource("GET", "/")
+@resource("GET", "/index.html")
+def console(ctx: ServingContext, req: Request):
+    return console_response(_CONSOLE_HTML)

@@ -7,6 +7,7 @@
     python -m oryx_tpu_torch bus-serve --conf oryx.conf [--bind HOST:PORT] [--data-dir DIR]
     python -m oryx_tpu_torch bus-tail  --conf oryx.conf [--from-beginning]
     python -m oryx_tpu_torch bus-input --conf oryx.conf --input-file data.csv
+    python -m oryx_tpu_torch trace     --conf oryx.conf [TRACE_ID]
 
 The three layers are ported; each runs as its own process, and they meet
 on the bus the config names (the packaged default is the file bus
@@ -14,8 +15,10 @@ on the bus the config names (the packaged default is the file bus
 ``bus-setup`` creates the input and update topics, ``bus-serve`` serves a
 bus directory over TCP (``tcp://host:port`` locators), ``bus-tail``
 follows both topics and ``bus-input`` sends a file's lines to the input
-topic. The other operator commands (``repair``, ``models`` and the rest)
-are not ported.
+topic. ``trace`` prints the serving layer's ``GET /trace`` (Chrome-trace
+JSON, optionally one trace id's spans). The other operator commands
+(``config``, ``health``, ``models``, ``tenants``, ``experiments``,
+``lint`` and ``repair``) are not ported.
 Config layers as in the JAX package: packaged defaults <- ``--conf``
 file <- ``--set`` overrides. The config must name the port's classes,
 e.g. ``model-manager-class =
@@ -43,7 +46,9 @@ from oryx_tpu_torch.common.lang import close_at_shutdown
 
 log = logging.getLogger(__name__)
 
-COMMANDS = ("batch", "speed", "serving", "bus-setup", "bus-serve", "bus-tail", "bus-input")
+COMMANDS = (
+    "batch", "speed", "serving", "bus-setup", "bus-serve", "bus-tail", "bus-input", "trace",
+)
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -52,6 +57,12 @@ def _build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA lambda-architecture ML framework launcher",
     )
     p.add_argument("command", choices=COMMANDS, help="which layer or bus command to run")
+    p.add_argument(
+        "subcommand",
+        nargs="?",
+        default=None,
+        help="trace: optional trace id to filter by",
+    )
     p.add_argument(
         "--conf",
         default=None,
@@ -281,6 +292,33 @@ def run_bus_serve(cfg: Config, bind: str, data_dir: str | None) -> None:
         server.shutdown()
 
 
+def run_trace(cfg: Config, trace_id: str | None = None, out=None) -> int:
+    """Dump the serving layer's recorded spans as Chrome-trace JSON: fetch
+    GET /trace from the configured serving port, optionally filtered to
+    one trace id, and print it. Exit 0 when the layer answered, 1 when it
+    is unreachable."""
+    from urllib.error import URLError
+    from urllib.request import urlopen
+
+    out = out or sys.stdout
+    scheme = "https" if cfg.get_optional_string("oryx.serving.api.keystore-file") else "http"
+    port = cfg.get_int(
+        "oryx.serving.api.secure-port" if scheme == "https" else "oryx.serving.api.port"
+    )
+    ctx_path = cfg.get_string("oryx.serving.api.context-path").rstrip("/")
+    url = f"{scheme}://localhost:{port}{ctx_path}/trace"
+    if trace_id:
+        url += f"?trace={trace_id}"
+    try:
+        with urlopen(url, timeout=10) as resp:
+            body = resp.read().decode("utf-8", "replace")
+    except URLError as e:
+        print(f"/trace: unreachable ({e})", file=out)
+        return 1
+    print(body, file=out)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = _build_parser().parse_args(argv)
     logging.basicConfig(
@@ -308,6 +346,8 @@ def main(argv: list[str] | None = None) -> int:
         run_bus_tail(cfg, from_beginning=args.from_beginning)
     elif args.command == "bus-input":
         run_bus_input(cfg, args.input_file)
+    elif args.command == "trace":
+        return run_trace(cfg, args.subcommand)
     return 0
 
 

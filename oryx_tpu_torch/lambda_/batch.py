@@ -27,8 +27,9 @@ generation's records are neither saved nor trained on until the process
 restarts from its last commit. The update class must be one of the port's (a
 name under ``oryx_tpu`` is refused), and the layer trains on the card:
 it raises at construction without CUDA unless the caller chose the CPU
-(``oryx_tpu_torch.device.set_device("cpu")``). A configured profile
-directory raises NotYetPortedError (``common/profiling.py``).
+(``oryx_tpu_torch.device.set_device("cpu")``). With
+``oryx.batch.compute.profile-dir`` each generation writes a
+``torch.profiler`` Chrome trace there (``common/profiling.py``).
 """
 
 from __future__ import annotations

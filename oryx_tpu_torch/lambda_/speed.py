@@ -26,8 +26,8 @@ take about ten polls each, one batch interval apart). The model manager must be 
 name under ``oryx_tpu`` is refused), and the layer raises at construction
 without CUDA unless the caller chose the CPU
 (``oryx_tpu_torch.device.set_device("cpu")``), as the serving and batch
-layers do. A configured ``oryx.speed.compute.profile-dir`` raises
-NotYetPortedError at construction (``common/profiling.py``).
+layers do. With ``oryx.speed.compute.profile-dir`` each micro-batch
+writes a ``torch.profiler`` Chrome trace there (``common/profiling.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ import logging
 import threading
 import time
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.common.records import BlockRecords
 from oryx_tpu_torch.common import metrics, profiling, tracing
 from oryx_tpu_torch.common.config import Config
@@ -95,12 +94,6 @@ class SpeedLayer(AbstractLayer):
             config.get("oryx.speed.pipeline.enabled", None)
         )
         check_port_module(self.model_manager_class, "oryx.speed.model-manager-class")
-        profile_dir = profiling.profile_dir_from_config(config, "speed")
-        if profile_dir:
-            raise NotYetPortedError(
-                f"oryx.speed.compute.profile-dir = {profile_dir!r}, but profiling is not "
-                "yet ported to oryx_tpu_torch"
-            )
         default_device()  # the port's layers run on the card: fail now, not per batch
         self.manager = load_instance_of(self.model_manager_class, config)
         # guards _input_consumer/_batch_count: the supervised batch (or

@@ -73,14 +73,28 @@ stages MODEL-REF generations into a local cache (``serving/restage.py``).
 Each layer keeps its own metrics registry (``instance_metrics``), which
 ``/metrics`` lays over the process-wide one.
 
-Not ported yet: TLS and auth (a config that sets a key file or
-credentials is refused at construction), autoscaling, the console,
-the tracing export routes and profiling.
+TLS and HTTP Basic auth as in the JAX package: ``keystore-file`` and
+``key-file`` (PEM, together) make the layer listen on ``secure-port``
+over TLS >= 1.2, each accepted socket wrapped on a pool worker;
+``user-name`` and ``password`` (together) gate every request of both
+fronts with Basic auth, refused over plaintext unless
+``allow-insecure-auth``. The native front declines either, so the
+stdlib front serves them.
+
+``GET /trace`` exports this process's recorded spans (Chrome trace, or
+the span list under ``?format=spans``; ``?trace=<id>`` filters), and
+``POST /debug/profile?seconds=N`` takes a ``torch.profiler`` capture of
+the process and the card into ``oryx.serving.compute.profile-dir``
+(``common/profiling.py``, Chrome trace format).
+
+Not ported yet: autoscaling.
 """
 
 from __future__ import annotations
 
+import base64
 import gzip
+import hmac
 import importlib
 import logging
 import socket
@@ -90,9 +104,8 @@ from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, HTTPServer
 from urllib.parse import parse_qs, urlsplit
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.bus.core import get_broker
-from oryx_tpu_torch.common import ledger, metrics, tracing
+from oryx_tpu_torch.common import ledger, metrics, profiling, tracing
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
@@ -118,8 +131,10 @@ log = logging.getLogger(__name__)
 class _PooledHTTPServer(HTTPServer):
     """HTTP server with a bounded worker pool: a worker owns a connection
     for its keep-alive lifetime; beyond `threads` concurrent connections,
-    accepts queue. Accepted sockets get a read timeout, and live
-    connections are tracked so server_close() unblocks every worker."""
+    accepts queue. TLS is wrapped per connection on the pool worker, never
+    on the listener, so a client that stalls mid-handshake costs one
+    worker, not the accept loop. Accepted sockets get a read timeout, and
+    live connections are tracked so server_close() unblocks every worker."""
 
     daemon_threads = True
     read_timeout = 30.0
@@ -127,8 +142,9 @@ class _PooledHTTPServer(HTTPServer):
     # concurrent clients, whose retransmits then add 1 s and 3 s
     request_queue_size = 128
 
-    def __init__(self, addr, handler_cls, threads: int) -> None:
+    def __init__(self, addr, handler_cls, threads: int, tls_ctx=None) -> None:
         super().__init__(addr, handler_cls)
+        self._tls_ctx = tls_ctx
         self._conns: set = set()
         self._conns_lock = threading.Lock()
         self._pool = ThreadPoolExecutor(
@@ -139,19 +155,26 @@ class _PooledHTTPServer(HTTPServer):
         self._pool.submit(self._work, request, client_address)
 
     def _work(self, request, client_address):
+        conn = request
         try:
-            request.settimeout(self.read_timeout)
+            conn.settimeout(self.read_timeout)
+            if self._tls_ctx is not None:
+                try:
+                    conn = self._tls_ctx.wrap_socket(conn, server_side=True)
+                except Exception as e:
+                    log.debug("TLS handshake failed from %s: %s", client_address, e)
+                    return
             with self._conns_lock:
-                self._conns.add(request)
+                self._conns.add(conn)
             try:
-                self.finish_request(request, client_address)
+                self.finish_request(conn, client_address)
             except Exception:
-                self.handle_error(request, client_address)
+                self.handle_error(conn, client_address)
             finally:
                 with self._conns_lock:
-                    self._conns.discard(request)
+                    self._conns.discard(conn)
         finally:
-            self.shutdown_request(request)
+            self.shutdown_request(conn)
 
     def server_close(self):
         super().server_close()
@@ -420,6 +443,38 @@ def _non_numeric(entry) -> bool:
         return True
 
 
+@resource("GET", "/trace")
+def _trace(ctx: ServingContext, req: Request) -> Response:
+    """This process's recorded spans: Chrome-trace/Perfetto JSON by
+    default (load in chrome://tracing or ui.perfetto.dev), or the raw
+    span list with parent links under ?format=spans. ?trace=<32hex>
+    filters to one trace id."""
+    trace_id = req.q1("trace")
+    if req.q1("format") == "spans":
+        body = {"spans": tracing.spans(trace_id), **tracing.stats()}
+    else:
+        body = tracing.export_chrome(trace_id)
+    return Response(200, body, content_type="application/json")
+
+
+@resource("POST", "/debug/profile")
+def _debug_profile(ctx: ServingContext, req: Request) -> Response:
+    """On-demand torch.profiler capture: trace this process and its card
+    for ?seconds=N (default 1, capped at 30), write the Chrome trace under
+    oryx.serving.compute.profile-dir, return its directory. 503 when no
+    profile dir is configured or the profiler cannot start."""
+    profile_dir = profiling.profile_dir_from_config(ctx.config, "serving")
+    if not profile_dir:
+        raise OryxServingException(503, "oryx.serving.compute.profile-dir is not configured")
+    seconds = min(30.0, max(0.0, req.q_float("seconds", 1.0)))
+    try:
+        target = profiling.capture(profile_dir, "serving-ondemand", seconds)
+    except RuntimeError as e:
+        raise OryxServingException(503, str(e))
+    metrics.registry.counter("serving.debug.profiles").inc()
+    return Response(200, {"path": target, "seconds": seconds}, content_type="application/json")
+
+
 @resource("GET", "/model/generations")
 def _model_generations(ctx: ServingContext, req: Request) -> Response:
     """The registry's view of the model dir plus what this instance is
@@ -532,17 +587,6 @@ def _observe_request(
         im.histogram(f"serving.request.seconds.tenant.{tenant}").observe(dt)
 
 
-def _refuse_tls_and_auth(config: Config) -> None:
-    """TLS and HTTP Basic auth are not ported: a config that asks for
-    either must not come up as a plaintext server open to anyone."""
-    for key in ("keystore-file", "key-file", "keystore-password", "user-name", "password"):
-        if config.get_optional_string(f"oryx.serving.api.{key}") is not None:
-            raise NotYetPortedError(
-                f"oryx.serving.api.{key} is set, but TLS and HTTP Basic auth are not "
-                "yet ported to oryx_tpu_torch"
-            )
-
-
 def _configure_ann(config: Config) -> None:
     """Push oryx.serving.scan.ann.* and its maintain block into the IVF
     tier's and the maintainer's knobs."""
@@ -577,16 +621,34 @@ def _configure_ann(config: Config) -> None:
 class ServingLayer:
     def __init__(self, config: Config) -> None:
         default_device()  # the port serves from the card: fail now, not per request
-        _refuse_tls_and_auth(config)
         self.config = config
         tracing.configure_from(config)
         self.port = config.get_int("oryx.serving.api.port")
-        # refused above; the native front's decline reads them as the
-        # JAX package's does
-        self.use_tls = False
-        self.user_name = None
         self.context_path = config.get_string("oryx.serving.api.context-path").rstrip("/")
         self.read_only = config.get_bool("oryx.serving.api.read-only")
+        self.user_name = config.get_optional_string("oryx.serving.api.user-name")
+        self.password = config.get_optional_string("oryx.serving.api.password")
+        if self.user_name and not self.password:
+            # auth needs both: a missing password must not degrade to a
+            # guessable credential
+            raise ValueError("oryx.serving.api.user-name set without password")
+        self.keystore_file = config.get_optional_string("oryx.serving.api.keystore-file")
+        self.key_file = config.get_optional_string("oryx.serving.api.key-file")
+        self.keystore_password = config.get_optional_string("oryx.serving.api.keystore-password")
+        if bool(self.keystore_file) != bool(self.key_file):
+            raise ValueError("oryx.serving.api.keystore-file and key-file must be set together")
+        self.use_tls = bool(self.keystore_file)
+        if self.use_tls:
+            self.port = config.get_int("oryx.serving.api.secure-port")
+        if self.user_name and not self.use_tls:
+            # Basic credentials in cleartext need an explicit opt-in (a
+            # deployment behind a TLS terminator)
+            if not (config.get_optional_bool("oryx.serving.api.allow-insecure-auth") or False):
+                raise ValueError(
+                    "oryx.serving.api.user-name is set but TLS is not configured; "
+                    "set keystore-file/key-file, or allow-insecure-auth = true "
+                    "behind a TLS terminator"
+                )
         self.no_init_topics = config.get_optional_bool("oryx.serving.no-init-topics") or False
         self.model_manager_class = config.get_optional_string("oryx.serving.model-manager-class")
         self.app_resources = config.get_optional_strings("oryx.serving.application-resources")
@@ -831,8 +893,22 @@ class ServingLayer:
             experiments=self.experiments,
         )
         threads = cfg.get_optional_int("oryx.serving.api.threads") or 64
+        tls_ctx = None
+        if self.use_tls:
+            import ssl
+
+            # the listener stays plaintext; each accepted socket is wrapped
+            # on a pool worker so a stalled handshake cannot starve accept()
+            tls_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            tls_ctx.minimum_version = ssl.TLSVersion.TLSv1_2
+            tls_ctx.load_cert_chain(
+                certfile=self.keystore_file,
+                keyfile=self.key_file,
+                password=self.keystore_password,
+            )
         # the native front when oryx.serving.native.* allows it and g++
-        # builds it; None on any decline, and the stdlib server serves
+        # builds it; None on any decline (TLS and auth among them), and
+        # the stdlib server serves
         self._native_front = _native_mod.maybe_start(self, ctx, threads)
         if self._native_front is not None:
             self.port = self._native_front.port
@@ -841,7 +917,7 @@ class ServingLayer:
             )
         else:
             self._server = _PooledHTTPServer(
-                ("0.0.0.0", self.port), _make_handler(self, ctx), threads
+                ("0.0.0.0", self.port), _make_handler(self, ctx), threads, tls_ctx=tls_ctx
             )
             if self.port == 0:
                 self.port = self._server.server_address[1]
@@ -1316,6 +1392,21 @@ def _served_items(body):
     return ()
 
 
+def _check_auth(layer: ServingLayer, headers) -> None:
+    """Basic-auth gate shared by both fronts; raises 401 on failure."""
+    if not layer.user_name:
+        return
+    auth = headers.get("Authorization", "") or ""
+    if not auth.startswith("Basic "):
+        raise OryxServingException(401, "unauthorized")
+    try:
+        userpass = base64.b64decode(auth[6:]).decode("utf-8")
+    except Exception:
+        raise OryxServingException(401, "unauthorized")
+    if not hmac.compare_digest(userpass, f"{layer.user_name}:{layer.password}"):
+        raise OryxServingException(401, "unauthorized")
+
+
 def gzip_compress(body: bytes) -> bytes:
     """Deterministic response gzip (mtime pinned): the same body always
     gives the same bytes, which keeps the native and stdlib fronts
@@ -1334,6 +1425,7 @@ def _dispatch_parsed(layer: ServingLayer, ctx: ServingContext, method: str, raw_
     (``email.Message`` and ``native_front._Headers`` both qualify);
     ``tenant_box[0]`` receives the resolved tenant even when dispatch
     later raises."""
+    _check_auth(layer, headers)
     split = urlsplit(raw_path)
     path = split.path
     if layer.context_path:
@@ -1441,6 +1533,8 @@ def _make_handler(layer: ServingLayer, ctx: ServingContext):
         def _send_error(self, status: int, message: str) -> None:
             body = f"{status} {message}\n".encode("utf-8")
             self.send_response(status)
+            if status == 401:
+                self.send_header("WWW-Authenticate", 'Basic realm="Oryx"')
             self.send_header("Content-Type", "text/plain")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()

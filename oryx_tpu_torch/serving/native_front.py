@@ -165,9 +165,7 @@ def maybe_start(layer, ctx, threads):
 
     - ``oryx.serving.native.enabled = "false"``
     - TLS or Basic auth configured: the stdlib front owns the TLS wrap
-      and the 401 gate; a native snapshot answer would bypass auth (the
-      port's layer refuses both at construction, so this decline is the
-      reference's guard, kept)
+      and the 401 gate; a native snapshot answer would bypass auth
     - more tenants than the C++ table holds
     - toolchain missing / native build disabled (ORYX_NATIVE=0)
     """

@@ -17,6 +17,7 @@ registry and KMeansUpdate against the JAX package's, on the CPU.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -463,13 +464,25 @@ def test_mesh_raises(tmp_path):
         KMeansUpdate(cfg)
 
 
-def test_profile_dir_raises(tmp_path):
-    extra = f'batch.compute.profile-dir = "{tmp_path}/prof"'
-    batch = BatchLayer(kmeans_config("torch", tmp_path, "inproc://refuse", extra))
-    batch.prepare()
-    try:
-        with pytest.raises(NotYetPortedError, match="profil"):
-            batch.run_one_generation(timestamp_ms=1)
-    finally:
-        batch.close()
-    assert not (tmp_path / "prof").exists()
+def test_profile_dir_traces_on_both_packages(tmp_path):
+    """``batch.compute.profile-dir``, once refused, traces a generation on
+    both packages: each writes one ``batch-generation-<ms>`` directory (the
+    port's a torch.profiler Chrome trace, the JAX package's an xprof one),
+    and the published model is the one an untraced generation gives."""
+    def model(text):  # the PMML less its header's timestamp
+        return re.sub(r"<Timestamp>[^<]*</Timestamp>", "", text)
+
+    lines = blob_lines()
+    plain = model(run_generation("torch", tmp_path / "plain", lines)[1])
+    for pkg in PACKAGES:
+        extra = f'batch.compute.profile-dir = "{tmp_path}/prof-{pkg}"'
+        text = run_generation(pkg, tmp_path, lines, extra)[1]
+        (target,) = os.listdir(tmp_path / f"prof-{pkg}")
+        assert target.startswith("batch-generation-")
+        assert any(files for _, _, files in os.walk(tmp_path / f"prof-{pkg}" / target))
+        if pkg == "torch":
+            assert model(text) == plain
+            doc = json.loads((tmp_path / "prof-torch" / target / "trace.json").read_text())
+            cats = {e.get("cat") for e in doc["traceEvents"]}
+            assert "cpu_op" in cats  # the generation's own torch ops
+            assert any(e.get("name") == "batch-generation" for e in doc["traceEvents"])

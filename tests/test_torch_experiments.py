@@ -320,11 +320,16 @@ def run_experiment(pkg, tmp_path, challenger_better: bool) -> dict:
         run_generation(pkg, tmp_path, broker_loc, 1000, 0.90)
         assert store.champion_id() == "1000"
         assert wait_for(lambda: layer.health.live_generation == "1000")
+        # the tracker names the challenger before the coordinator resets
+        # the evaluator for it: a serve sent in between would be wiped, so
+        # the requests wait for the reset itself
+        evidence_before = layer.experiments.evaluator.arms
         run_generation(pkg, tmp_path, broker_loc, 2000, 0.92)
         assert store.champion_id() == "1000"  # the online gate holds the pointer
         assert store.read_manifest("2000").online_status == mods["manifest"].ONLINE_PENDING
         assert wait_for(lambda: layer.health.challenger_generation == "2000")
         assert wait_for(lambda: layer.experiments.active)
+        assert wait_for(lambda: layer.experiments.evaluator.arms is not evidence_before)
         arms, events = {}, []
         for i in range(USERS):
             user = f"u{i}"
@@ -352,6 +357,10 @@ def run_experiment(pkg, tmp_path, challenger_better: bool) -> dict:
                 mods["manifest"].ONLINE_PROMOTED, mods["manifest"].ONLINE_REFUSED)
 
         assert wait_for(concluded), layer.experiments.report()
+        # the registry records the decision before the tracker applies it:
+        # read the layer's generations once it serves the registry's champion
+        assert wait_for(lambda: layer.health.challenger_generation is None
+                        and layer.health.live_generation == store.champion_id())
         assert wait_for(lambda: layer.experiments.evaluator.events_seen >= USERS)
         manifest = store.read_manifest("2000")
         report = layer.experiments.report()

@@ -33,7 +33,7 @@ import time
 import numpy as np
 import pytest
 
-from oryx_tpu_torch import NotYetPortedError, native
+from oryx_tpu_torch import native
 from oryx_tpu_torch import bus as tbus
 from oryx_tpu_torch import device as port_device
 from oryx_tpu_torch.app import pmml as tapp_pmml
@@ -537,15 +537,78 @@ def test_bad_native_mode_raises():
         layer.close()
 
 
+def _front_outcome(pkg, tmp_path, settings, caplog):
+    """Start ``pkg``'s layer with ``native.enabled = "true"`` and
+    ``settings``: "ValueError: <message>", or which front serves and
+    whether the decline was logged."""
+    import importlib
+
+    if pkg == "oryx_tpu":
+        from oryx_tpu import native as pkg_native
+
+        if pkg_native.get_library() is None:
+            pytest.skip("the JAX package's native library did not build")
+    pkg_config = importlib.import_module(f"{pkg}.common.config")
+    pkg_layer = importlib.import_module(f"{pkg}.serving.layer")
+    extra = "\n".join(f"{k} = {v}" for k, v in settings.items())
+    cfg = pkg_config.get_default().with_overlay(f"""
+        oryx {{
+          input-topic.broker = "inproc://tnf-auth-{pkg}"
+          update-topic.broker = "inproc://tnf-auth-{pkg}"
+          input-schema {{ num-features = 2, numeric-features = ["0", "1"] }}
+          serving {{
+            api.port = 0
+            api.secure-port = 0
+            native.enabled = "true"
+            model-manager-class = "{pkg}.app.kmeans.serving:KMeansServingModelManager"
+            application-resources = "{pkg}.app.kmeans.serving"
+            {extra}
+          }}
+        }}""")
+    try:
+        layer = pkg_layer.ServingLayer(cfg)
+    except ValueError as e:
+        return f"ValueError: {e}"
+    caplog.clear()
+    with caplog.at_level("WARNING"):
+        layer.start()
+    try:
+        front = "native" if layer._native_front is not None else "stdlib"
+        declined = any("TLS/auth is configured" in r.getMessage() for r in caplog.records)
+        return front, declined
+    finally:
+        layer.close()
+
+
+@needs_native
 @pytest.mark.parametrize("key, value", [
     ("api.user-name", '"u"'), ("api.password", '"p"'), ("api.key-file", '"/k.pem"'),
-    ("api.keystore-file", '"/c.pem"'),
+    ("api.keystore-file", "cert"),
 ])
-def test_tls_and_auth_stay_refused(key, value):
-    """The JAX package's native front declines TLS and auth; the port
-    refuses both before any front starts."""
-    with pytest.raises(NotYetPortedError):
-        ServingLayer(make_config("inproc://tnf-auth", **{"native.enabled": '"true"', key: value}))
+def test_tls_and_auth_decline_the_native_front(tmp_path, caplog, key, value):
+    """The settings once refused now start as they do in the JAX package:
+    Basic auth (over plain HTTP behind ``allow-insecure-auth``) and TLS
+    make a forced native front decline, logged, and the stdlib front
+    serve; a lone password names no user and keeps the native front; a
+    key file without its keystore is a ValueError."""
+    settings = {key: value}
+    if key == "api.user-name":
+        settings.update({"api.password": '"p"', "api.allow-insecure-auth": "true"})
+    if key == "api.keystore-file":
+        from test_torch_secure_api import self_signed_cert
+
+        cert, pem_key = self_signed_cert(tmp_path)
+        settings = {key: f'"{cert}"', "api.key-file": f'"{pem_key}"'}
+    got = _front_outcome("oryx_tpu_torch", tmp_path, settings, caplog)
+    assert got == _front_outcome("oryx_tpu", tmp_path, settings, caplog)
+    want = {
+        "api.user-name": ("stdlib", True),
+        "api.password": ("native", False),
+        "api.key-file": "ValueError: oryx.serving.api.keystore-file and key-file must be set "
+                        "together",
+        "api.keystore-file": ("stdlib", True),
+    }[key]
+    assert got == want
 
 
 # -- tenants: the tenant table and its counters ------------------------------------

@@ -451,7 +451,6 @@ def test_index_and_vector_paths_agree_with_jax(dtype):
 
 
 @pytest.mark.parametrize("extra", [
-    "als.sample-rate = 0.5",
     "als.serving.shard-items = true",
 ])
 def test_unported_settings_raise(extra):
@@ -459,13 +458,51 @@ def test_unported_settings_raise(extra):
         tsm.ALSServingModelManager(serving_config("torch", "inproc://unused2", extra))
 
 
+def test_lsh_sample_rate_serves_on_both_packages():
+    """``als.sample-rate = 0.5``, once refused, starts on both packages:
+    the model a MODEL record makes prunes with LSH, and /recommend answers
+    the same ids."""
+    from oryx_tpu.common import rng as jrng
+
+    answers = {}
+    for pkg in PACKAGES:
+        (jrng if pkg == "jax" else trng).use_test_seed()  # the same hash vectors
+        layer, base, _ = _start(pkg, f"inproc://lsh-{pkg}", ITEM_VECS, USER_VECS, KNOWN, 2,
+                                extra="als.sample-rate = 0.5")
+        try:
+            assert layer.model_manager.get_model().lsh is not None
+            status, body, _ = http("GET", f"{base}/recommend/U2?howMany=3")
+            assert status == 200
+            answers[pkg] = [r["id"] for r in json.loads(body)]
+        finally:
+            layer.close()
+    assert answers["torch"] == answers["jax"] and answers["torch"]
+
+
+def _construct(pkg, extra):
+    """What constructing each package's layer with ``extra`` gives: "starts",
+    or the error's type and message."""
+    layer_cls = PACKAGES[pkg][5]
+    try:
+        layer = layer_cls(serving_config(pkg, f"inproc://tls-{pkg}", extra))
+    except ValueError as e:
+        return "ValueError", str(e)
+    layer.close()
+    return "starts", None
+
+
 @pytest.mark.parametrize("key", [
     "keystore-file", "key-file", "keystore-password", "user-name", "password",
 ])
-def test_tls_and_auth_settings_raise(key):
-    cfg = serving_config("torch", "inproc://unused5", f'serving.api.{key} = "secret"')
-    with pytest.raises(tsm.NotYetPortedError, match=key):
-        ServingLayer(cfg)
+def test_tls_and_auth_settings_match_jax(key):
+    """Each TLS or auth key alone, once refused by the port, has the JAX
+    package's outcome: a key file without its pair and a user without a
+    password are ValueErrors, a lone password or keystore password starts."""
+    extra = f'serving.api.{key} = "secret"'
+    got = _construct("torch", extra)
+    assert got == _construct("jax", extra)
+    want = "starts" if key in ("keystore-password", "password") else "ValueError"
+    assert got[0] == want
 
 
 def _tenant_layer(pkg, broker_loc, enabled):

@@ -24,7 +24,7 @@ from oryx_tpu.app.kmeans.speed import KMeansSpeedModelManager as JaxKMeansSpeedM
 from oryx_tpu.bus.core import KeyMessage as JaxKeyMessage
 from oryx_tpu.common import config as jconfig
 from oryx_tpu.lambda_.speed import SpeedLayer as JaxSpeedLayer
-from oryx_tpu_torch import NotYetPortedError, bus
+from oryx_tpu_torch import bus
 from oryx_tpu_torch import device as port_device
 from oryx_tpu_torch.app.kmeans import common as km
 from oryx_tpu_torch.app.kmeans.speed import KMeansSpeedModelManager
@@ -207,11 +207,46 @@ def test_speed_batch_continues_input_trace_and_feeds_freshness():
 @pytest.mark.parametrize("extra,error,match", [
     ('model-manager-class = "oryx_tpu.app.kmeans.speed:KMeansSpeedModelManager"', ValueError,
      "oryx_tpu_torch"),
-    ('compute.profile-dir = "/tmp/profiles"', NotYetPortedError, "profile-dir"),
 ])
 def test_speed_layer_refuses_what_is_not_ported(extra, error, match):
     with pytest.raises(error, match=match):
         SpeedLayer(kmeans_config("inproc://refused", extra=extra))
+
+
+def test_speed_layer_traces_with_profile_dir(tmp_path):
+    """``speed.compute.profile-dir``, once refused, starts on both
+    packages: a micro-batch writes one ``speed-batch-<ms>`` trace
+    directory and emits the JAX package's UP deltas."""
+    from oryx_tpu import bus as jax_bus
+
+    lines = seeded_lines(50, 1)
+    got = {}
+    for name, layer_cls, conf, pkg in (
+        ("port", SpeedLayer, C, "oryx_tpu_torch"),
+        ("jax", JaxSpeedLayer, jconfig, "oryx_tpu"),
+    ):
+        loc = f"inproc://speed-prof-{name}"
+        broker = (bus if name == "port" else jax_bus).get_broker(loc)
+        extra = f'compute.profile-dir = "{tmp_path}/{name}"'
+        layer = layer_cls(kmeans_config(loc, extra=extra, pkg=pkg, conf=conf))
+        layer.init_topics()
+        with broker.producer("OryxUpdate") as p:
+            p.send("MODEL", model_message(kmeans_config(loc)))
+        layer.start()
+        try:
+            assert wait_until(lambda: layer.manager.model is not None)
+            with broker.producer("OryxInput") as p:
+                p.send_many((None, line) for line in lines)
+            tail = broker.consumer("OryxUpdate")  # latest: skip the seeded model
+            assert layer.run_one_batch() == 3
+            got[name] = ups_of(tail.poll(max_records=100, timeout=2.0))
+        finally:
+            layer.close()
+        (target,) = (tmp_path / name).iterdir()
+        assert target.name.startswith("speed-batch-")
+    assert got["port"] == got["jax"]
+    trace = json.loads((next((tmp_path / "port").iterdir()) / "trace.json").read_text())
+    assert any(e.get("name") == "speed-batch" for e in trace["traceEvents"])
 
 
 def test_als_speed_layer_constructs():
@@ -238,7 +273,7 @@ def test_cli_speed_command():
     assert args.command == "speed" and args.device == "cpu"
     assert cli._build_parser().parse_args(["batch"]).device == "cuda"
     assert set(cli.COMMANDS) == {"batch", "speed", "serving", "bus-setup", "bus-serve",
-                                 "bus-tail", "bus-input"}
+                                 "bus-tail", "bus-input", "trace"}
 
 
 def test_packaged_default_buses_are_the_file_bus(monkeypatch):

@@ -28,7 +28,11 @@ Phases, each printing one JSON line:
    device alone, and calls back to back), the plain version and two
    PyTorch library yardsticks that the port never calls
    (``torch.matmul`` with a stable ``torch.sort``; ``torch.matmul`` in
-   the plane's working type with ``torch.topk``);
+   the plane's working type with ``torch.topk``); and
+   ``ops/topn.upload_random`` at 1,000,000 x 250, float32 and int8: its
+   handle equal bit for bit to ``upload()`` of its matrix read back but
+   for the norms, summed on the card (within 2e-6 relative), a scan over
+   it (b = 256) equal to its plain version;
 3. serving, int8: the port's ServingLayer fed MODEL + UP messages over
    the update topic and bulk-loaded with 1,000,000 items and users,
    answering concurrent /recommend (index submit through the batcher),
@@ -181,6 +185,24 @@ Phases, each printing one JSON line:
    live again, 64 probe users answered byte for byte as before the
    experiment, ``GET /model/generations`` listing both, and each
    MODEL-REF generation staged whole under the restage dir;
+9d. fleet: the fleet harness, the autoscaler and the CLI's operator
+   commands (``oryx_tpu_torch/tools/fleet.py``), each replica a port
+   ServingLayer serving the probe app (which launches no kernel), in a
+   process of its own (``--alone fleet``): (a) the fleet command's
+   default scenario over 3 replicas on a ``fault+inproc:`` bus at 150
+   req/s for 10 s (a chaos window opened, a generation published, the
+   window closed, a rollback): zero failed requests, the fleet converged
+   with skew 0; (d) the CLI against (a)'s replica 0 and model dir:
+   ``health`` in sync with ``/healthz`` and the CHAMPION, ``models list``
+   and ``show`` against ``GET /model/generations``, ``experiments``
+   against ``GET /experiments``, ``tenants list`` (1 on the untenanted
+   fleet; then list and show with two tenants set), ``repair`` clean,
+   ``models rollback`` of the second generation (every replica on it),
+   ``models gc`` at one generation kept, ``config``; (b) the autoscaler
+   over a diurnal ramp (15 to 45 req/s over 14 s, 30 req/s per replica)
+   against one replica: out before the peak, in after it, no failed
+   request; (c) the crash campaign: 3 subprocess replicas, one SIGKILLed
+   mid-run, no failed request, its recovery seconds;
 10. rdf-train: random-forest training through ``ops/forest.py`` on the
    card (PyTorch ops: the JAX package runs them through XLA, no Pallas
    kernel): (a) tools/train_benchmark.py:215-248's configuration
@@ -271,6 +293,20 @@ Phases, each printing one JSON line:
    the answer's largest) and one stale answer (an earlier full answer's
    bytes), IVF batches below the full nprobe, back at full within 10 x
    hold-s of the last step and every answer full from then on;
+14c. open-loop: one ALS ServingLayer on the default request path (the
+   native front, the ladder) with phase 3's factors in float32, driven
+   by the port's ``OpenLoopEngine`` from another process: Poisson
+   arrivals over PowerLawUsers (the JAX package's defaults), 8 s at 0.5x
+   and 8 s at 1.5x the requests/s serving-front (a) measured through
+   the native front: offered and achieved rates, p50/p99 from the
+   scheduled arrival and of the service time, queued arrivals, failures
+   by kind, answers by served stage, the ``topn_scan.tc_f32`` and
+   ``topn_merge`` launches of each rate; while the last rate left every
+   answer full with no queued arrival, twice that rate for 4 s (at most
+   twice), and the first rate that overloaded the layer printed; no
+   failure at 0.5x, no 5xx or connection failure at any higher rate and
+   every failure classified, a sample of full answers the exact float32
+   top-10;
 14b. serving-surface: one ServingLayer over TLS (a self-signed
    ``localhost`` PEM pair made by ``openssl``) with HTTP Basic auth and a
    profile dir, serving ALS at ``oryx.als.sample-rate = 0.3`` (LSH) over
@@ -314,16 +350,16 @@ Phases, each printing one JSON line:
    main paths (ALS during phases 3-4, k-means during phase 6, each
    counted from zero just before; the scans also by batch rows, per path;
    the als-lambda serving processes' own; those of phase 9b's two; the
-   IVF phases' builds and serving; phase 9c's; phase 14's; and phase
-   14b's) and the numbers of phases 2 and 5, B3's also
+   IVF phases' builds and serving; phase 9c's; phase 14's; phase 14b's;
+   and phase 14c's) and the numbers of phases 2 and 5, B3's also
    at phase 12's shape;
 17. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 The run's order is not the phases' numbers: 1-5, 8, 10 and 12 one
 after another; then 7, 9, 9b and 11 (each in a thread of this process,
 their layers processes of their own) and 9c (in a process of its own,
-``--alone tenants``) at once, beside 6 and 13 in this process; then 14,
-14b and 15. The phases that time kernels or host code run with nothing
+``--alone tenants``) at once, beside 6 and then 13 in this process, and
+9d (``--alone fleet``) from the end of 6; then 14, 14c, 14b and 15. The phases that time kernels or host code run with nothing
 beside them; each phase's clock line gives its own seconds, and the
 "beside" line the rest of the wait.
 
@@ -335,6 +371,7 @@ printing any result. Weights are random, made from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -456,7 +493,7 @@ def emit(obj) -> None:
     say(json.dumps(obj))
 
 
-ALONE_PHASES = ("tenants",)  # the phases main() runs in a process of their own
+ALONE_PHASES = ("tenants", "fleet")  # the phases main() runs in a process of their own
 
 
 def parse_args(argv=None):
@@ -869,6 +906,68 @@ def check_wide_scans(torch, stn, seed: int) -> None:
         del y
 
 
+UPLOAD_RANDOM_NORM_RTOL = 2e-6  # card against numpy norms: float32 sums in two orders
+
+
+def check_upload_random(torch, stn, n: int, features: int, seed: int) -> None:
+    """``ops/topn.upload_random`` on the card at the serving shape, float32
+    and int8: the handle equals ``upload()`` of its matrix read back
+    (``random_items``), plane for plane and bit for bit, but for the norms,
+    summed on the card and held to ``upload()``'s within
+    UPLOAD_RANDOM_NORM_RTOL relative; and a scan over it (topn_scan,
+    b = 256, dot, merged) equals its plain version."""
+    from oryx_tpu_torch.ops import topn
+
+    gen = np.random.default_rng(seed + 5)
+    out = {"phase": "upload-random", "items": n, "features": features}
+    for dtype in ("float32", "int8"):
+        t0 = time.perf_counter()
+        h = topn.upload_random(n, features, dtype, seed=seed)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t0
+        mat = topn.random_items(n, features, seed=seed).cpu().numpy()
+        t0 = time.perf_counter()
+        ref = topn.upload(mat, dtype)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        del mat
+        if (h.n_items, h.features) != (ref.n_items, ref.features):
+            raise AssertionError(f"upload_random {dtype}: shape {h.n_items, h.features}")
+        for name in ("mat_t", "scales", "resid", "resid_scales"):
+            a, b = getattr(h, name), getattr(ref, name)
+            same = (a is None and b is None) or (
+                a is not None and b is not None and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b))
+            if not same:
+                raise AssertionError(f"upload_random {dtype}: its {name} is not upload()'s "
+                                     "of its matrix read back")
+        # the norms are summed on the card, in another order than numpy's
+        if h.norms.shape != ref.norms.shape or h.norms.dtype != ref.norms.dtype:
+            raise AssertionError(f"upload_random {dtype}: its norms' shape or type")
+        norm_err = float(((h.norms - ref.norms).abs()
+                          / ref.norms.clamp_min(torch.finfo(torch.float32).tiny)).max())
+        if not norm_err <= UPLOAD_RANDOM_NORM_RTOL or bool((h.norms[0, n:] != 0).any()):
+            raise AssertionError(f"upload_random {dtype}: its norms differ from upload()'s "
+                                 f"by {norm_err} relative (tolerance {UPLOAD_RANDOM_NORM_RTOL})")
+        del ref
+        q = scan_queries(torch, stn, gen, 256, features, h.mat_t.shape[0])
+        aux = stn._fold_aux(h.norms, h.scales, False).contiguous()
+        m = stn._scan_k(16, n, h.resid)
+        before = stn.launch_counts()
+        cv, ci = stn.topn_scan(q, h.mat_t, aux, n, m, False, h.quantized)
+        path = launched(stn, before)
+        kv, ki = stn.topn_merge(cv, ci, m)
+        pv, pi = stn.topn_merge_plain(
+            *stn.topn_scan_plain(q, h.mat_t, aux, n, m, False, h.quantized), m)
+        err = check_topk(f"upload_random {dtype} topn_scan b=256", kv.cpu(), ki.cpu(),
+                         pv.cpu(), pi.cpu())
+        out[dtype] = {"generate_s": generate_s, "upload_s": upload_s, "path": path,
+                      "max_abs_err": err, "norms_max_rel_err": norm_err}
+        del h, q, aux, cv, ci, kv, ki, pv, pi
+        torch.cuda.empty_cache()
+    emit(out)
+
+
 def merge_lists(torch, gen, s: int, b: int, m: int):
     """[S, b, m] lists as the scans leave them: each best first, values on
     a coarse grid (so equal values meet within and across lists), ids of
@@ -1101,14 +1200,15 @@ def publish_model(broker_loc: str, features: int, x: np.ndarray, y: np.ndarray,
             p.send("UP", join_json(["X", f"u{j}", [float(v) for v in x[j]], known]))
 
 
-def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_users,
-          broker_loc: str | None = None, extra: str = "", generation: str | None = None):
+def start_serving(args, score_dtype: str, x: np.ndarray, y: np.ndarray, first_user: int,
+                  broker_loc: str | None = None, extra: str = "",
+                  generation: str | None = None):
     """Start the port's ServingLayer (on an inproc bus unless
     ``broker_loc`` names one, ``extra`` added to its config), feed it over
     the update topic (the MODEL carrying ``generation`` as the batch
-    layer's do, when given) and the batched setters, fire the requests;
-    returns (layer, model, {user: ids}, {user: values}, latencies,
-    statuses)."""
+    layer's do, when given) and the batched setters, and send one
+    /recommend (for ``first_user``), which builds the card copy of Y and
+    stages X; returns (layer, model, base URL, the seconds of each step)."""
     from oryx_tpu_torch.serving.layer import ServingLayer
 
     broker_loc = broker_loc or f"inproc://chip-smoke-{score_dtype}"
@@ -1131,7 +1231,7 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
     model.set_user_vectors([f"u{j}" for j in range(n_topic, len(x))], x[n_topic:])
     load_s = time.perf_counter() - t0
     # first request builds the card copy of Y and starts the X restage
-    status, _, first_s = http_get(f"{base}/recommend/u{probe_users[0]}")
+    status, _, first_s = http_get(f"{base}/recommend/u{first_user}")
     if status != 200:
         raise AssertionError(f"warm-up /recommend answered {status}")
     t0 = time.perf_counter()
@@ -1139,6 +1239,19 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
     restage_s = time.perf_counter() - t0
     if model._x_matrix is None:
         raise AssertionError("the user matrix was not staged on the card")
+    return layer, model, base, dict(ready_s=ready_s, load_s=load_s, first_request_s=first_s,
+                                    restage_s=restage_s)
+
+
+def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_users,
+          broker_loc: str | None = None, extra: str = "", generation: str | None = None):
+    """start_serving(), then the requests: ``args.requests`` /recommend
+    from ``args.concurrency`` threads over ``probe_users``, then
+    /recommendToAnonymous, /similarity and /estimate; returns (layer,
+    model, {user: ids}, {user: values}, latencies, statuses)."""
+    n_topic = SERVE_TOPIC_ROWS
+    layer, model, base, info = start_serving(args, score_dtype, x, y, probe_users[0],
+                                             broker_loc, extra, generation)
     urls = [f"{base}/recommend/u{u}" for u in probe_users]
     urls = (urls * (args.requests // len(urls) + 1))[: max(args.requests, len(urls))]
     t0 = time.perf_counter()
@@ -1167,8 +1280,7 @@ def serve(torch, args, score_dtype: str, x: np.ndarray, y: np.ndarray, probe_use
     # request (the card copy of Y or the IVF build), the X restage, the
     # timed requests, /recommendToAnonymous, /similarity and /estimate
     return layer, model, bodies, statuses, lat, dict(
-        ready_s=ready_s, load_s=load_s, first_request_s=first_s, restage_s=restage_s,
-        requests_s=requests_s, others_s=others_s)
+        **info, requests_s=requests_s, others_s=others_s)
 
 
 # -- phases 5 and 6: k-means -------------------------------------------------------
@@ -3673,6 +3785,244 @@ def phase_tenants(torch, stn, pk, seed: int, scale: float = 1.0, device: str = "
     return out
 
 
+# -- phase 9d: fleet, the operator surface -------------------------------------------
+
+FLEET_REPLICAS = 3
+FLEET_RATE = 150.0  # req/s: the fleet command's default scenario
+FLEET_SECONDS = 10.0
+AUTOSCALE_PERIOD_S = 14.0  # (b): the diurnal ramp of tests/serving/test_fleet.py:366-410
+AUTOSCALE_RAMP = (15.0, 45.0)  # req/s at the trough and at the peak
+AUTOSCALE_PER_REPLICA = 30.0  # req/s one replica is sized for
+AUTOSCALE_SEED = 17  # that test's arrivals and users
+CRASH_RATE = 60.0  # (c): tests/chaos/test_fleet_crash.py's offered rate
+CRASH_SECONDS = 8.0
+CRASH_RECOVERY_BUDGET_S = 45.0
+FLEET_TENANTS = {"movies": {"weight": 2.0, "slo_p99_ms": 250.0},
+                 "shop": {"weight": 1.0, "slo_p99_ms": 500.0}}
+
+
+def cli_lines(argv: list[str]) -> tuple[int, list[str]]:
+    """One command of the port's CLI through its ``main()``, in this
+    process (the fleet's bus is an inproc one): (exit code, lines)."""
+    import io
+
+    from oryx_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def fleet_cli(fleet, tmp: str) -> dict:
+    """(d): the CLI against replica 0 of ``fleet`` and its model dir, each
+    command's exit code and lines held against the endpoints' JSON and
+    the registry: health, models list / show / rollback / gc,
+    experiments, tenants list / show, repair and config."""
+    from oryx_tpu_torch.registry.store import RegistryStore
+
+    base = fleet.targets[0].base_url
+    conf = os.path.join(tmp, "fleet.conf")
+    with open(conf, "w") as f:
+        f.write(fleet._replica_config().serialize())
+    common = ["--conf", conf, "--set", f"oryx.serving.api.port={base.rsplit(':', 1)[1]}"]
+    store = RegistryStore(fleet.model_dir)
+    out = {}
+
+    def run(*argv, want: int = 0, extra=()):
+        rc, lines = cli_lines([*argv, *common, *extra])
+        out[" ".join(argv)] = {"rc": rc, "lines": len(lines)}
+        if rc != want:
+            raise AssertionError(f"fleet: cli {' '.join(argv)} exited {rc}, not {want}:\n"
+                                 + "\n".join(lines[-20:]))
+        return lines
+
+    def endpoint(path: str):
+        status, body, _ = http_get(base + path)
+        if status != 200:
+            raise AssertionError(f"fleet: {path} answered {status}")
+        return json.loads(body)
+
+    def in_sync(lines):
+        live = endpoint("/healthz")["live_generation"]
+        want = f"generations: live={live} champion={store.champion_id()} (in sync)"
+        if want not in lines or not any(l.startswith("/readyz: 200") for l in lines):
+            raise AssertionError(f"fleet: cli health said {lines}, want {want!r}")
+        return live
+
+    saved = os.environ.get("ORYX_CONF")  # main() points ORYX_CONF at --conf
+    try:
+        in_sync(run("health"))
+        listing = endpoint("/model/generations")
+        lines = run("models", "list")
+        listed = [line.split("\t")[0] for line in lines]
+        champion = [line.split("\t")[0] for line in lines if line.endswith("*champion*")]
+        if listed != [g["generation_id"] for g in listing["generations"]] or \
+                champion != [listing["champion"]]:
+            raise AssertionError(f"fleet: cli models list {lines} against {listing}")
+        first, second = fleet.generations[0], fleet.generations[1]
+        shown = json.loads("\n".join(run("models", "show", second)))
+        entry = next(g for g in listing["generations"] if g["generation_id"] == second)
+        if any(shown[k] != entry[k] for k in ("status", "parent_id", "eval_metric",
+                                               "created_at_ms")):
+            raise AssertionError(f"fleet: cli models show {second}: {shown} against {entry}")
+        report = json.loads("\n".join(run("experiments")))
+        if report != endpoint("/experiments"):
+            raise AssertionError(f"fleet: cli experiments {report}")
+        lines = run("tenants", "list", want=1)
+        if lines != ["tenancy disabled (oryx.tenancy.enabled = false or no tenants declared)"]:
+            raise AssertionError(f"fleet: cli tenants list on an untenanted fleet: {lines}")
+        tenancy = []
+        for tid, spec in FLEET_TENANTS.items():
+            tenancy += [f"oryx.tenancy.tenants.{tid}.app=\"probe\"",
+                        f"oryx.tenancy.tenants.{tid}.weight={spec['weight']}",
+                        f"oryx.tenancy.tenants.{tid}.slo.p99-ms={spec['slo_p99_ms']}"]
+        tenancy = [a for kv in ["oryx.tenancy.enabled=true", *tenancy] for a in ("--set", kv)]
+        lines = run("tenants", "list", extra=tenancy)
+        if sorted(line.split("\t")[0] for line in lines) != sorted(FLEET_TENANTS):
+            raise AssertionError(f"fleet: cli tenants list {lines}")
+        shop = json.loads("\n".join(run("tenants", "show", "shop", extra=tenancy)))
+        if (shop["app"], shop["weight"], shop["slo"]["p99_ms"]) != ("probe", 1.0, 500.0) or \
+                shop["update_topic"] != "OryxUpdate.shop":
+            raise AssertionError(f"fleet: cli tenants show shop {shop}")
+        lines = run("repair")
+        if lines[-1] != "repair: all stores clean":
+            raise AssertionError(f"fleet: cli repair {lines}")
+        # rollback to the second generation: republished on the update topic
+        # through the chaos bus (levers closed), CHAMPION moved, every
+        # replica live on it
+        lines = run("models", "rollback", second)
+        if lines != [f"republished generation {second} as MODEL; champion moved"] or \
+                store.champion_id() != second or not fleet.wait_converged(second, timeout=15.0):
+            raise AssertionError(f"fleet: cli models rollback {second}: {lines}, champion "
+                                 f"{store.champion_id()}, replicas {fleet.replica_generations()}")
+        if in_sync(run("health")) != second:
+            raise AssertionError("fleet: replica 0 is not live on the rolled-back generation")
+        lines = run("models", "gc", extra=["--set", "oryx.ml.retention.max-generations=1"])
+        if lines != [f"deleted 1 generation(s): {[first]}"] or \
+                store.list_generations() != [second]:
+            raise AssertionError(f"fleet: cli models gc {lines}, left {store.list_generations()}")
+        lines = run("config")
+        for want in (f"oryx.batch.storage.model-dir={fleet.model_dir}/",
+                     f"oryx.serving.api.port={common[-1].rsplit('=', 1)[1]}"):
+            if want not in lines:
+                raise AssertionError(f"fleet: cli config has no {want!r}")
+    finally:
+        if saved is None:
+            os.environ.pop("ORYX_CONF", None)
+        else:
+            os.environ["ORYX_CONF"] = saved
+    return out
+
+
+def phase_fleet(seed: int, device: str = "cuda") -> dict:
+    """Phase 9d: the fleet harness, the autoscaler and the CLI's operator
+    commands (``oryx_tpu_torch.tools.fleet``), each replica a port
+    ServingLayer with the probe app (which launches no kernel). (a) the
+    fleet command's default scenario over FLEET_REPLICAS in-process
+    replicas on a ``fault+inproc:`` bus at FLEET_RATE for FLEET_SECONDS:
+    a chaos window, a publish, the window closed, a rollback; zero failed
+    requests and skew 0 at the end; (b) the autoscaler over a diurnal
+    ramp against one replica: out before the peak, in (a drain) after
+    the out, no failed request; (c) the crash campaign: FLEET_REPLICAS
+    subprocess replicas, one SIGKILLed mid-run, no failed request, its
+    recovery seconds within CRASH_RECOVERY_BUDGET_S; (d) the CLI against
+    (a)'s replica 0 (``fleet_cli``). The SLO verdicts (p99 within 1 s) are
+    printed, not held: the phase runs in the window. Returns the phase's
+    numbers."""
+    from oryx_tpu_torch.loadgen import DiurnalRampProcess, OpenLoopEngine, PowerLawUsers
+    from oryx_tpu_torch.registry.tracking import record_fleet_skew
+    from oryx_tpu_torch.serving.autoscale import AutoscaleConfig
+    from oryx_tpu_torch.tools import fleet as fleet_tool
+
+    def summary(result) -> dict:
+        s = result.summary()
+        return {k: s[k] for k in ("offered", "offered_rate", "achieved_rate", "ok", "failed",
+                                  "shed", "error_kinds", "p50_ms", "p99_ms", "service_p99_ms",
+                                  "queued_arrivals", "retried")}
+
+    out = {"phase": "fleet", "replicas": FLEET_REPLICAS}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as tmp:
+        # (a) rotation under chaos, then (d) the CLI against its replica 0
+        with fleet_tool.FleetHarness(FLEET_REPLICAS, os.path.join(tmp, "a"),
+                                     bus_name="chip-smoke-fleet", chaos_seed=seed) as fleet:
+            first = fleet.publish(metric=0.90)
+            if not fleet.wait_converged(first, timeout=15.0):
+                raise AssertionError("fleet (a): replicas never converged on the first generation")
+            scenario = fleet_tool.default_scenario(FLEET_RATE, FLEET_SECONDS, seed)
+            result, verdict, runner = fleet_tool.run_scenario(fleet, scenario)
+            settled = fleet.wait_converged(fleet.generations[-1], timeout=10.0)
+            skew = record_fleet_skew(fleet.replica_generations())
+            out["a"] = {**summary(result), "actions": [a.do for a in runner.executed],
+                        "generations": list(fleet.generations), "final_skew": skew,
+                        "max_skew_observed": max((k for _, _, k in fleet.skew_samples),
+                                                 default=0),
+                        "slo_passed": verdict.passed, "violations": verdict.violations}
+            out["a_s"] = time.perf_counter() - t0
+            if runner.errors or out["a"]["actions"] != ["chaos", "publish", "chaos", "rollback"]:
+                raise AssertionError(f"fleet (a): actions {out['a']['actions']}, "
+                                     f"errors {runner.errors}")
+            # the scenario's p99 SLO is printed, not held: in the window this
+            # process shares the host's cores with every lambda phase, and
+            # its load generator's own lag lands in the latencies
+            if result.failed or not settled or skew != 0:
+                emit(out)
+                raise AssertionError(f"fleet (a): {result.failed} failed, settled {settled}, "
+                                     f"skew {skew}, {verdict.violations}")
+            t = time.perf_counter()
+            out["d"] = fleet_cli(fleet, tmp)
+            out["d_s"] = time.perf_counter() - t
+        # (b) the autoscaler over a diurnal ramp
+        t = time.perf_counter()
+        with fleet_tool.FleetHarness(1, os.path.join(tmp, "b"),
+                                     bus_name="chip-smoke-autoscale") as fleet:
+            gen = fleet.publish(metric=0.90)
+            if not fleet.wait_converged(gen, timeout=15.0):
+                raise AssertionError("fleet (b): the replica never took the generation")
+            fleet.rate_window_s = 1.5
+            policy = fleet.start_autoscaler(AutoscaleConfig(
+                enabled=True, min_replicas=1, max_replicas=3, interval_s=0.25, lead_s=3.0,
+                period_s=AUTOSCALE_PERIOD_S, per_replica_rate=AUTOSCALE_PER_REPLICA,
+                cooldown_s=1.5, burn_hi=1e9, queue_wait_hi_ms=1e9, scale_in_quiet_evals=3,
+                min_fit_samples=6))
+            engine = OpenLoopEngine(fleet.targets, template="/probe/recommend/u%d",
+                                    readiness_poll_s=0.1)
+            t_run = time.monotonic()
+            result = engine.run(
+                DiurnalRampProcess(*AUTOSCALE_RAMP, AUTOSCALE_PERIOD_S, seed=AUTOSCALE_SEED),
+                PowerLawUsers(100_000, seed=AUTOSCALE_SEED), AUTOSCALE_PERIOD_S)
+            fleet.stop_autoscaler()
+            events = [{"t": e.t - t_run, "direction": e.direction, "reason": e.reason,
+                       "replicas": e.replicas} for e in policy.events]
+            out["b"] = {**summary(result), "events": events,
+                        "replicas_at_end": fleet.replica_count()}
+            peak = AUTOSCALE_PERIOD_S / 2
+            outs = [e for e in events if e["direction"] == "out"]
+            ins = [e for e in events if e["direction"] == "in"]
+            if result.failed or not outs or outs[0]["t"] >= peak or not ins or \
+                    ins[0]["t"] <= outs[0]["t"] or fleet.replica_count() != 1:
+                emit(out)
+                raise AssertionError(f"fleet (b): {result.failed} failed, events {events}")
+        out["b_s"] = time.perf_counter() - t
+        # (c) one SIGKILL in a fleet of subprocess replicas
+        t = time.perf_counter()
+        report = fleet_tool.run_crash_campaign(
+            FLEET_REPLICAS, CRASH_RATE, CRASH_SECONDS, os.path.join(tmp, "c"), seed=seed,
+            recovery_budget_s=CRASH_RECOVERY_BUDGET_S)
+        out["c"] = {k: report[k] for k in ("crashes", "recovery_seconds",
+                                           "recovery_within_budget", "scenario_actions",
+                                           "offered", "ok", "failed", "retried", "p99_ms")}
+        out["c"]["slo_passed"] = report["slo"]["passed"]
+        out["c_s"] = time.perf_counter() - t
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    c = out["c"]
+    if c["crashes"] != 1 or c["failed"] or not c["recovery_within_budget"]:
+        raise AssertionError(f"fleet (c): {c}")
+    return out
+
+
 # -- phases 10-11: random decision forests -------------------------------------------
 
 RDF_ROWS = 100_000  # bench_rdf's training rows (tools/train_benchmark.py:215-248)
@@ -5089,7 +5439,8 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
     behind the admission ladder, served (a) by the pooled stdlib front and
     by the native front in turn, 64 clients in another process each, then
     (b) the native front under LADDER_STEPS, the reference's overload
-    defaults unchanged. Returns the path's kernel launches."""
+    defaults unchanged. Returns the path's kernel launches and the
+    requests/s of (a) through the native front."""
     from oryx_tpu_torch.common.metrics import registry
     from oryx_tpu_torch.ops import ivf
     from oryx_tpu_torch.serving import overload
@@ -5334,11 +5685,200 @@ def phase_serving_front(torch, args, stn, pk, seed: int, items: int = 1_000_000,
         emit({"phase": "serving-front-checks", **result})
         if device == "cuda" and launches["kmeans_sweep.tc"] <= 0:
             raise AssertionError("serving-front: the index builds launched no kmeans_sweep.tc")
-        return launches
+        return launches, out["native"]["rps"]
     finally:
         for layer in layers.values():
             layer.close()
         torch.cuda.empty_cache()
+
+
+# -- phase 14c: open-loop, the port's load generator against ALS serving --------
+
+
+OPEN_LOOP_SECONDS = 8.0
+OPEN_LOOP_FACTORS = (0.5, 1.5)  # of the requests/s serving-front (a) measured, native front
+# serving-front (a) measures IVF int8 under closed-loop clients, which may
+# sit below what float32 exact serving takes open-loop: while the last rate
+# left the ladder at full with no queued arrival, the rate doubles, for
+# OPEN_LOOP_STEP_SECONDS, at most OPEN_LOOP_MAX_STEPS times
+OPEN_LOOP_STEP_SECONDS = 4.0
+OPEN_LOOP_MAX_STEPS = 2
+OPEN_LOOP_SAMPLE = 64  # full answers per rate held against the exact top-10
+FAILURE_KINDS = ("timeout", "connection", "no-ready-replica", "http-3xx", "http-4xx", "http-5xx")
+
+
+class OffsetUsers:
+    """PowerLawUsers' indices moved past the users the MODEL names (they
+    know an item each, which /recommend leaves out)."""
+
+    def __init__(self, users, offset: int) -> None:
+        self.users, self.offset = users, offset
+
+    def one(self) -> int:
+        return self.users.one() + self.offset
+
+
+def open_loop_main(out_path: str) -> None:
+    """The open-loop phase's load, in a process of its own so that its
+    clients share no interpreter lock with the server: reads the spec as
+    one JSON line on standard input, drives each rate with the port's
+    ``OpenLoopEngine`` (Poisson arrivals, PowerLawUsers with the JAX
+    package's defaults), writes the rate's result to ``<out_path>.<i>``
+    and prints ``done <i>`` once every request of the rate has come back;
+    while the last rate did not overload the layer (every answer full, no
+    queued arrival), runs twice that rate for ``step_seconds``, at most
+    ``max_steps`` times; prints ``end <rates run>`` last."""
+    import random
+
+    from oryx_tpu_torch.loadgen import OpenLoopEngine, PoissonProcess, PowerLawUsers, Target
+    from oryx_tpu_torch.loadgen.engine import SHED_HEADER
+
+    spec = json.loads(sys.stdin.readline())
+    rates = list(spec["rates"])
+    for i, rate in enumerate(rates):  # grows while it runs
+        seconds = spec["seconds"] if i < len(spec["rates"]) else spec["step_seconds"]
+        pick, samples, seen, lock = random.Random(spec["seed"] + i), [], [0], threading.Lock()
+
+        def keep(user, status, headers, body):
+            # a reservoir of the full answers, spread over the whole run
+            if (headers.get(SHED_HEADER) or "full") != "full":
+                return
+            with lock:
+                seen[0] += 1
+                if len(samples) < spec["sample"]:
+                    samples.append([user, body.decode()])
+                elif pick.random() < spec["sample"] / seen[0]:
+                    samples[pick.randrange(spec["sample"])] = [user, body.decode()]
+
+        engine = OpenLoopEngine([Target("open-loop", spec["base"])],
+                                template="/recommend/u%d", on_response=keep)
+        users = OffsetUsers(PowerLawUsers(spec["users"], seed=spec["seed"] + i), spec["offset"])
+        result = engine.run(PoissonProcess(rate, seed=spec["seed"] + i), users, seconds)
+        answered = [r for r in result.records if r.ok or r.kind == "shed"]
+        by_stage = collections.Counter(r.shed_stage for r in answered)
+        row = {
+            **result.summary(),
+            "service_p50_ms": result.service_quantile(0.50) * 1e3,
+            "service_p99_ms": result.service_quantile(0.99) * 1e3,
+            "answers_by_stage": dict(by_stage),
+            "overloaded": result.queued_arrivals > 0 or set(by_stage) - {"full"} != set(),
+            "samples": samples,
+        }
+        with open(f"{out_path}.{i}", "w") as f:
+            json.dump(row, f)
+        print(f"done {i}", flush=True)
+        if (i == len(rates) - 1 and not row["overloaded"]
+                and len(rates) < len(spec["rates"]) + spec["max_steps"]):
+            rates.append(2.0 * rate)
+    print(f"end {len(rates)}", flush=True)
+
+
+def phase_open_loop(torch, args, stn, x: np.ndarray, y: np.ndarray, seed: int,
+                    front_rps: float, smi: str, device: str = "cuda") -> dict:
+    """Phase 14c: one ALS ServingLayer on the default request path (the
+    native front, the admission ladder), phase 3's factors in float32,
+    driven open-loop by the port's load generator, in another process, at
+    OPEN_LOOP_FACTORS times ``front_rps`` for OPEN_LOOP_SECONDS each, and
+    then at doubled rates until one overloads the layer (OPEN_LOOP_STEP_*):
+    latency from the scheduled arrival and service time, queued arrivals,
+    failures by kind and answers by stage; no failure at the first rate,
+    at every other no 5xx or connection failure and every failure
+    classified, and the rate that first overloaded the layer printed (the
+    overload checks bit only if one did); a sample of full answers held
+    against the exact float32 top-10; the scan and merge launches counted
+    from zero at the phase's start. Returns those launches."""
+    t0 = time.perf_counter()
+    stn.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-open-loop-") as tmp:
+        out_path = os.path.join(tmp, "rate")
+        code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+                f"chip_smoke.open_loop_main({out_path!r})")
+        # started first: it imports the load generator while the layer loads
+        child = subprocess.Popen([sys.executable, "-c", code], cwd=HERE, text=True,
+                                 stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+        try:
+            layer, model, base, info = start_serving(
+                args, "float32", x, y, SERVE_TOPIC_ROWS,
+                broker_loc="inproc://chip-smoke-open-loop")
+            try:
+                if layer._native_front is None or layer.admission is None:
+                    raise AssertionError("open-loop: the layer is not on the default request "
+                                         "path (native front and admission ladder)")
+                counts = [stn.launch_counts()]
+                child.stdin.write(json.dumps({
+                    "base": base, "rates": [f * front_rps for f in OPEN_LOOP_FACTORS],
+                    "seconds": OPEN_LOOP_SECONDS, "step_seconds": OPEN_LOOP_STEP_SECONDS,
+                    "max_steps": OPEN_LOOP_MAX_STEPS,
+                    "users": len(x) - SERVE_TOPIC_ROWS, "offset": SERVE_TOPIC_ROWS,
+                    "seed": seed, "sample": OPEN_LOOP_SAMPLE}) + "\n")
+                child.stdin.flush()
+                while True:
+                    line = child.stdout.readline().strip()
+                    if line == f"end {len(counts) - 1}" and len(counts) > len(OPEN_LOOP_FACTORS):
+                        break
+                    if line != f"done {len(counts) - 1}":
+                        raise AssertionError(f"open-loop: the load process said {line!r} "
+                                             f"(exit {child.poll()})")
+                    counts.append(stn.launch_counts())
+                n_rates = len(counts) - 1
+                if child.wait(60) != 0:
+                    raise AssertionError(f"open-loop: the load process exited {child.returncode}")
+            finally:
+                layer.close()
+            del model, layer
+            rows = []
+            for i in range(n_rates):
+                with open(f"{out_path}.{i}") as f:
+                    rows.append(json.load(f))
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    # the sampled full answers against the exact float32 top-10
+    y_exact = stn.upload_streaming(y, dtype=torch.float32, device=device)
+    checked, worst = 0, 0.0
+    for i, row in enumerate(rows):
+        samples = row.pop("samples")
+        if samples:
+            users = np.array([u for u, _ in samples])
+            ref_v, ref_i = exact_top(torch, stn, y_exact, x[users], 10)
+            bodies = [json.loads(b) for _, b in samples]
+            got_i = np.array([[int(r["id"][1:]) for r in b] for b in bodies])
+            got_v = np.array([[r["value"] for r in b] for b in bodies])
+            worst = max(worst, check_topk(f"open-loop rate {i} full answers", got_v, got_i,
+                                          ref_v, ref_i))
+            checked += len(samples)
+        row["launches"] = {k: counts[i + 1][k] - counts[i][k]
+                           for k in ("topn_scan.tc_f32", "topn_merge")}
+    del y_exact
+    torch.cuda.empty_cache()
+    launches = stn.launch_counts()
+    overloaded_at = next((row["offered_rate"] for row in rows if row["overloaded"]), None)
+    emit({"phase": "open-loop", "nvidia_smi": smi, "front_rps": front_rps,
+          "factors": list(OPEN_LOOP_FACTORS), "seconds_per_rate": OPEN_LOOP_SECONDS,
+          "step_seconds": OPEN_LOOP_STEP_SECONDS, "rates": rows,
+          # None: no rate overloaded the layer, so the overload checks did not bite
+          "overloaded_at_offered_rate": overloaded_at,
+          "full_answers_checked": checked, "full_answers_max_abs_err": worst,
+          "launches_since_phase_start": {k: launches[k] for k in ("topn_scan.tc_f32",
+                                                                  "topn_merge")},
+          "setup_s": info, "phase_s": time.perf_counter() - t0})
+    calm = rows[0]
+    if calm["failed"] or calm["error_kinds"]:
+        raise AssertionError(f"open-loop: {calm['failed']} failed requests at "
+                             f"{OPEN_LOOP_FACTORS[0]}x: {calm['error_kinds']}")
+    for over in rows[1:]:
+        kinds, rate = over["error_kinds"], over["offered_rate"]
+        if "http-5xx" in kinds or "connection" in kinds:
+            raise AssertionError(f"open-loop: 5xx or connection failures at {rate}/s: {kinds}")
+        if sum(kinds.values()) != over["failed"] or not set(kinds) <= set(FAILURE_KINDS):
+            raise AssertionError(f"open-loop: unclassified failures at {rate}/s: "
+                                 f"{over['failed']} failed, kinds {kinds}")
+    if checked == 0:
+        raise AssertionError("open-loop: no full answer to hold against the exact top-10")
+    if device == "cuda" and (launches["topn_scan.tc_f32"] <= 0 or launches["topn_merge"] <= 0):
+        raise AssertionError(f"open-loop: the scans were not launched: {launches}")
+    return launches
 
 
 # -- phase 14b: serving-surface, TLS, Basic auth, LSH, /trace and the console ----
@@ -6053,6 +6593,8 @@ def run_alone(torch, args) -> int:
 
     if args.alone == "tenants":
         result = {"launches": phase_tenants(torch, stn, pk, args.seed)["launches"]}
+    elif args.alone == "fleet":
+        result = phase_fleet(args.seed)
     with open(args.alone_out, "w") as f:
         json.dump(result, f)
     return 0
@@ -6177,7 +6719,8 @@ def main() -> int:
           "native_host_python_formatter_rows": [100_000, NATIVE_PY_FORMAT_ROWS],
           "native_host_p0.3_queries": [TIER_QUERIES, TIER_WIDE_QUERIES],
           "run_at_once": "kmeans-lambda, als-lambda, buses, rdf-lambda and tenants (its own "
-                         "process), beside kmeans-batch and ivf-serving"})
+                         "process), beside kmeans-batch and ivf-serving; fleet (its own "
+                         "process) from the end of kmeans-batch"})
     clock = PhaseClock(t0)
     gen = np.random.default_rng(args.seed)
     y = factors(gen, args.items, args.features)
@@ -6189,6 +6732,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"no phase-2 case took {missing}")
     check_widest_query_tile(torch, stn, args.items, args.seed)
+    check_upload_random(torch, stn, args.items, args.features, args.seed)
     clock("kernels")
     check_wide_scans(torch, stn, args.seed)
     clock("wide-scans")
@@ -6316,6 +6860,10 @@ def main() -> int:
     try:
         launches.update(phase_kmeans_batch(pk, args.seed))
         clock("kmeans-batch")
+        # the fleet's replicas, load and CLI share no interpreter with the
+        # phases here: a process of its own too, started past the window's
+        # first minute, when every other phase starts its processes at once
+        beside.start("fleet", phase_alone, "fleet", args.seed)
         ivf_srv = phase_ivf_serving(torch, args, stn, pk, args.seed)
         clock("ivf-serving")
     finally:
@@ -6331,8 +6879,10 @@ def main() -> int:
         for name in SOURCES
     }
     bus_launches = done_beside["buses"]["launches"]
-    front_launches = phase_serving_front(torch, args, stn, pk, args.seed)
+    front_launches, front_rps = phase_serving_front(torch, args, stn, pk, args.seed)
     clock("serving-front")
+    open_loop_launches = phase_open_loop(torch, args, stn, x, y, args.seed, front_rps, smi)
+    clock("open-loop")
     surface_launches = phase_serving_surface(torch, args, x, y, args.seed, smi, stn)
     clock("serving-surface")
     phase_native_host(torch, args, smi, args.seed, catalog=ivf_srv.pop("catalog"))
@@ -6358,6 +6908,7 @@ def main() -> int:
             "tenants_launches": tenant_launches.get(name, 0),
             "ivf_launches": ivf_launches[name], "front_launches": front_launches.get(name, 0),
             "surface_launches": surface_launches.get(name, 0),
+            "open_loop_launches": open_loop_launches.get(name, 0),
             "parity": "ok", "library_topk_ms": None,
             **kernels[name],
         })

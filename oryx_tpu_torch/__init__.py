@@ -11,7 +11,10 @@ names, so each has an obvious counterpart.
 Ported so far: the ALS, k-means and random-decision-forest lambda
 loops, each as ``python -m oryx_tpu_torch batch|speed|serving`` on one
 ``file:`` bus: ALS training, fold-in and serving, k-means training, drift
-and serving, forest training, leaf updates and serving.
+and serving, forest training, leaf updates and serving; and the operator
+surface around them: the open-loop load generator (``loadgen``), the
+fleet harness and its autoscaler (``tools/fleet.py``,
+``serving/autoscale.py``) and the CLI's operator commands.
 """
 
 __version__ = "0.1.0"

@@ -15,8 +15,10 @@ collects on another, so the handle synchronises on its own event, never
 on whatever stream happens to be current. On the CPU (the tests) the
 same calls run synchronously.
 
-Not ported yet: ``upload_sharded`` / ``top_k_sharded`` and
-``upload_random``.
+``upload_random`` generates a random item matrix on the card, in the
+handle form of ``upload``.
+
+Not ported yet: ``upload_sharded`` / ``top_k_sharded``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,10 @@ from oryx_tpu_torch.device import resolve
 from oryx_tpu_torch.ops import ivf as ivf_ops
 from oryx_tpu_torch.ops.ivf import IVFIndex
 from oryx_tpu_torch.ops.streaming_topn import (
+    _INT8_FEAT_MULTIPLE,
+    BLOCK_N,
     StreamingItemMatrix,
+    _ceil_to,
     _quantize_residual,
     _quantize_rows,
     top_k_streaming,
@@ -131,6 +136,99 @@ def upload_queries(queries: np.ndarray, device=None) -> torch.Tensor:
     index-submitted scans."""
     q = np.ascontiguousarray(np.atleast_2d(np.asarray(queries, np.float32)))
     return torch.from_numpy(q).to(resolve(device))
+
+
+RANDOM_CHUNK_ROWS = 1 << 20  # rows upload_random draws (and quantizes) at a time
+
+
+def _random_chunks(n_items: int, num_features: int, seed: int, device: torch.device):
+    """(first row, [rows, num_features] float32 standard normal block) in
+    order, drawn by one seeded generator on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    for start in range(0, n_items, RANDOM_CHUNK_ROWS):
+        rows = min(RANDOM_CHUNK_ROWS, n_items - start)
+        yield start, torch.randn(
+            (rows, num_features), generator=gen, device=device, dtype=torch.float32
+        )
+
+
+def random_items(n_items: int, num_features: int, seed: int = 0, device=None) -> torch.Tensor:
+    """The [n_items, num_features] float32 matrix that
+    ``upload_random(..., seed=seed)`` draws, on ``device``."""
+    dev = resolve(device)
+    return torch.cat([block for _, block in _random_chunks(n_items, num_features, seed, dev)])
+
+
+def _int8_planes(block: torch.Tensor):
+    """``_quantize_rows`` and ``_quantize_residual`` on the device, op for
+    op, so that the codes and scales equal the host's bit for bit: the
+    divisors are tensors (a Python-number divisor is a multiply by its
+    reciprocal on the card), and ``torch.round`` rounds half to even as
+    ``np.rint`` does."""
+
+    def quantize(rows: torch.Tensor):
+        absmax = rows.abs().amax(dim=1)
+        s = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                        torch.ones_like(absmax))
+        return torch.clamp(torch.round(rows / s[:, None]), -127, 127).to(torch.int8), s
+
+    q, s = quantize(block)
+    q2, s2 = quantize(block - q.to(torch.float32) * s[:, None])
+    return q, s, q2, s2
+
+
+def upload_random(
+    n_items: int,
+    num_features: int,
+    dtype=None,
+    seed: int = 0,
+    streaming: bool | None = None,
+    device=None,
+) -> StreamingItemMatrix:
+    """Benchmark helper: a random item matrix generated on the card, in the
+    same handle form as :func:`upload` (float32, bfloat16, or int8 codes,
+    scales and residual). Its bytes cross the host link in neither
+    direction and never sit in host memory: the planes are drawn,
+    quantized, normed and laid out on the card RANDOM_CHUNK_ROWS rows at a
+    time. Every plane equals ``upload()`` of :func:`random_items` read
+    back bit for bit, except the item norms: the card sums each row in
+    another order than numpy, so they agree to float32 rounding.
+
+    ``streaming`` is the JAX package's switch between its two layouts; the
+    port has the streaming one only (as ``upload`` does), so False raises."""
+    if streaming is False:
+        raise ValueError("the port's item handles are all streaming: streaming=False")
+    dev = resolve(device)
+    dtype = torch_dtype(dtype)
+    n_pad = max(BLOCK_N, _ceil_to(n_items, BLOCK_N))
+    norms = torch.zeros((1, n_pad), dtype=torch.float32, device=dev)
+    quantized = dtype == torch.int8
+    kf = _ceil_to(num_features, _INT8_FEAT_MULTIPLE) if quantized else num_features
+    mat_t = torch.zeros((kf, n_pad), dtype=dtype, device=dev)
+    if quantized:
+        resid = torch.zeros((kf, n_pad), dtype=torch.int8, device=dev)
+        scales = torch.ones((1, n_pad), dtype=torch.float32, device=dev)
+        rscales = torch.ones((1, n_pad), dtype=torch.float32, device=dev)
+    for start, block in _random_chunks(n_items, num_features, seed, dev):
+        cols = slice(start, start + block.shape[0])
+        norms[0, cols] = torch.linalg.vector_norm(block, dim=1)
+        if quantized:
+            q, s, q2, s2 = _int8_planes(block)
+            mat_t[:num_features, cols] = q.T
+            resid[:num_features, cols] = q2.T
+            scales[0, cols] = s
+            rscales[0, cols] = s2
+        else:
+            mat_t[:, cols] = block.T.to(dtype)
+        del block
+    if not quantized:
+        return StreamingItemMatrix(mat_t=mat_t, norms=norms, n_items=n_items)
+    return StreamingItemMatrix(
+        mat_t=mat_t, norms=norms, n_items=n_items, scales=scales,
+        features=num_features if kf != num_features else None,
+        resid=resid, resid_scales=rscales,
+    )
 
 
 def update_query_rows(x_dev: torch.Tensor, rows: np.ndarray, values: np.ndarray) -> torch.Tensor:

@@ -87,12 +87,17 @@ the span list under ``?format=spans``; ``?trace=<id>`` filters), and
 the process and the card into ``oryx.serving.compute.profile-dir``
 (``common/profiling.py``, Chrome trace format).
 
-Not ported yet: autoscaling.
+A traced update block (the publisher's ``@trc`` header) feeds
+``serving.freshness.seconds`` and is applied inside a
+``serving.model.apply`` / ``serving.apply`` span of the publisher's
+trace. Autoscaling is the fleet harness's (``serving/autoscale.py``,
+``tools/fleet.py``), not the layer's.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import gzip
 import hmac
 import importlib
@@ -975,7 +980,11 @@ class ServingLayer:
 
     def _health_blocks(self):
         """The update consumer's blocks, with each poll reporting the
-        stream's health and each applied block stamping the update time."""
+        stream's health and each applied block stamping the update time.
+        A block whose transport carried a trace header feeds the
+        freshness histogram and is applied inside a span that continues
+        the publisher's trace (``serving.model.apply`` for a MODEL,
+        ``serving.apply`` otherwise)."""
         consumer = self._update_consumer
         while not self._stop_event.is_set() and not consumer.closed():
             try:
@@ -984,6 +993,7 @@ class ServingLayer:
                 self.health.mark_stream_down()
                 raise
             self.health.mark_stream_ok()
+            raw_trace = getattr(block, "trace", None)
             # track the live generation and drop a second delivery of its
             # MODEL before the manager sees the block
             block = self.generation_tracker.filter_block(block)
@@ -992,7 +1002,7 @@ class ServingLayer:
                 # they consume, to load a challenger without swapping it live
                 with _exp_routing.consume_challenger(
                     self.generation_tracker.challenger_generation
-                ):
+                ), self._apply_span(raw_trace, block, self.health):
                     yield block
                 self.health.mark_update()
                 if self._native_front is not None and _block_has_model(block):
@@ -1065,7 +1075,8 @@ class ServingLayer:
 
     def _tenant_blocks(self, rt):
         """The per-tenant twin of :meth:`_health_blocks`: the same stream
-        health marks and duplicate-MODEL suppression, against the
+        health marks, duplicate-MODEL suppression, freshness accounting
+        and apply spans (each carrying the tenant id), against the
         tenant's own consumer, tracker and health."""
         consumer = rt.consumer
         while not self._stop_event.is_set() and not consumer.closed():
@@ -1075,10 +1086,33 @@ class ServingLayer:
                 rt.health.mark_stream_down()
                 raise
             rt.health.mark_stream_ok()
+            raw_trace = getattr(block, "trace", None)
             block = rt.tracker.filter_block(block)
             if block is not None and len(block) > 0:
-                yield block
+                with self._apply_span(raw_trace, block, rt.health, rt.spec.tenant_id):
+                    yield block
                 rt.health.mark_update()
+
+    @contextlib.contextmanager
+    def _apply_span(self, raw_trace, block, health, tenant: str | None = None):
+        """The publish -> apply half of a traced update: observe the
+        block's freshness, and when it carries the publisher's context,
+        run the apply (the manager's processing of the block) in a span
+        whose parent is the publisher's span."""
+        info = observe_block_freshness(raw_trace, self.instance_metrics)
+        if info is None or info.ctx is None:
+            yield
+            return
+        attrs = {"instance": self.port, "records": len(block)}
+        if tenant is not None:
+            attrs["tenant"] = tenant
+        name = "serving.model.apply" if _block_has_model(block) else "serving.apply"
+        with tracing.use(info.ctx), tracing.span(name, attrs=attrs) as sp:
+            if info.ingest_ms is not None:
+                sp.set("skew_ms", round(time.time() * 1000 - info.ingest_ms, 3))
+            yield
+            if health.live_generation is not None:
+                sp.set("generation", health.live_generation)
 
     # -- in-flight requests and drain ----------------------------------------
 
@@ -1143,11 +1177,21 @@ class ServingLayer:
         elif self._server_thread is not None:
             self._server_thread.join(timeout)
 
-    def close(self) -> None:
+    def close(self, drain_seconds: float = 0.0) -> None:
+        """Stop the layer; with ``drain_seconds``, readiness goes 503 first
+        and requests in flight get that long to complete."""
         with self._close_lock:
             if self._close_done:
                 return
             self._close_done = True
+        if drain_seconds > 0:
+            self.begin_drain()
+            if not self.drain(drain_seconds):
+                log.warning(
+                    "close: %d request(s) still in flight after %.1fs drain",
+                    self.inflight_requests,
+                    drain_seconds,
+                )
         self.health.draining = True
         if self._native_front is not None:
             self._native_front.close()
@@ -1204,6 +1248,24 @@ class ServingLayer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def observe_block_freshness(raw_trace, instance_metrics=None):
+    """Parse an update block's transport-carried ``@trc`` header and feed
+    the freshness histogram: seconds from the origin timestamp the
+    publisher stamped (earliest event-ingest time for speed updates,
+    publish time for model publishes) to visibility on this replica.
+    Returns the parsed :class:`tracing.BlockTrace` (or None) so the
+    caller can continue the publisher's trace."""
+    info = tracing.parse_header(raw_trace)
+    if info is None:
+        return None
+    if info.ingest_ms is not None:
+        age_s = max(0.0, time.time() - info.ingest_ms / 1000.0)
+        metrics.registry.histogram("serving.freshness.seconds").observe(age_s)
+        if instance_metrics is not None:
+            instance_metrics.histogram("serving.freshness.seconds").observe(age_s)
+    return info
 
 
 def _block_has_model(block) -> bool:

@@ -28,10 +28,8 @@ through it, so the mapping can never skew between layers.
 Port note: a copy of ``oryx_tpu/tenancy/spec.py`` (JAX-free), with its
 imports pointed at ``oryx_tpu_torch`` and :data:`APP_WIRING` naming the
 port's app classes. A tenant block whose class override names the JAX
-package is refused (``common.lang.check_port_module``). The SLO
-contract stays on the spec as parsed fields; ``slo_spec()``, which
-builds the load generator's ``SLOSpec``, waits for the port's load
-generator.
+package is refused (``common.lang.check_port_module``). ``slo_spec()``
+builds the port's load generator's ``SLOSpec``.
 """
 
 from __future__ import annotations
@@ -148,6 +146,16 @@ class TenantSpec:
     def resource_modules(self) -> list[str]:
         return list(APP_WIRING[self.app]["resources"])
 
+    def slo_spec(self):
+        """This tenant's contract as a loadgen ``SLOSpec``."""
+        from oryx_tpu_torch.loadgen.slo import SLOSpec
+
+        return SLOSpec(
+            p99_ms=self.slo_p99_ms,
+            error_rate=self.slo_error_rate,
+            min_full_quality=self.slo_min_full_quality,
+        )
+
 
 def _opt_float(v) -> float | None:
     return None if v is None else float(v)
@@ -218,6 +226,9 @@ class TenantRegistry:
 
     def weights(self) -> dict[str, float]:
         return {tid: s.weight for tid, s in self.specs.items()}
+
+    def slo_specs(self) -> dict:
+        return {tid: s.slo_spec() for tid, s in self.specs.items()}
 
     def resource_modules(self) -> list[str]:
         """Union of every tenant's app resource modules, declaration

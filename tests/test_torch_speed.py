@@ -273,7 +273,8 @@ def test_cli_speed_command():
     assert args.command == "speed" and args.device == "cpu"
     assert cli._build_parser().parse_args(["batch"]).device == "cuda"
     assert set(cli.COMMANDS) == {"batch", "speed", "serving", "bus-setup", "bus-serve",
-                                 "bus-tail", "bus-input", "trace"}
+                                 "bus-tail", "bus-input", "trace", "config", "health",
+                                 "models", "experiments", "repair", "tenants"}
 
 
 def test_packaged_default_buses_are_the_file_bus(monkeypatch):

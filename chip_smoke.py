@@ -10,6 +10,11 @@ Phases, each printing one JSON line:
    those ``g++`` took, beside it, to build the native library from its
    three sources (``oryx_tpu_torch/native/feature_store.cpp``,
    ``parse.cpp`` and ``httpfront.cpp``);
+1b. lint, beside the build: the port's static-analysis gate as an
+   operator runs it, ``python -m oryx_tpu_torch lint`` in a process of
+   its own over this checkout: exit 0, no finding and no stale baseline
+   entry, with the findings, the baseline's entries and the findings
+   they accept, the passes and the seconds;
 2. kernels: every kernel of the serving path (``topn_scan`` and
    ``topn_candidates`` on the tensor cores for every plane type,
    ``topn_merge``) against its plain PyTorch version on the same inputs,
@@ -184,7 +189,10 @@ Phases, each printing one JSON line:
    ``POST /model/rollback/<generation 1>``: CHAMPION back, generation 1
    live again, 64 probe users answered byte for byte as before the
    experiment, ``GET /model/generations`` listing both, and each
-   MODEL-REF generation staged whole under the restage dir;
+   MODEL-REF generation staged whole under the restage dir; the whole
+   phase under the port's lock-order watchdog (``common/locks.py``,
+   strict, 120 s acquire budget, armed before any layer is built): the
+   order edges it observed and its violations printed, and none allowed;
 9d. fleet: the fleet harness, the autoscaler and the CLI's operator
    commands (``oryx_tpu_torch/tools/fleet.py``), each replica a port
    ServingLayer serving the probe app (which launches no kernel), in a
@@ -202,7 +210,9 @@ Phases, each printing one JSON line:
    over a diurnal ramp (15 to 45 req/s over 14 s, 30 req/s per replica)
    against one replica: out before the peak, in after it, no failed
    request; (c) the crash campaign: 3 subprocess replicas, one SIGKILLed
-   mid-run, no failed request, its recovery seconds;
+   mid-run, no failed request, its recovery seconds; the whole phase
+   under the port's lock-order watchdog, as 9c (the crash campaign's
+   replica processes are not watched);
 10. rdf-train: random-forest training through ``ops/forest.py`` on the
    card (PyTorch ops: the JAX package runs them through XLA, no Pallas
    kernel): (a) tools/train_benchmark.py:215-248's configuration
@@ -355,8 +365,8 @@ Phases, each printing one JSON line:
    at phase 12's shape;
 17. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
-The run's order is not the phases' numbers: 1-5, 8, 10 and 12 one
-after another; then 7, 9, 9b and 11 (each in a thread of this process,
+The run's order is not the phases' numbers: 1 (with 1b beside the
+build), 2-5, 8, 10 and 12 one after another; then 7, 9, 9b and 11 (each in a thread of this process,
 their layers processes of their own) and 9c (in a process of its own,
 ``--alone tenants``) at once, beside 6 and then 13 in this process, and
 9d (``--alone fleet``) from the end of 6; then 14, 14c, 14b and 15. The phases that time kernels or host code run with nothing
@@ -494,6 +504,10 @@ def emit(obj) -> None:
 
 
 ALONE_PHASES = ("tenants", "fleet")  # the phases main() runs in a process of their own
+# the lock-order watchdog over the alone phases: tests/conftest.py's
+# acquire budget for fleet cases
+WATCHDOG_ACQUIRE_S = 120.0
+LINT_TIMEOUT_S = 300
 
 
 def parse_args(argv=None):
@@ -1519,7 +1533,9 @@ def check_served_clusters(what, base, clusters, lines, pts, true_centers, gen):
                 raise AssertionError(f"{what}: GET /assign answered {status} {body!r}")
         status, body, _ = http_get(f"{base}/distanceToNearest/{lines[j]}")
         if status != 200 or abs(float(json.loads(body)) - e_dist) > 1e-6 * e_dist:
-            raise AssertionError(f"{what}: /distanceToNearest answered {status} {body!r}")
+            raise AssertionError(
+                f"{what}: /distanceToNearest answered {status} {body!r}, not {e_dist!r}"
+            )
 
 
 def phase_kmeans_batch(pk, seed: int, scale: float = 1.0) -> dict:
@@ -1770,13 +1786,14 @@ def scrape(port: int) -> dict:
 
 def update_topic_state(loc: str):
     """(clusters of the last MODEL, {id: (center, count)} after the UPs
-    that followed it), read off the update topic as serving replays it."""
+    that followed it, the MODELs on the topic, the ids those UPs moved),
+    read off the update topic as serving replays it."""
     from oryx_tpu_torch import bus
     from oryx_tpu_torch.app import pmml as app_pmml
     from oryx_tpu_torch.app.kmeans import common as km
 
     consumer = bus.get_broker(loc).consumer("OryxUpdate", from_beginning=True)
-    model, state = None, {}
+    model, state, models, moved = None, {}, 0, set()
     try:
         while True:
             records = consumer.poll(10_000, 0.2)
@@ -1787,12 +1804,14 @@ def update_topic_state(loc: str):
                     pmml = app_pmml.read_pmml_from_update_message(rec.key, rec.message)
                     model = km.pmml_to_clusters(pmml)
                     state = {c.id: (np.asarray(c.center, np.float64), c.count) for c in model}
+                    models, moved = models + 1, set()
                 elif rec.key == "UP" and model is not None:
                     cid, center, count = json.loads(rec.message)
                     state[int(cid)] = (np.asarray(center, np.float64), int(count))
+                    moved.add(int(cid))
     finally:
         consumer.close()
-    return model, state
+    return model, state, models, moved
 
 
 def running_mean(state: dict, pts: np.ndarray):
@@ -1889,6 +1908,7 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
 
     try:
         from oryx_tpu_torch import bus
+        from oryx_tpu_torch.app.kmeans import common as km
 
         start("serving")
         speed_log = start("speed")
@@ -1913,8 +1933,6 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
         # wave 1: the batch process's generation, served exactly
         wait_until("generation 1", lambda: http_get(base + "/ready")[0] == 200, procs=live())
         out["wave1_staleness_s"] = time.monotonic() - t_last
-        model, state = update_topic_state(loc)
-        check_served_clusters("wave 1", base, model, lines[0], values[0], true_centers, gen)
         metrics_batch = wait_until(
             "the batch generation's end",
             lambda: (m := scrape(ports["batch"])).get("batch.generations", {}).get("value", 0) >= 1
@@ -1931,15 +1949,30 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
             for name, m in metrics_batch.items()
             if name.startswith("kernels.") and name.endswith(".launches")
         }
-        # a second generation would retrain on waves 2-3 and publish a new
-        # MODEL over the speed layer's folds: the batch process has done its part
+        # the batch process stops before serving is checked: its next
+        # generation, one interval after this one's end, retrains on wave 1
+        # and publishes a second MODEL, which on a loaded host lands while
+        # the check's 2,100 requests run (and later ones would retrain on
+        # waves 2-3 over the speed layer's folds)
         if stop("batch") != 0:
             raise AssertionError("the batch process did not stop cleanly")
-
+        # the speed process holds the model and has read all of wave 1, so
+        # no UP moves a center while the check runs
         wait_until("the speed model", lambda: log_has(speed_log, "k-means speed model"),
                    procs=live())
         speed_group = "OryxGroup-speed-ChipSmokeLambda"
-        _, state = update_topic_state(loc)  # the published model (and any UP since)
+        wait_until("wave 1 committed by the speed process",
+                   lambda: input_broker.get_offsets(speed_group, "OryxInput") == latest,
+                   timeout=30, procs=live())
+        _, state, models, moved = update_topic_state(loc)  # the model and any UP since
+        if models != 1:
+            raise AssertionError(f"the update topic holds {models} MODELs, not generation 1's")
+        out["wave1_speed_moved"] = len(moved)
+        wait_until("wave 1's UPs served",
+                   lambda: all(served_matches(base, state, c) for c in moved),
+                   timeout=30, procs=live())
+        served = [km.ClusterInfo(cid, center, count) for cid, (center, count) in state.items()]
+        check_served_clusters("wave 1", base, served, lines[0], values[0], true_centers, gen)
         expected = dict(state)
         base_counts = {cid: count for cid, (_, count) in state.items()}
         folded = {cid: 0 for cid in state}
@@ -1968,7 +2001,7 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
             out[f"wave{wave_no}_staleness_s"] = time.monotonic() - t_last
             # every cluster as the bus has it (serving replays the same):
             # the running mean, and the model's count plus the waves' points
-            _, state = update_topic_state(loc)
+            _, state, _, _ = update_topic_state(loc)
             for cid, (center, count) in expected.items():
                 got_center, got_count = state[cid]
                 rel = float(np.linalg.norm(got_center - center) / np.linalg.norm(center))
@@ -6586,18 +6619,68 @@ def phase_alone(name: str, seed: int) -> dict:
 
 
 def run_alone(torch, args) -> int:
-    """The ``--alone`` side of phase_alone(): the phase, then its result as
-    JSON in ``--alone-out``."""
-    from oryx_tpu_torch.ops import pallas_kmeans as pk
-    from oryx_tpu_torch.ops import streaming_topn as stn
+    """The ``--alone`` side of phase_alone(): the phase under the port's
+    lock-order watchdog (armed before the phase imports or builds
+    anything of its own, with the settings the test suite gives fleet
+    cases), then its result as JSON in ``--alone-out``. Prints the order
+    edges the watchdog observed and its violations; any violation fails
+    the phase."""
+    from oryx_tpu_torch.common import locks
 
-    if args.alone == "tenants":
-        result = {"launches": phase_tenants(torch, stn, pk, args.seed)["launches"]}
-    elif args.alone == "fleet":
-        result = phase_fleet(args.seed)
+    locks.instrument(strict=True, acquire_timeout=WATCHDOG_ACQUIRE_S)
+    try:
+        from oryx_tpu_torch.ops import pallas_kmeans as pk
+        from oryx_tpu_torch.ops import streaming_topn as stn
+
+        t0 = time.perf_counter()
+        if args.alone == "tenants":
+            result = {"launches": phase_tenants(torch, stn, pk, args.seed)["launches"]}
+        elif args.alone == "fleet":
+            result = phase_fleet(args.seed)
+        edges = locks.order_edges()
+        found = locks.violations()
+    finally:
+        locks.deinstrument()
+    result["watchdog"] = {
+        "order_edges": sum(len(dst) for dst in edges.values()),
+        "nodes": len(set(edges) | {d for dst in edges.values() for d in dst}),
+        "violations": len(found), "strict": True, "acquire_timeout_s": WATCHDOG_ACQUIRE_S,
+        "phase_s": time.perf_counter() - t0,
+    }
+    emit({"phase": f"{args.alone}-watchdog", **result["watchdog"], "found": found[:20]})
+    if found:
+        raise AssertionError(f"{args.alone}: the lock-order watchdog recorded {found}")
     with open(args.alone_out, "w") as f:
         json.dump(result, f)
     return 0
+
+
+def phase_lint() -> dict:
+    """Phase 1b: the port's static-analysis gate as an operator runs it,
+    ``python -m oryx_tpu_torch lint`` in a process of its own over this
+    checkout. Fails on a non-zero exit, on any finding and on any stale
+    baseline entry; returns the findings, the baseline's entries and the
+    findings they accept, the passes and the seconds."""
+    from oryx_tpu_torch.analysis import DEFAULT_BASELINE, all_passes, load_baseline
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "oryx_tpu_torch", "lint"], cwd=HERE,
+                          capture_output=True, text=True, timeout=LINT_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    verdict = lines[-1] if lines else ""
+    stale = [ln for ln in lines[:-1] if ln.startswith("note: stale baseline entry")]
+    findings = [ln for ln in lines[:-1] if ln not in stale]
+    m = re.fullmatch(r"oryxlint: (clean|\d+ finding\(s\)) \((\d+) baselined\)", verdict)
+    out = {"phase": "lint", "rc": proc.returncode, "findings": findings, "stale": stale,
+           "baseline_entries": len(load_baseline(DEFAULT_BASELINE)),
+           "baselined_findings": int(m.group(2)) if m else None,
+           "passes": sorted(all_passes()), "s": seconds}
+    emit(out)
+    if proc.returncode != 0 or findings or stale or m is None or m.group(1) != "clean":
+        raise AssertionError(f"lint: exit {proc.returncode}, {verdict!r}\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    return out
 
 
 class Beside:
@@ -6669,9 +6752,12 @@ def main() -> int:
 
     native_thread = threading.Thread(target=build_native)
     native_thread.start()
+    lint = Beside()  # phase 1b, a process of its own beside the build
+    lint.start("lint", phase_lint)
     _build.build()
     build_s = time.perf_counter() - t0
     native_thread.join()
+    lint_result = lint.join()["lint"]
     from oryx_tpu_torch import native
 
     native_sources = [os.path.basename(p) for p in native.source_paths()]
@@ -6869,6 +6955,13 @@ def main() -> int:
     finally:
         done_beside = beside.join()
     clock("beside")
+    # the alone phases under the port's lock-order watchdog, and phase 1b
+    emit({"phase": "checks", "nvidia_smi": smi, "lint_s": lint_result["s"],
+          "lint_findings": len(lint_result["findings"]),
+          "lint_baseline_entries": lint_result["baseline_entries"],
+          "lint_baselined_findings": lint_result["baselined_findings"],
+          "lint_passes": len(lint_result["passes"]),
+          "watchdog": {name: done_beside[name]["watchdog"] for name in ALONE_PHASES}})
     tenant_launches = done_beside["tenants"]["launches"]
     lam = done_beside["kmeans-lambda"]
     if lam["batch_launches"].get("kmeans_sweep.tc", 0) <= 0:

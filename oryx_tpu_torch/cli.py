@@ -13,6 +13,7 @@
     python -m oryx_tpu_torch models    list | show GEN | rollback GEN | gc --conf oryx.conf
     python -m oryx_tpu_torch tenants   list | show TENANT --conf oryx.conf
     python -m oryx_tpu_torch experiments --conf oryx.conf
+    python -m oryx_tpu_torch lint      [--select PASS,...]
     python -m oryx_tpu_torch repair    --conf oryx.conf
 
 The three layers are ported; each runs as its own process, and they meet
@@ -29,8 +30,9 @@ the resolved ``oryx.*`` tree, ``health`` probes ``/healthz`` and
 rolls back and collects generations, ``tenants`` lists and shows the
 declared tenants, ``experiments`` prints ``GET /experiments`` and
 ``repair`` runs the offline fsck of the bus, the registry and the
-restage cache. ``lint`` (the JAX package's static-analysis suite) is not
-ported: it waits for the port's analysis package.
+restage cache, and ``lint`` runs the port's static-analysis gate
+(``oryx_tpu_torch.analysis``) over ``oryx_tpu_torch/`` with its
+checked-in baseline; ``--select`` runs some of its passes alone.
 Config layers as in the JAX package: packaged defaults <- ``--conf``
 file <- ``--set`` overrides. The config must name the port's classes,
 e.g. ``model-manager-class =
@@ -60,7 +62,7 @@ log = logging.getLogger(__name__)
 
 COMMANDS = (
     "batch", "speed", "serving", "bus-setup", "bus-serve", "bus-tail", "bus-input", "config",
-    "health", "models", "trace", "experiments", "repair", "tenants",
+    "health", "models", "trace", "experiments", "lint", "repair", "tenants",
 )
 
 MODELS_SUBCOMMANDS = ("list", "show", "rollback", "gc")
@@ -72,8 +74,6 @@ def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="oryx_tpu_torch",
         description="PyTorch/CUDA lambda-architecture ML framework launcher",
-        epilog="The JAX package's 'lint' command (its static-analysis suite) is "
-        "not ported yet: it waits for the port's analysis package.",
     )
     p.add_argument("command", choices=COMMANDS, help="which layer or utility to run")
     p.add_argument(
@@ -122,6 +122,10 @@ def _build_parser() -> argparse.ArgumentParser:
         "--from-beginning",
         action="store_true",
         help="bus-tail: start from offset 0 instead of latest",
+    )
+    p.add_argument(
+        "--select", default=None,
+        help="lint only: comma-separated pass ids to run (default: every pass)",
     )
     p.add_argument("--log-level", default="INFO", help="python logging level")
     p.add_argument(
@@ -467,6 +471,29 @@ def run_tenants(cfg: Config, subcommand: str | None, tenant_id: str | None, out=
     return 0
 
 
+def run_lint(cfg: Config, out=None, select: str | None = None) -> int:
+    """Run the port's static-analysis suite over its default targets with
+    the checked-in baseline — the same gate tier-1 runs
+    (tests/test_torch_lint_tree.py), as an operator command next to
+    ``health``. ``select``: comma-separated pass ids to run. Exit 0
+    only when the tree is clean."""
+    from oryx_tpu_torch.analysis import run_passes
+
+    out = out or sys.stdout
+    res = run_passes(select=set(select.split(",")) if select else None)
+    for f in res.findings:
+        print(f.render(), file=out)
+    for key in sorted(res.stale_baseline):
+        print(f"note: stale baseline entry (no longer fires): {key}", file=out)
+    verdict = (
+        "clean"
+        if res.rc == 0
+        else f"{len(res.findings)} finding(s)"
+    )
+    print(f"oryxlint: {verdict} ({len(res.suppressed)} baselined)", file=out)
+    return res.rc
+
+
 def run_repair(cfg: Config, out=None) -> int:
     """Offline fsck across every durable store the config names
     (docs/durability.md): bus topic logs (torn tails, unreadable offset
@@ -715,6 +742,8 @@ def main(argv: list[str] | None = None) -> int:
         return run_trace(cfg, args.subcommand)
     elif args.command == "experiments":
         return run_experiments(cfg)
+    elif args.command == "lint":
+        return run_lint(cfg, select=args.select)
     elif args.command == "repair":
         return run_repair(cfg)
     return 0

@@ -22,6 +22,7 @@ from typing import Iterator
 from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.bus.core import Broker, KeyMessage, TopicConsumer, get_broker
 from oryx_tpu_torch.common import ledger, metrics
+from oryx_tpu_torch.common.compute import refuse_compile_cache
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
 
@@ -58,10 +59,7 @@ def _refuse_unported_compute(config: Config) -> None:
             raise NotYetPortedError(
                 f"${var} is set, but multi-process runs are not yet ported to oryx_tpu_torch"
             )
-    if config.get("oryx.compute.compile-cache-dir", None):
-        raise NotYetPortedError(
-            "oryx.compute.compile-cache-dir is set, but the port has no compilation cache"
-        )
+    refuse_compile_cache(config)
 
 
 class AbstractLayer:

@@ -435,6 +435,7 @@ class TopNBatcher:
             batch.append(e)
         if coalesced:
             _metrics.counter("serving.batcher.coalesced").inc(coalesced)
+        _metrics.gauge("serving.batcher.queue_depth").set(self._queue.qsize())
         _metrics.gauge("serving.batcher.queue.depth").set(self._queue.qsize())
         _metrics.gauge("serving.batcher.batch_size").set(len(batch))
         return batch

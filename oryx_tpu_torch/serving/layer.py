@@ -111,6 +111,7 @@ from urllib.parse import parse_qs, urlsplit
 
 from oryx_tpu_torch.bus.core import get_broker
 from oryx_tpu_torch.common import ledger, metrics, profiling, tracing
+from oryx_tpu_torch.common.compute import refuse_compile_cache
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
@@ -627,6 +628,7 @@ class ServingLayer:
     def __init__(self, config: Config) -> None:
         default_device()  # the port serves from the card: fail now, not per request
         self.config = config
+        refuse_compile_cache(config)
         tracing.configure_from(config)
         self.port = config.get_int("oryx.serving.api.port")
         self.context_path = config.get_string("oryx.serving.api.context-path").rstrip("/")
@@ -806,10 +808,15 @@ class ServingLayer:
 
         if (
             self._server is not None
+            or self._server_thread is not None
             or self._native_front is not None
             or self._update_consumer is not None
         ):
-            raise RuntimeError("ServingLayer.start() called twice")
+            raise RuntimeError(
+                "ServingLayer.start() called twice (or retried after a "
+                "partial start): the live HTTP server, update consumer, "
+                "and consume thread would be overwritten and leak"
+            )
         retain_default_batcher()
         self._batcher_retained = True
         cfg = self.config

@@ -438,13 +438,16 @@ def test_experiments_against_each_packages_layer_alike(tmp_path):
 
 
 def test_lint_is_not_a_port_command_and_help_says_why(capsys):
-    assert "lint" in jcli.COMMANDS and "lint" not in tcli.COMMANDS
-    assert set(tcli.COMMANDS) == set(jcli.COMMANDS) - {"lint"}
+    """``lint`` is a port command now, at the JAX package's place in the
+    table: it runs the port's gate and prints the JAX package's verdict
+    line, and the help no longer carries the note that it was missing."""
+    assert tcli.COMMANDS == jcli.COMMANDS
     assert tcli.MODELS_SUBCOMMANDS == jcli.MODELS_SUBCOMMANDS
     assert tcli.TENANTS_SUBCOMMANDS == jcli.TENANTS_SUBCOMMANDS
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["lint"])
-    assert e.value.code == 2
+    assert tcli.main(["lint", "--select", "lockorder"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1].startswith("oryxlint: clean (") and out[-1].endswith(" baselined)")
     with pytest.raises(SystemExit):
         tcli.main(["--help"])
-    assert "'lint' command" in capsys.readouterr().out
+    help_text = capsys.readouterr().out
+    assert "lint" in help_text and "'lint' command" not in help_text

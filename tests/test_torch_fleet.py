@@ -33,8 +33,9 @@ from run to run; they are held as the suites hold them, on each side.
   budget and with no failed request.
 
 Each test also holds the port's resource ledger (threads, consumers,
-rings) to its count before the test; the shared conftest holds the JAX
-package's.
+rings) to its count before the test, and runs under the port's
+lock-order watchdog (strict, a 120 s acquire budget); the shared conftest
+holds the JAX package's ledger and arms its watchdog beneath the port's.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from oryx_tpu_torch.bus import faultbus
 from oryx_tpu_torch.bus.inproc import InProcessBroker
 from oryx_tpu_torch.common.ledger import ledger as resource_ledger
 from oryx_tpu_torch.tools import fleet as fleet_tool
+from torch_lock_watchdog import _port_lock_watchdog  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import fleet as ref_fleet  # noqa: E402  (the JAX package's fleet tool; tools/ is not a package)

@@ -21,7 +21,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # the native feature store), the k-means batch path
 # trains one generation on a file: bus and the speed layer folds points
 # into its model, ALS trains (packing in forked workers) and folds in, an
-# RDF generation trains on a file: bus and answers /predict, and
+# RDF generation trains on a file: bus and answers /predict, the CLI's
+# lint (its lockorder and torchhot passes) finds the tree clean, and
 # chip_smoke.py and scan_bench.py import.
 _ISOLATED = textwrap.dedent(
     r"""
@@ -53,7 +54,11 @@ _ISOLATED = textwrap.dedent(
         walked.add(info.name)
     assert {"oryx_tpu_torch.common.io_utils", "oryx_tpu_torch.loadgen.engine",
             "oryx_tpu_torch.loadgen.scenario", "oryx_tpu_torch.serving.autoscale",
-            "oryx_tpu_torch.tools.fleet"} <= walked, sorted(walked)
+            "oryx_tpu_torch.tools.fleet", "oryx_tpu_torch.common.locks",
+            "oryx_tpu_torch.analysis.core", "oryx_tpu_torch.analysis.torchhot",
+            "oryx_tpu_torch.analysis.lockorder", "oryx_tpu_torch.analysis.configkeys",
+            "oryx_tpu_torch.analysis.deploymanifests",
+            "oryx_tpu_torch.analysis.metricscatalog"} <= walked, sorted(walked)
     step("imports")
 
     from oryx_tpu_torch import bus, device
@@ -202,6 +207,16 @@ _ISOLATED = textwrap.dedent(
         assert json.loads(resp.read()) == "pos"
     rdf_serving.close()
     step("rdf")
+    # the CLI's lint (python -m oryx_tpu_torch lint --select lockorder,torchhot),
+    # under this interpreter's refusal of jax and of the JAX package
+    import contextlib, io
+    from oryx_tpu_torch import cli
+    lint_out = io.StringIO()
+    with contextlib.redirect_stdout(lint_out):
+        lint_rc = cli.main(["lint", "--select", "lockorder,torchhot"])
+    assert lint_rc == 0, lint_out.getvalue()
+    assert lint_out.getvalue().splitlines()[-1].startswith("oryxlint: clean ("), lint_out.getvalue()
+    step("lint")
     import chip_smoke  # the chip scripts import nothing of JAX either
     import scan_bench
     leaked = sorted(m for m in sys.modules
@@ -217,7 +232,7 @@ _ISOLATED = textwrap.dedent(
 # the isolated run's steps, in order; each writes "ISOLATED-STEP <name>
 # <seconds since the start>" to stderr when it is done
 STEPS = ("imports", "als-serving-float32", "als-serving-int8", "kmeans-lambda", "als-train",
-         "rdf", "chip-scripts")
+         "rdf", "lint", "chip-scripts")
 
 
 def isolated_steps(stderr) -> list[tuple[str, float]]:

@@ -15,7 +15,8 @@ against the JAX package's (``oryx_tpu/loadgen/``), on the CPU.
   readiness routing, crash failover, trace headers and the tenant mix;
   and the two engines schedule the same arrivals for the same users.
   These carry the reference's ``fleet`` marker (they start threads and
-  servers); the pure functions above them carry none.
+  servers) and run under the port's lock-order watchdog; the pure
+  functions above them carry none.
 """
 
 import dataclasses
@@ -40,11 +41,13 @@ from oryx_tpu_torch import device as port_device
 from oryx_tpu_torch import loadgen
 from oryx_tpu_torch.bus import faultbus
 from oryx_tpu_torch.bus.inproc import InProcessBroker
+from oryx_tpu_torch.common import locks as port_locks
 from oryx_tpu_torch.common import tracing
 from oryx_tpu_torch.common.ledger import ledger
 from oryx_tpu_torch.loadgen import engine as tengine
 from oryx_tpu_torch.loadgen import feedback as tfeedback
 from oryx_tpu_torch.loadgen import slo as tslo
+from torch_lock_watchdog import _port_lock_watchdog  # noqa: F401  (autouse)
 
 PACKAGES = {
     "jax": dict(lg=jloadgen, engine=jengine, slo=jslo, feedback=jfeedback),
@@ -77,6 +80,14 @@ def _port_on_cpu():
     faultbus.reset()
     after = _settled_counts(before)
     assert all(after.get(k, 0) <= before.get(k, 0) for k in after), (before, after)
+
+
+@pytest.mark.fleet
+def test_fleet_cases_run_under_the_ports_watchdog():
+    assert port_locks.instrumented()
+    made = threading.Lock()
+    assert isinstance(made, port_locks.OrderedLock)
+    assert made._key.startswith("tests/test_torch_loadgen.py:")
 
 
 # -- arrivals and skew: equal to the JAX package's, exactly ------------------

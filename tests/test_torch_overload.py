@@ -605,3 +605,27 @@ def test_generation_of_a_message_agrees(key, message):
 def test_fleet_skew_agrees():
     for gens in ([], ["1", "1", None], ["1", "2", None], ["1", "2", "3"]):
         assert ttracking.record_fleet_skew(gens) == jtracking.record_fleet_skew(gens)
+
+
+def test_both_batchers_export_queue_depth_after_a_scored_batch():
+    """``serving.batcher.queue_depth``, the name docs/observability.md
+    catalogs, is set beside ``serving.batcher.queue.depth`` at each
+    dispatch, by both packages' batchers."""
+    y = np.random.default_rng(5).standard_normal((300, 8)).astype(np.float32)
+    q = np.arange(8, dtype=np.float32)
+    sides = [
+        (jbatcher, jmetrics, jtopn.upload(y, streaming=False)),
+        (tbatcher, tmetrics, ttopn.upload(y)),
+    ]
+    for batcher_mod, metrics_mod, handle in sides:
+        reg = metrics_mod.registry
+        reg.gauge("serving.batcher.queue_depth").set(-1.0)  # a value no dispatch sets
+        b = batcher_mod.TopNBatcher()
+        try:
+            idx, _ = b.score(handle, q, 5)
+        finally:
+            b.close()
+        assert len(idx) == 5
+        depth = reg.gauge("serving.batcher.queue_depth").value
+        assert depth == reg.gauge("serving.batcher.queue.depth").value
+        assert depth >= 0, batcher_mod.__name__

@@ -458,6 +458,44 @@ def test_unported_settings_raise(extra):
         tsm.ALSServingModelManager(serving_config("torch", "inproc://unused2", extra))
 
 
+def test_compile_cache_dir_is_refused_as_the_batch_layer_refuses_it(tmp_path):
+    """``oryx.compute.compile-cache-dir`` names the JAX package's XLA cache,
+    which the port does not have: the serving layer refuses it, as the
+    batch layer does, rather than serve without it."""
+    from oryx_tpu_torch.lambda_.batch import BatchLayer
+
+    extra = f'compute.compile-cache-dir = "{tmp_path}/cache"'
+    with pytest.raises(tsm.NotYetPortedError, match="compile-cache-dir"):
+        ServingLayer(serving_config("torch", "inproc://compile-cache", extra))
+    cfg = serving_config("torch", "inproc://compile-cache", extra).with_overlay(
+        f'oryx.batch.storage {{ data-dir = "{tmp_path}/data/", model-dir = "{tmp_path}/model/" }}'
+    )
+    with pytest.raises(tsm.NotYetPortedError, match="compile-cache-dir"):
+        BatchLayer(cfg)
+
+
+def test_start_after_a_partial_start_raises_the_jax_packages_message():
+    """A start() retried after one that left its HTTP thread behind (and
+    nothing else) is refused, with the JAX package's message, before it
+    could overwrite and leak the live thread."""
+    import threading
+
+    messages = {}
+    for pkg in sorted(PACKAGES):
+        layer = PACKAGES[pkg][5](serving_config(pkg, f"inproc://partial-{pkg}"))
+        left = threading.Thread(target=lambda: None)
+        layer._server_thread = left  # what a start() that raised later leaves
+        try:
+            with pytest.raises(RuntimeError, match="retried after a partial start") as e:
+                layer.start()
+            messages[pkg] = str(e.value)
+            assert layer._server_thread is left
+        finally:
+            layer._server_thread = None
+            layer.close()
+    assert messages["torch"] == messages["jax"]
+
+
 def test_lsh_sample_rate_serves_on_both_packages():
     """``als.sample-rate = 0.5``, once refused, starts on both packages:
     the model a MODEL record makes prunes with LSH, and /recommend answers

@@ -274,7 +274,7 @@ def test_cli_speed_command():
     assert cli._build_parser().parse_args(["batch"]).device == "cuda"
     assert set(cli.COMMANDS) == {"batch", "speed", "serving", "bus-setup", "bus-serve",
                                  "bus-tail", "bus-input", "trace", "config", "health",
-                                 "models", "experiments", "repair", "tenants"}
+                                 "models", "experiments", "lint", "repair", "tenants"}
 
 
 def test_packaged_default_buses_are_the_file_bus(monkeypatch):

@@ -526,6 +526,11 @@ def parse_args(argv=None):
     # main() runs a phase so, in a process of its own, beside others
     p.add_argument("--alone", choices=ALONE_PHASES, help=argparse.SUPPRESS)
     p.add_argument("--alone-out", help=argparse.SUPPRESS)
+    # phase_mesh_procs() runs each of its ranks so
+    p.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--mesh-dir", help=argparse.SUPPRESS)
+    p.add_argument("--mesh-device", default="cuda", help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
@@ -1638,11 +1643,12 @@ LAMBDA_BODY_LINES = 4_000  # CSV lines per POST /add
 # out: once 45 s, cut to keep the whole run inside its limit (printed as
 # a cut): 20 s where the phase posts its input after the batch process
 # starts (als-lambda, rdf-lambda: 20 s leaves the POSTs more than 10 s),
-# 15 s for kmeans-lambda, which posts wave 1 before it starts (15 s
-# leaves the checks time to stop it before a second generation), 30 s
-# for buses (a), whose POSTs take 12 s under the faults
+# 30 s for kmeans-lambda, which posts wave 1 before it starts and whose
+# checks stop it after generation 1 (15 s until PR 17, when a loaded
+# window delayed the stop past the interval and a second generation
+# began), 30 s for buses (a), whose POSTs take 12 s under the faults
 LAMBDA_BATCH_INTERVAL_S = 20
-KMEANS_LAMBDA_INTERVAL_S = 15
+KMEANS_LAMBDA_INTERVAL_S = 30
 CHAOS_BATCH_INTERVAL_S = 30
 LAMBDA_TIMEOUT_S = 600  # the longest any one step may take
 
@@ -1838,6 +1844,35 @@ def status_of(url: str) -> int | None:
         return None
 
 
+def first_generation(what: str, base: str, batch_port: int, procs: dict, stop) -> tuple[float, dict]:
+    """Poll serving's /ready at base and the batch process's generation
+    count together, and stop the batch process (``stop("batch")``) the
+    moment its first generation has ended: its next generation begins one
+    interval after this one's end, and one cut short by the stop can leave
+    a MODEL with only part of its UPs on the update topic. Returns (the
+    monotonic time /ready first answered 200, the batch process's metrics
+    at the generation's end). ``procs`` is the phase's live {name: process}."""
+    got: dict = {}
+
+    def both():
+        if "ready" not in got and status_of(base + "/ready") == 200:
+            got["ready"] = time.monotonic()
+        if "metrics" not in got:
+            try:
+                m = scrape(batch_port)
+            except (urllib.error.URLError, ConnectionError):
+                return False  # its UI not listening yet
+            if m.get("batch.generations", {}).get("value", 0) >= 1:
+                got["metrics"] = m
+                if stop("batch") != 0:
+                    raise AssertionError(f"{what}: the batch process did not stop cleanly")
+        return len(got) == 2
+
+    # procs.items() is a view: once stopped, the batch process leaves it
+    wait_until(what, both, procs=procs.items())
+    return got["ready"], got["metrics"]
+
+
 def served_matches(base: str, want: dict, cid: int) -> bool:
     """Serving answers cluster cid's expected center with cid at distance
     0 (within 1e-9 of its norm), and the bus's center agrees to 1e-9."""
@@ -1930,15 +1965,14 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
         # wherever its interval timer falls against the POST
         start("batch")
 
-        # wave 1: the batch process's generation, served exactly
-        wait_until("generation 1", lambda: http_get(base + "/ready")[0] == 200, procs=live())
-        out["wave1_staleness_s"] = time.monotonic() - t_last
-        metrics_batch = wait_until(
-            "the batch generation's end",
-            lambda: (m := scrape(ports["batch"])).get("batch.generations", {}).get("value", 0) >= 1
-            and m,
-            procs=live(),
-        )
+        # wave 1: the batch process's generation, served exactly; the
+        # batch process stops as soon as generation 1 ends, before
+        # serving is checked: its next generation, one interval after this
+        # one's end, retrains on wave 1 and publishes a second MODEL, which
+        # on a loaded host lands while the check's 2,100 requests run (and
+        # later ones would retrain on waves 2-3 over the speed layer's folds)
+        ready_at, metrics_batch = first_generation("generation 1", base, ports["batch"], procs, stop)
+        out["wave1_staleness_s"] = ready_at - t_last
         latest = input_broker.latest_offsets("OryxInput")
         drained = input_broker.get_offsets(batch_group, "OryxInput")
         if drained != latest or sum(latest.values()) != n:
@@ -1949,13 +1983,6 @@ def phase_kmeans_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
             for name, m in metrics_batch.items()
             if name.startswith("kernels.") and name.endswith(".launches")
         }
-        # the batch process stops before serving is checked: its next
-        # generation, one interval after this one's end, retrains on wave 1
-        # and publishes a second MODEL, which on a loaded host lands while
-        # the check's 2,100 requests run (and later ones would retrain on
-        # waves 2-3 over the speed layer's folds)
-        if stop("batch") != 0:
-            raise AssertionError("the batch process did not stop cleanly")
         # the speed process holds the model and has read all of wave 1, so
         # no UP moves a center while the check runs
         wait_until("the speed model", lambda: log_has(speed_log, "k-means speed model"),
@@ -2461,6 +2488,20 @@ def als_topic_state(loc: str, start: int = 0):
     return state["X"], state["Y"], after, seen
 
 
+def topic_models(loc: str) -> int:
+    """The MODEL and MODEL-REF messages on the update topic."""
+    from oryx_tpu_torch import bus
+
+    consumer = bus.get_broker(loc).consumer("OryxUpdate", from_beginning=True)
+    models = 0
+    try:
+        while records := consumer.poll(100_000, 0.5):
+            models += sum(1 for rec in records if rec.key in ("MODEL", "MODEL-REF"))
+    finally:
+        consumer.close()
+    return models
+
+
 def exact_top10(y_ids: list[str], y_mat: np.ndarray, xu: np.ndarray):
     """float64 scores of every item, the top-10 (ties to the lowest id):
     (values [1, 10], item rows [1, 10])."""
@@ -2582,14 +2623,9 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
         t_last = post_ingest(base, lines)
         out["ingest_s"] = t_last - t_post
 
-        wait_until("the generation", lambda: status_of(base + "/ready") == 200, procs=live())
-        out["generation_staleness_s"] = time.monotonic() - t_last
-        metrics_batch = wait_until(
-            "the batch generation's end",
-            lambda: (m := scrape(ports["batch"])).get("batch.generations", {}).get("value", 0) >= 1
-            and m,
-            procs=live(),
-        )
+        ready_at, metrics_batch = first_generation("the generation", base, ports["batch"],
+                                                   procs, stop)
+        out["generation_staleness_s"] = ready_at - t_last
         input_broker = bus.get_broker(loc)
         latest = input_broker.latest_offsets("OryxInput")
         drained = input_broker.get_offsets("OryxGroup-batch-ChipSmokeALS", "OryxInput")
@@ -2603,10 +2639,11 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
         with open(batch_log, errors="replace") as f:
             found = re.findall(r"best candidate eval=([-0-9.e+naN]+)", f.read())
         out["held_out_auc"] = float(found[-1]) if found else None
-        if stop("batch") != 0:
-            raise AssertionError("the batch process did not stop cleanly")
 
         # the generation, served: float32 exactly, int8 at recall 0.99
+        models = topic_models(loc)
+        if models != 1:
+            raise AssertionError(f"the update topic holds {models} MODELs, not the generation's one")
         x_state, y_state, _, _ = als_topic_state(loc)
         if (sorted(x_state) != sorted(f"u{a}" for a in train_users)
                 or sorted(y_state) != sorted(f"i{b}" for b in used_items)):
@@ -2632,7 +2669,11 @@ def phase_als_lambda(seed: int, scale: float = 1.0, device: str = "cuda",
         with open(confs["int8"], "w") as f:
             f.write(als_lambda_conf(root, ports, batch_interval, "int8", ports["serving8"]))
         serving8_log = start("serving", run=8, dtype="int8")
-        wait_until("int8 serving", lambda: status_of(base8 + "/ready") == 200, procs=live())
+        # ready at the load fraction, and then every UP of the generation
+        # replayed, before the probes
+        wait_until("int8 serving", lambda: status_of(base8 + "/ready") == 200
+                   and scrape(ports["serving8"]).get("serving.model.fraction_loaded", {})
+                   .get("value") == 1.0, procs=live())
         if not log_has(serving8_log, f"ALS serving: {store_kind} vector store"):
             raise AssertionError(f"als-lambda: the int8 serving process took no {store_kind}")
         time.sleep(1.0)
@@ -4578,14 +4619,9 @@ def phase_rdf_lambda(seed: int, rows: int = RDF_ROWS, device: str = "cuda",
         t_post = time.monotonic()
         t_last = post_train(base, lines)
         out["train_post_s"] = t_last - t_post
-        wait_until("the generation", lambda: status_of(base + "/ready") == 200, procs=live())
-        out["generation_staleness_s"] = time.monotonic() - t_last
-        metrics_batch = wait_until(
-            "the batch generation's end",
-            lambda: (m := scrape(ports["batch"])).get("batch.generations", {}).get("value", 0) >= 1
-            and m,
-            procs=live(),
-        )
+        ready_at, metrics_batch = first_generation("the generation", base, ports["batch"],
+                                                   procs, stop)
+        out["generation_staleness_s"] = ready_at - t_last
         input_broker = bus.get_broker(loc)
         latest = input_broker.latest_offsets("OryxInput")
         drained = input_broker.get_offsets("OryxGroup-batch-ChipSmokeRDF", "OryxInput")
@@ -4604,8 +4640,6 @@ def phase_rdf_lambda(seed: int, rows: int = RDF_ROWS, device: str = "cuda",
                              r"iterate ([0-9.]+) s", text)
         out["train_forest_s"] = ({"init": float(trained[-1][0]), "iterate": float(trained[-1][1])}
                                  if trained else None)
-        if stop("batch") != 0:
-            raise AssertionError("the batch process did not stop cleanly")
 
         forest, encodings, kind = rdf_published(loc, schema)
         out["published"] = kind
@@ -6581,6 +6615,485 @@ def metrics_counter(name: str) -> int:
     return registry.counter(name).value
 
 
+# -- phases 16 and 16b: the mesh (parallel/ on four shards of the one card) --------
+
+MESH_SHARDS = 4  # the mesh's shards, all on cuda:0: the host has one card
+MESH_BATCHES = (8, 64, 256, CANDIDATES_BATCH)
+MESH_TIMED = (256, CANDIDATES_BATCH)  # batches whose sharded and one-card calls are timed
+MESH_KMEANS = (200_000, 20, 10)  # phase 5's first shape
+MESH_KMEANS_ITERATIONS = 10
+MESH_ALS_ITERATIONS = 1  # ALS_SCALE_ITERATIONS before a cut (the cuts line)
+MESH_RMSE_ATOL = 1e-4
+MESH_PROCS = 4
+MESH_PROCS_ALS_ITERATIONS = 3
+MESH_PROCS_TIMEOUT_S = 600
+
+
+def exact_top_plain(torch, stn, y_dev, q_np: np.ndarray, k: int, cosine: bool):
+    """exact_top() for dot or cosine: the plain float32 scan of the whole
+    plane on the card, ties to the lowest id; (values, ids) as numpy."""
+    q = torch.from_numpy(np.ascontiguousarray(q_np)).to(y_dev.device)
+    v, i = stn.topn_merge_plain(
+        *stn.topn_scan_plain(q, y_dev.mat_t, y_dev.norms, y_dev.n_items, k, cosine, False), k
+    )
+    return v.cpu().numpy(), i.cpu().numpy()
+
+
+def recall_at(got_i: np.ndarray, ref_i: np.ndarray) -> float:
+    return sum(len(set(g) & set(r)) for g, r in zip(got_i.tolist(), ref_i.tolist())) / ref_i.size
+
+
+def launch_delta(stn, pk, before: tuple) -> dict:
+    """Launches of each kernel since ``before`` (stn's and pk's counts)."""
+    now = {**stn.launch_counts(), **pk.launch_counts()}
+    was = {**before[0], **before[1]}
+    return {name: now[name] - was.get(name, 0) for name in now if now[name] != was.get(name, 0)}
+
+
+def check_kmeans_parity(what: str, got, want, pts: np.ndarray) -> dict:
+    """Mesh k-means against one card's after one Lloyd iteration from the
+    same initial centers, with phase 5's tolerances: counts equal but for
+    near ties (points whose two nearest of the reference centers lie
+    within 1e-5 relative), centers within rtol 1e-5 of |center| plus 1e-5
+    of the largest and the near-tie points' share (each moves its center by
+    at most (|p| + |c|) / count), cost within rtol 1e-5."""
+    (gc, gn, gcost), (wc, wn, wcost) = got, want
+    wc64 = np.asarray(wc, np.float64)
+    d2 = (np.sum(pts.astype(np.float64) ** 2, 1)[:, None] - 2.0 * pts @ wc64.T
+          + np.sum(wc64 ** 2, 1)[None, :])
+    two = np.sort(d2, axis=1)[:, :2]
+    n_near = int(np.sum(two[:, 1] - two[:, 0] <= 1e-5 * np.abs(two[:, 1])))
+    count_diff = np.abs(np.asarray(gn, np.float64) - np.asarray(wn, np.float64))
+    err = np.abs(np.asarray(gc, np.float64) - wc64)
+    share = n_near * (float(np.abs(pts).max()) + float(np.abs(wc64).max())) / max(
+        1.0, float(np.min(wn)))
+    tol = RTOL * np.abs(wc64) + RTOL * float(np.abs(wc64).max()) + share
+    cost_rel = abs(float(gcost) - float(wcost)) / abs(float(wcost))
+    out = {"near_ties": n_near, "count_abs_diff": float(count_diff.sum()),
+           "centers_max_abs_err": float(err.max()), "near_share": share, "cost_rel_err": cost_rel}
+    if float(count_diff.max()) > n_near or float(count_diff.sum()) > 2 * n_near:
+        raise AssertionError(f"{what}: counts differ by {count_diff.sum()} with {n_near} near ties")
+    if (err > tol).any():
+        raise AssertionError(f"{what}: centers differ by {err.max()} (near-tie share {share})")
+    if cost_rel > RTOL:
+        raise AssertionError(f"{what}: cost differs by {cost_rel} relative")
+    return out
+
+
+def kmeans_runs(km, pts: np.ndarray, init: np.ndarray, mesh, reference) -> dict:
+    """train_kmeans over ``mesh`` and over ``reference`` (None: one card, or
+    another mesh) from ``init``: one iteration held by
+    check_kmeans_parity(), MESH_KMEANS_ITERATIONS held to
+    tests/app/kmeans/test_kmeans.py:58's bar (cost within rtol 1e-4; a
+    flipped near tie moves a center, and Lloyd's later sweeps carry it);
+    returns the comparison and the iterate seconds of both long runs."""
+    k = init.shape[0]
+    one = [km.train_kmeans(pts, k, iterations=1, initial_centers=init, mesh=m)
+           for m in (mesh, reference)]
+    out = {"one_iteration": check_kmeans_parity("mesh k-means, one iteration", *one, pts)}
+    runs, secs = [], []
+    for m in (reference, mesh):  # the mesh run last: its sweeps are the ones counted
+        runs.append(km.train_kmeans(pts, k, iterations=MESH_KMEANS_ITERATIONS,
+                                    initial_centers=init, mesh=m))
+        secs.append(dict(km.last_phase_seconds))
+    (_, rn, rcost), (_, mn, mcost) = runs
+    rel = abs(mcost - rcost) / abs(rcost)
+    out.update(iterations=MESH_KMEANS_ITERATIONS, cost_rel_err=rel, reference_s=secs[0],
+               mesh_s=secs[1], count_abs_diff=float(np.abs(mn - rn).sum()))
+    if rel > 1e-4 or float(mn.sum()) != len(pts):
+        raise AssertionError(f"mesh k-means over {MESH_KMEANS_ITERATIONS} iterations: cost "
+                             f"{mcost} against {rcost}, counts summing to {mn.sum()}")
+    return out
+
+
+def mesh_scans(torch, stn, pk, topn, mesh, x: np.ndarray, y: np.ndarray, smi: str,
+               device: str = "cuda") -> dict:
+    """(a) top_k_sharded on phase 3's factors over the 4-shard mesh, float32
+    and int8, dot and cosine, at MESH_BATCHES: float32 ids the one-card
+    kernel scan's (values within RTOL, ids but for near ties), int8
+    recall@10 against the exact float32 scan at least 0.99; each call
+    launched one scan of the right kernel per shard and shards + 1
+    merges. Returns the timed records by launch key."""
+    y_exact = stn.upload_streaming(y, dtype=torch.float32, device=device)
+    rec = {}
+    for dtype in ("float32", "int8"):
+        t0 = time.perf_counter()
+        up_s = topn.upload_sharded(y, mesh, dtype=dtype)
+        upload_s = time.perf_counter() - t0
+        up_1 = y_exact if dtype == "float32" else stn.upload_streaming(y, dtype=torch.int8,
+                                                                       device=device)
+        for cosine in (False, True):
+            for b in MESH_BATCHES:
+                q = x[1024 : 1024 + b]
+                before = (stn.launch_counts(), pk.launch_counts())
+                si, sv = topn.top_k_sharded(up_s, q, 10, cosine=cosine)
+                grew = launch_delta(stn, pk, before)
+                path = "tc_f32" if dtype == "float32" else "tc"
+                scan = f"topn_scan.{path}" if b <= stn.LOCAL_TOPK_BATCH else f"topn_candidates.{path}"
+                if device != "cpu" and grew != {scan: MESH_SHARDS, "topn_merge": MESH_SHARDS + 1}:
+                    raise AssertionError(f"sharded {dtype} b={b}: launched {grew}")
+                case = f"top_k_sharded {dtype} {'cosine' if cosine else 'dot'} b={b}"
+                row = {"phase": "mesh", "case": case, "launched": grew}
+                if dtype == "float32":
+                    ui, uv = stn.top_k_streaming(up_1, q, 10, cosine=cosine)
+                    row["max_abs_err"] = check_topk(case, sv, si, uv, ui)
+                else:
+                    _, ri = exact_top_plain(torch, stn, y_exact, q, 10, cosine)
+                    row["recall_at_10"] = recall_at(si, ri)
+                    if row["recall_at_10"] < 0.99:
+                        raise AssertionError(f"{case}: recall@10 {row['recall_at_10']} < 0.99")
+                    ui, _ = stn.top_k_streaming(up_1, q, 10, cosine=cosine)
+                    row["one_card_recall_at_10"] = recall_at(ui, ri)
+                if b in MESH_TIMED and not cosine:
+                    row["sharded_call_ms"] = time_ms(
+                        torch, lambda: topn.top_k_sharded(up_s, q, 10), 5)  # noqa: B023
+                    row["one_card_call_ms"] = time_ms(
+                        torch, lambda: stn.top_k_streaming(up_1, q, 10), 5)  # noqa: B023
+                    rec[scan] = {"mesh_ms": row["sharded_call_ms"],
+                                 "mesh_one_card_ms": row["one_card_call_ms"], "mesh_b": b}
+                    if b == 256:
+                        cand = torch.zeros((MESH_SHARDS, b, 10), dtype=torch.float32,
+                                           device=device)
+                        cand_i = torch.arange(MESH_SHARDS * b * 10, dtype=torch.int32,
+                                              device=device).view(MESH_SHARDS, b, 10)
+                        rec.setdefault("topn_merge", {}).update({
+                            "mesh_merge_ms": device_ms(
+                                torch, lambda: stn.topn_merge(cand, cand_i, 10), 10),
+                            "mesh_merge_lists": MESH_SHARDS})
+                emit({**row, "upload_s": upload_s, "nvidia_smi": smi})
+        del up_s, up_1
+        torch.cuda.empty_cache()
+    del y_exact
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_kmeans(torch, pk, km, mesh, seed: int, device: str = "cuda") -> tuple[dict, dict]:
+    """(b) mesh train_kmeans at 200,000 x 20, k = 10, against one card from
+    the same initial centers (kmeans_runs()); the long mesh run launched
+    shards x sweeps."""
+    n, d, k = MESH_KMEANS
+    pts, _ = gaussian_blobs(n, d, k, seed + 1700)
+    init = pts[np.random.default_rng(seed + 1701).choice(n, size=k, replace=False)]
+    before = pk.launch_counts()["kmeans_sweep.tc"]
+    out = {"shape": [n, d, k], **kmeans_runs(km, pts, init, mesh, None)}
+    per = MESH_KMEANS_ITERATIONS + 1
+    # the long mesh run's sweeps: the last launches of the phase so far
+    out["sweeps"] = pk.launch_counts()["kmeans_sweep.tc"] - before
+    want = MESH_SHARDS * (2 + per) + 2 + per  # both one-iteration runs, then both long ones
+    if device != "cpu" and out["sweeps"] != want:
+        raise AssertionError(f"mesh k-means launched {out['sweeps']} sweeps, not {want}")
+    return out, {"mesh_ms": out["mesh_s"]["iterate"] * 1e3 / per,
+                 "mesh_one_card_ms": out["reference_s"]["iterate"] * 1e3 / per}
+
+
+def mesh_forest(torch, tf, mesh, seed: int, rows: int = COVTYPE_ROWS,
+                device: str = "cuda") -> dict:
+    """(c) mesh train_forest at covtype's shape with phase 10's model (20
+    trees, depth 8): tree for tree with one card's forest but for near
+    ties, held-out accuracy within RDF_ACCURACY_TOL."""
+    from oryx_tpu_torch.app.rdf import encode
+    from oryx_tpu_torch.app.schema import InputSchema
+    from oryx_tpu_torch.common import config
+
+    schema = InputSchema(config.get_default().with_overlay(rdf_schema_config()))
+    btr, ytr, bte, yte, num_bins = covtype_binned(encode, schema, rows, seed + 800)
+    kw = dict(num_trees=20, max_depth=8, impurity="entropy", min_node_size=16.0,
+              min_info_gain=0.001, seed=seed, exclude_features={54})
+    one, one_s = timed_train(torch, tf, btr, ytr, device, num_bins=num_bins,
+                             num_classes=COVTYPE_CLASSES, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meshed = tf.train_forest(btr, ytr, num_bins=num_bins, num_classes=COVTYPE_CLASSES,
+                             mesh=mesh, **kw)
+    mesh_s = {"wall_s": time.perf_counter() - t0, **tf.last_phase_seconds}
+    parity = forest_parity(tf, one, meshed, btr, ytr, kw, num_bins, device)
+    acc = {name: float((tf.predict_forest_binned(f, bte, device=device).argmax(axis=1)
+                        == yte).mean()) for name, f in (("one_card", one), ("mesh", meshed))}
+    if abs(acc["mesh"] - acc["one_card"]) > RDF_ACCURACY_TOL:
+        raise AssertionError(f"mesh forest accuracy {acc}")
+    return {"rows": len(btr), "bins": num_bins, "trees": kw["num_trees"],
+            "depth": kw["max_depth"], "one_card_s": one_s, "mesh_s": mesh_s,
+            "accuracy": acc, "identical_trees": parity["identical_trees"],
+            "near_ties": parity["near_ties"]}
+
+
+def mesh_als(torch, als, mesh, seed: int, scale: float = 1.0) -> dict:
+    """(d) train_als at als-train's MovieLens-25M shape and rank 200 on one
+    card, replicated over the mesh and with sharded factors, at
+    MESH_ALS_ITERATIONS: every run's training RMSE within MESH_RMSE_ATOL
+    of one card's."""
+    nu, ni, nnz = (max(1_000, int(n * scale)) for n in ML25M)
+    u, i, v = power_law_ratings(nu, ni, nnz)
+    out = {"shape": [nu, ni, nnz], "rank": ALS_SCALE_RANK, "iterations": MESH_ALS_ITERATIONS}
+    for name, kw in (("one_card", {}), ("replicated", {"mesh": mesh}),
+                     ("sharded_factors", {"mesh": mesh, "shard_factors": True})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = als.train_als(u, i, v, nu, ni, features=ALS_SCALE_RANK, lam=0.01, alpha=1.0,
+                              implicit=True, iterations=MESH_ALS_ITERATIONS, seed=seed, **kw)
+        wall = time.perf_counter() - t0
+        if not (np.isfinite(model.x).all() and np.isfinite(model.y).all()):
+            raise AssertionError(f"mesh ALS {name}: non-finite factors")
+        out[name] = {"wall_s": wall, **als.last_phase_seconds,
+                     "rmse": als.rmse(model.x, model.y, u, i, v)}
+        del model
+        torch.cuda.empty_cache()
+    for name in ("replicated", "sharded_factors"):
+        diff = abs(out[name]["rmse"] - out["one_card"]["rmse"])
+        out[name]["rmse_diff"] = diff
+        if diff > MESH_RMSE_ATOL:
+            raise AssertionError(f"mesh ALS {name}: RMSE {out[name]['rmse']} against one "
+                                 f"card's {out['one_card']['rmse']}")
+    return out
+
+
+def mesh_serving(args, topn, x: np.ndarray, y: np.ndarray, probe, ref_v, ref_i) -> dict:
+    """(e) a ServingLayer with ``oryx.als.serving.shard-items = true`` on
+    phase 4's float32 factors: Y sharded over ``get_mesh()``, the host's one
+    card as in the JAX package; /recommend for phase 3's probe users equals
+    phase 4's exact top-10."""
+    from oryx_tpu_torch.serving.layer import ServingLayer
+
+    loc = "inproc://chip-smoke-mesh"
+    t0 = time.perf_counter()
+    layer = ServingLayer(serving_config(loc, "float32", "als.serving.shard-items = true"))
+    layer.start()
+    try:
+        publish_model(loc, args.features, x, y)
+        base = f"http://127.0.0.1:{layer.port}"
+        wait_until("the shard-items layer's /ready", lambda: http_get(base + "/ready")[0] == 200,
+                   timeout=120)
+        model = layer.model_manager.get_model()
+        model.set_item_vectors([f"i{j}" for j in range(SERVE_TOPIC_ROWS, len(y))],
+                               y[SERVE_TOPIC_ROWS:])
+        model.set_user_vectors([f"u{u}" for u in probe], x[probe])
+        ready_s = time.perf_counter() - t0
+        answers = [http_get(f"{base}/recommend/u{u}") for u in probe]
+        if any(status != 200 for status, _, _ in answers):
+            raise AssertionError(f"shard-items /recommend: {sorted({a[0] for a in answers})}")
+        bodies = [json.loads(body) for _, body, _ in answers]
+        got_i = np.array([[int(r["id"][1:]) for r in b] for b in bodies])
+        got_v = np.array([[r["value"] for r in b] for b in bodies])
+        err = check_topk("shard-items /recommend", got_v, got_i, ref_v, ref_i)
+        handle = model._ensure_y_matrix()[2]
+        if not isinstance(handle, topn.ShardedItemMatrix) or model._x_staging:
+            raise AssertionError(f"shard-items served from {type(handle).__name__}")
+        lat = sorted(a[2] * 1e3 for a in answers)
+        return {"requests": len(answers), "shards": len(handle.shards), "ready_s": ready_s,
+                "max_abs_err": err, "p50_ms": lat[len(lat) // 2], "max_ms": lat[-1]}
+    finally:
+        layer.close()
+
+
+def phase_mesh(torch, args, stn, pk, x: np.ndarray, y: np.ndarray, probe, ref_v, ref_i,
+               smi: str, device: str = "cuda", rows: int = COVTYPE_ROWS,
+               als_scale: float = 1.0) -> tuple[dict, dict]:
+    """Phase 16 (mesh): the port's parallel/ on a 4-shard mesh whose shards
+    are all ``cuda:0``, at full width, each sharded result held to the same
+    computation on one card: (a) top_k_sharded, (b) k-means, (c) forests,
+    (d) ALS in both mesh modes, (e) shard-items serving. Its launch counts
+    start at 0 and are read at its end. Returns (launches, the kernel
+    table's mesh times by launch key). ``device``, ``rows`` and
+    ``als_scale`` shrink it for a rehearsal on the CPU."""
+    from oryx_tpu_torch.ops import als, forest as tf, kmeans as km, topn
+    from oryx_tpu_torch.parallel.mesh import get_mesh
+
+    mesh = get_mesh(devices=[device if device == "cpu" else "cuda:0"] * MESH_SHARDS)
+    stn.reset_launch_counts()
+    pk.reset_launch_counts()  # the mesh phase's path starts here
+    t0 = time.perf_counter()
+    times = mesh_scans(torch, stn, pk, topn, mesh, x, y, smi, device)
+    scans_s = time.perf_counter() - t0
+    kmeans_rec, times["kmeans_sweep.tc"] = mesh_kmeans(torch, pk, km, mesh, args.seed, device)
+    t1 = time.perf_counter()
+    forest_rec = mesh_forest(torch, tf, mesh, args.seed, rows, device)
+    t2 = time.perf_counter()
+    als_rec = mesh_als(torch, als, mesh, args.seed, als_scale)
+    t3 = time.perf_counter()
+    serving_rec = mesh_serving(args, topn, x, y, probe, ref_v, ref_i)
+    launches = {**stn.launch_counts(), **pk.launch_counts()}  # the mesh phase's path ends here
+    emit({"phase": "mesh", "shards": MESH_SHARDS, "devices": [str(d) for d in mesh.local_devices()],
+          "kmeans": kmeans_rec, "forest": forest_rec, "als": als_rec, "serving": serving_rec,
+          "launches": launches, "seconds": {"scans": scans_s, "forest": t2 - t1, "als": t3 - t2,
+                                            "serving": time.perf_counter() - t3},
+          "nvidia_smi": smi})
+    for name in SOURCES:
+        if device != "cpu" and launches[name] <= 0:
+            raise AssertionError(f"the mesh phase never launched {name}")
+    return launches, times
+
+
+def mesh_rank_main(torch, args) -> int:
+    """One rank of phase 16b (mesh-procs), ``chip_smoke.py --mesh-rank R``:
+    joins the run through the port's ``maybe_initialize`` from the
+    ``oryx.batch.compute.distributed.*`` keys, its kernels built and loaded
+    in ``oryx.compute.compile-cache-dir``; runs the cross-process reduction,
+    mesh k-means and sharded-factor ALS over the 4-rank mesh; rank 0 then
+    runs both over four shards in its own process and holds the two to each
+    other. Writes its record to ``<mesh-dir>/rank<R>.json``."""
+    from oryx_tpu_torch.common import config as config_utils
+    from oryx_tpu_torch.ops import _build, als
+    from oryx_tpu_torch.ops import kmeans as km
+    from oryx_tpu_torch.ops import pallas_kmeans as pk
+    from oryx_tpu_torch.ops import streaming_topn as stn
+    from oryx_tpu_torch.parallel import distributed
+    from oryx_tpu_torch.parallel import mesh as mesh_mod
+
+    rank, device = args.mesh_rank, args.mesh_device
+    cache = os.path.join(args.mesh_dir, "kernels")
+    cfg = config_utils.get_default().with_overlay(f"""
+        oryx {{
+          batch.compute.distributed {{
+            coordinator-address = "127.0.0.1:{args.mesh_port}"
+            num-processes = {MESH_PROCS}
+            process-id = {rank}
+          }}
+          compute.compile-cache-dir = "{cache}"
+        }}""")
+    t0 = time.perf_counter()
+    distributed.maybe_enable_compile_cache(cfg)
+    distributed.maybe_initialize(cfg)
+    out = {"rank": rank, "backend": distributed.backend(), "init_s": time.perf_counter() - t0}
+    say(f"mesh-procs rank {rank}: torch.distributed backend {distributed.backend()}, "
+        f"{distributed.world_size()} ranks on {[str(p.device) for p in distributed.rank_placements()]}")
+    t0 = time.perf_counter()
+    if device != "cpu":
+        _build.build()  # under the build lock: one rank compiles, the others find the libraries
+        stn._kernels()
+        pk._kernels()
+    out["build_s"] = time.perf_counter() - t0
+    out["build_events"] = [list(e) for e in _build.EVENTS]
+    mesh = mesh_mod.get_mesh()
+    total = mesh_mod.all_reduce_sum(mesh, [torch.ones(1, device=device) * (rank + 1)])[0]
+    out["reduction"] = float(total)
+
+    n, d, k = MESH_KMEANS
+    pts, _ = gaussian_blobs(n, d, k, args.seed + 1700)
+    init = pts[np.random.default_rng(args.seed + 1701).choice(n, size=k, replace=False)]
+    nu, ni, nnz = ML1M
+    u, i, v = movielens_shape(nu, ni, nnz, args.seed + 1702)
+    als_kw = dict(features=ALS_LAMBDA_FEATURES, lam=0.1, implicit=False,
+                  iterations=MESH_PROCS_ALS_ITERATIONS, seed=args.seed, shard_factors=True)
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    procs_km = [km.train_kmeans(pts, k, iterations=it, initial_centers=init, mesh=mesh)
+                for it in (1, MESH_KMEANS_ITERATIONS)]
+    out["kmeans_s"] = time.perf_counter() - t0
+    out["launches"] = pk.launch_counts()
+    t0 = time.perf_counter()
+    model = als.train_als(u, i, v, nu, ni, mesh=mesh, **als_kw)
+    out["als_s"] = time.perf_counter() - t0
+    out["als_rmse"] = als.rmse(model.x, model.y, u, i, v)
+    distributed.shutdown()
+    if rank == 0:
+        # the same runs over four shards of this process
+        local = mesh_mod.get_mesh(devices=[mesh_mod.Placement(
+            torch.device("cpu" if device == "cpu" else "cuda:0"), 0)] * MESH_PROCS)
+        one_km = [km.train_kmeans(pts, k, iterations=it, initial_centers=init, mesh=local)
+                  for it in (1, MESH_KMEANS_ITERATIONS)]
+        out["kmeans_parity"] = check_kmeans_parity(
+            "mesh-procs k-means, one iteration", procs_km[0], one_km[0], pts)
+        rel = abs(procs_km[1][2] - one_km[1][2]) / abs(one_km[1][2])
+        out["kmeans_parity"]["long_cost_rel_err"] = rel
+        if rel > 1e-4:
+            raise AssertionError(f"mesh-procs k-means over {MESH_KMEANS_ITERATIONS} "
+                                 f"iterations: cost {procs_km[1][2]} against {one_km[1][2]}")
+        ref = als.train_als(u, i, v, nu, ni, mesh=local, **als_kw)
+        out["als_rmse_in_process"] = als.rmse(ref.x, ref.y, u, i, v)
+        out["als_rmse_diff"] = abs(out["als_rmse"] - out["als_rmse_in_process"])
+        out["cache_dir"] = cache
+        out["cache_files"] = sorted(os.listdir(cache))
+    with open(os.path.join(args.mesh_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_mesh_procs(seed: int, smi: str, device: str = "cuda", script: str | None = None) -> dict:
+    """Phase 16b (mesh-procs): MESH_PROCS rank processes
+    (``mesh_rank_main``) on the one card, joined over gloo (the ranks share
+    ``cuda:0``, which NCCL refuses), beside the window. Checks each rank's
+    backend and the reduction 1 + 2 + 3 + 4, that the kernels were built
+    once in the compile-cache directory and loaded from there by every rank,
+    every rank's sweeps (one shard each, 2 + 11 for a one-iteration and a
+    long run), and rank 0's parity with four shards in one process: k-means
+    as phase 16 holds it (kmeans_runs()), ALS RMSE within MESH_RMSE_ATOL.
+    Returns the ranks' summed launches. ``device`` and ``script`` (a
+    stand-in for this file that skips its CUDA check) rehearse it on the
+    CPU, where nothing is built and nothing counted."""
+    from oryx_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-procs-") as tmp:
+        port = free_port()
+        procs = []
+        t0 = time.perf_counter()
+        for r in range(MESH_PROCS):
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            cmd = [sys.executable, script or os.path.abspath(__file__), "--mesh-rank", str(r),
+                   "--mesh-port", str(port), "--mesh-dir", tmp, "--mesh-device", device,
+                   "--seed", str(seed)]
+            procs.append((subprocess.Popen(cmd, cwd=HERE, stdout=log, stderr=subprocess.STDOUT),
+                          log))
+        rcs = []
+        try:
+            deadline = time.monotonic() + MESH_PROCS_TIMEOUT_S
+            for proc, _ in procs:
+                rcs.append(proc.wait(timeout=max(1.0, deadline - time.monotonic())))
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        wall = time.perf_counter() - t0
+        for r in range(MESH_PROCS):
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                for line in f:
+                    if line.startswith("mesh-procs") or rcs[r] != 0:
+                        say(line.rstrip("\n"))
+        if any(rcs):
+            raise AssertionError(f"mesh-procs: the ranks exited {rcs}")
+        ranks = []
+        for r in range(MESH_PROCS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    zero = ranks[0]
+    cache = zero["cache_dir"]
+    built = collections.Counter(e[0] for rk in ranks for e in rk["build_events"] if e[1] == "built")
+    loaded = [sorted(e[0] for e in rk["build_events"] if e[1] == "loaded"
+                     and os.path.dirname(e[2]) == cache) for rk in ranks]
+    launches = collections.Counter()
+    for rk in ranks:
+        launches.update(rk["launches"])
+    out = {"phase": "mesh-procs", "ranks": MESH_PROCS, "wall_s": wall,
+           "backends": [rk["backend"] for rk in ranks],
+           "reductions": [rk["reduction"] for rk in ranks],
+           "built": dict(built), "loaded_from_cache": loaded, "cache_files": zero["cache_files"],
+           "kmeans_parity": zero["kmeans_parity"], "als_rmse": zero["als_rmse"],
+           "als_rmse_in_process": zero["als_rmse_in_process"],
+           "als_rmse_diff": zero["als_rmse_diff"], "launches": dict(launches),
+           "seconds": {f"rank{rk['rank']}": {s: rk[s] for s in
+                                             ("init_s", "build_s", "kmeans_s", "als_s")}
+                       for rk in ranks},
+           "nvidia_smi": smi}
+    emit(out)
+    if out["backends"] != ["gloo"] * MESH_PROCS:
+        raise AssertionError(f"mesh-procs backends {out['backends']}: the ranks share one card")
+    if out["reductions"] != [float(sum(range(1, MESH_PROCS + 1)))] * MESH_PROCS:
+        raise AssertionError(f"mesh-procs reduction {out['reductions']}")
+    if device != "cpu" and dict(built) != {name: 1 for name in _build.SOURCES}:
+        raise AssertionError(f"mesh-procs: the kernels were built {dict(built)} times")
+    if device != "cpu" and loaded != [sorted(_build.SOURCES)] * MESH_PROCS:
+        raise AssertionError(f"mesh-procs: the ranks loaded {loaded} from {cache}")
+    for rk in ranks:
+        if device != "cpu" and rk["launches"].get("kmeans_sweep.tc") != MESH_KMEANS_ITERATIONS + 3:
+            raise AssertionError(f"mesh-procs rank {rk['rank']} launched {rk['launches']}")
+    if zero["als_rmse_diff"] > MESH_RMSE_ATOL:
+        raise AssertionError(f"mesh-procs ALS RMSE {zero['als_rmse']} against "
+                             f"{zero['als_rmse_in_process']} in one process")
+    return {"launches": dict(launches)}
+
+
 class PhaseClock:
     """Prints each phase's wall seconds, and the run's so far."""
 
@@ -6732,6 +7245,8 @@ def main() -> int:
     full_float32(torch)
     if args.alone:
         return run_alone(torch, args)
+    if args.mesh_rank is not None:
+        return mesh_rank_main(torch, args)
     from oryx_tpu_torch.common.metrics import registry as metrics
     from oryx_tpu_torch.ops import _build, topn
     from oryx_tpu_torch.ops import pallas_kmeans as pk
@@ -6804,9 +7319,12 @@ def main() -> int:
           "native_host_tier_index": "ivf-serving's catalog and centroids, not its own",
           "native_host_python_formatter_rows": [100_000, NATIVE_PY_FORMAT_ROWS],
           "native_host_p0.3_queries": [TIER_QUERIES, TIER_WIDE_QUERIES],
+          "mesh_als_25m_iterations": [ALS_SCALE_ITERATIONS, MESH_ALS_ITERATIONS],
+          "mesh_procs_als_1m_iterations": [ALS_SCALE_ITERATIONS, MESH_PROCS_ALS_ITERATIONS],
           "run_at_once": "kmeans-lambda, als-lambda, buses, rdf-lambda and tenants (its own "
                          "process), beside kmeans-batch and ivf-serving; fleet (its own "
-                         "process) from the end of kmeans-batch"})
+                         "process) and mesh-procs (four rank processes) from the end of "
+                         "kmeans-batch"})
     clock = PhaseClock(t0)
     gen = np.random.default_rng(args.seed)
     y = factors(gen, args.items, args.features)
@@ -6919,6 +7437,9 @@ def main() -> int:
     del model, layer, y_exact
     torch.cuda.empty_cache()
     clock("serving")
+    mesh_launches, mesh_times = phase_mesh(torch, args, stn, pk, x, y, probe, ref_v, ref_i, smi)
+    torch.cuda.empty_cache()
+    clock("mesh")
 
     kernels.update(phase_kmeans_kernels(torch, pk, args.seed))
     clock("kmeans-kernels")
@@ -6950,6 +7471,10 @@ def main() -> int:
         # phases here: a process of its own too, started past the window's
         # first minute, when every other phase starts its processes at once
         beside.start("fleet", phase_alone, "fleet", args.seed)
+        # the mesh ranks (and their one nvcc pair) likewise: the window's
+        # first minute holds kmeans-lambda's first generation, whose
+        # check must stop the batch process within its interval
+        beside.start("mesh-procs", phase_mesh_procs, args.seed, smi)
         ivf_srv = phase_ivf_serving(torch, args, stn, pk, args.seed)
         clock("ivf-serving")
     finally:
@@ -7002,8 +7527,10 @@ def main() -> int:
             "ivf_launches": ivf_launches[name], "front_launches": front_launches.get(name, 0),
             "surface_launches": surface_launches.get(name, 0),
             "open_loop_launches": open_loop_launches.get(name, 0),
+            "mesh_launches": mesh_launches.get(name, 0),
+            "mesh_procs_launches": done_beside["mesh-procs"]["launches"].get(name, 0),
             "parity": "ok", "library_topk_ms": None,
-            **kernels[name],
+            **kernels[name], **mesh_times.get(name, {}),
         })
         if name == "kmeans_sweep.tc":
             table[-1]["ivf_sweep"] = ivf_ops["sweep"]

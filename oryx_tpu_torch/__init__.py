@@ -14,12 +14,11 @@ loops, each as ``python -m oryx_tpu_torch batch|speed|serving`` on one
 and serving, forest training, leaf updates and serving; and the operator
 surface around them: the open-loop load generator (``loadgen``), the
 fleet harness and its autoscaler (``tools/fleet.py``,
-``serving/autoscale.py``) and the CLI's operator commands.
+``serving/autoscale.py``) and the CLI's operator commands; and the
+multi-device layer (``parallel/``): meshes of explicit shards, their
+collectives within a process and over ``torch.distributed``, sharded
+ALS, k-means, forests and item scans, sub-mesh candidates and the
+kernels' compile cache.
 """
 
 __version__ = "0.1.0"
-
-
-class NotYetPortedError(NotImplementedError):
-    """A setting or message the JAX package serves that the port does not
-    yet; raised instead of silently serving something else."""

@@ -31,8 +31,12 @@ only the rows whose partition lies in the query's Hamming ball, as the
 JAX package does; LSH turns off index submit, the incremental refresh,
 the IVF tier and index-generation adoption.
 
-Not ported yet, and refused at construction: the mesh-sharded item
-matrix (``shard-items``).
+With ``oryx.als.serving.shard-items`` Y is row-sharded over the mesh of
+every scoped device (``parallel.mesh.get_mesh()``; on a one-card host the
+one card) and each scan runs ``ops/topn.top_k_sharded``: the scan
+kernels per shard, the shards' lists merged. As in the JAX package, the
+sharded layout rebuilds whole at each refresh, and X staging (index
+submit), the IVF tier and index-generation adoption are off.
 """
 
 from __future__ import annotations
@@ -47,7 +51,6 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.api.serving import AbstractServingModelManager, ServingModel
 from oryx_tpu_torch.app import pmml as app_pmml
 from oryx_tpu_torch.app.als.common import apply_up_lines, consume_blocks_columnar
@@ -91,11 +94,6 @@ class ALSServingModel(ServingModel):
         shard_items: bool = False,
         device_user_matrix: bool = True,
     ) -> None:
-        if shard_items:
-            raise NotYetPortedError(
-                "oryx.als.serving.shard-items = true (mesh-sharded item "
-                "matrix) is not yet ported to oryx_tpu_torch"
-            )
         if score_dtype not in _SCORE_DTYPES:
             raise ValueError(
                 f"score dtype must be float32, bfloat16, or int8, got {score_dtype!r}"
@@ -106,8 +104,10 @@ class ALSServingModel(ServingModel):
         # ships an int32 row index instead of a query vector (index
         # submit); only for the exact scan on the card
         self.device_user_matrix = device_user_matrix
-        self._x_staging = bool(device_user_matrix) and sample_rate >= 1.0
-        self.shard_items = False
+        self._x_staging = bool(device_user_matrix) and sample_rate >= 1.0 and not shard_items
+        # row-shard Y over the scoped devices (per-shard scans, their
+        # lists gathered and merged): the serving mode past one card's memory
+        self.shard_items = shard_items
         # item-matrix dtype on the card: bfloat16 halves the scanned bytes
         # at ~1e-2 relative score precision; int8 halves them again and
         # rescoring oversampled candidates against the residual plane
@@ -136,7 +136,7 @@ class ALSServingModel(ServingModel):
         self._refresh_sec = refresh_sec
         self._y_ids: list[str] = []
         self._y_index: dict[str, int] = {}
-        self._y_matrix = None  # StreamingItemMatrix or IVFIndex
+        self._y_matrix = None  # StreamingItemMatrix, ShardedItemMatrix or IVFIndex
         self._y_host: np.ndarray | None = None  # host copy, LSH path only
         self._y_partitions: np.ndarray | None = None  # LSH partition per row
         # incremental refresh state: ids written since the last build, and
@@ -348,6 +348,7 @@ class ALSServingModel(ServingModel):
                     self._y_matrix is not None
                     and not self._y_full_rebuild
                     and self.lsh is None
+                    and not self.shard_items  # the sharded layout rebuilds whole
                     and bool(dirty)
                     and self._try_incremental_refresh(dirty)
                 )
@@ -356,6 +357,7 @@ class ALSServingModel(ServingModel):
                     ann = (
                         self.score_dtype == "int8"
                         and self.lsh is None
+                        and not self.shard_items
                         and ivf_ops.ann_active(len(ids))
                     )
                     if ann:
@@ -364,6 +366,12 @@ class ALSServingModel(ServingModel):
                     self._y_index = {id_: i for i, id_ in enumerate(ids)}
                     if not len(ids):
                         self._y_matrix = None
+                    elif self.shard_items:
+                        from oryx_tpu_torch.parallel.mesh import get_mesh
+
+                        self._y_matrix = topn_ops.upload_sharded(
+                            mat, get_mesh(), dtype=_SCORE_DTYPES[self.score_dtype]
+                        )
                     elif ann:
                         # the IVF tier: cluster the rebuilt item matrix;
                         # fold-ins until the next rebuild go through the
@@ -573,6 +581,10 @@ class ALSServingModel(ServingModel):
         def score_fn(k: int):
             if lsh_rows is not None:
                 return _host_top_k(y_host, lsh_rows, query, k, cosine=cosine)
+            if isinstance(y_mat, topn_ops.ShardedItemMatrix):
+                # mesh-sharded scan: per-shard scans, lists gathered and merged
+                bi, bv = topn_ops.top_k_sharded(y_mat, query, k, cosine=cosine)
+                return bi[0], bv[0]
             return score_default(y_mat, query, k, cosine=cosine)
 
         return self._select_loop(ids, num_candidates, score_fn, how_many, exclude, rescorer)
@@ -716,7 +728,7 @@ class ALSServingModel(ServingModel):
                 gid, manifest.get("features"), self.features,
             )
             return False
-        if self.lsh is not None or self.score_dtype != "int8":
+        if self.lsh is not None or self.shard_items or self.score_dtype != "int8":
             return False  # index generations only drive the IVF scan
         with self._cache_lock:
             rot0 = self._y_rotation_epoch
@@ -813,10 +825,6 @@ class ALSServingModelManager(AbstractServingModelManager):
             raise ValueError(
                 f"oryx.als.serving.score-dtype must be float32, bfloat16, or "
                 f"int8, got {self.score_dtype!r}"
-            )
-        if self.shard_items:
-            raise NotYetPortedError(
-                "oryx.als.serving.shard-items = true is not yet ported to oryx_tpu_torch"
             )
         log.info(
             "ALS serving: %s vector store",

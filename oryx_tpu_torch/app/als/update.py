@@ -18,10 +18,10 @@ with the MLlib hot loop replaced by the batched solves of ops/als.py:
 - time-ordered train/test split (splitNewDataToTrainTest:237-254).
 
 Port note: a copy of ``oryx_tpu/app/als/update.py`` with its imports
-pointed at ``oryx_tpu_torch``. Training runs on the one default card
-(``ops/als.train_als``); a config that sets ``oryx.batch.compute.mesh``
-raises NotYetPortedError (``shard-factors`` only ever applied with a
-mesh). The JAX package's log line of its XLA compiled-run cache has no
+pointed at ``oryx_tpu_torch``. Training runs on ``ops/als.train_als``,
+over the mesh ``parallel.mesh.mesh_from_config`` gives
+(``oryx.batch.compute.mesh``, ``shard-factors`` with a mesh), else on
+the one default card. The JAX package's log line of its XLA compiled-run cache has no
 counterpart. Factor files and UP messages carry ``json.dumps`` vectors
 (``native/store.py``), which read back to the same float32 values as the
 JAX package's native text. Each chunk of UP rows goes out under the
@@ -41,7 +41,6 @@ from xml.etree.ElementTree import Element
 
 import numpy as np
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.app import pmml as app_pmml
 from oryx_tpu_torch.app.als import data as als_data
 from oryx_tpu_torch.bus.core import KeyMessage, TopicProducer
@@ -54,6 +53,7 @@ from oryx_tpu_torch.ml import param as hp
 from oryx_tpu_torch.ml.update import MLUpdate
 from oryx_tpu_torch.native.store import format_vectors_json
 from oryx_tpu_torch.ops import als as als_ops
+from oryx_tpu_torch.parallel.mesh import mesh_from_config
 
 log = logging.getLogger(__name__)
 
@@ -79,11 +79,6 @@ class ALSUpdate(MLUpdate):
             chunk_rows=config.get_int("oryx.ml.als.packing.chunk-rows"),
             shm_budget_mb=config.get_int("oryx.ml.als.packing.shared-mem-budget-mb"),
         )
-        if config.get("oryx.batch.compute.mesh", None) is not None:
-            raise NotYetPortedError(
-                "oryx.batch.compute.mesh is set, but ALS over a device mesh is "
-                "not yet ported to oryx_tpu_torch"
-            )
         self._config = config
 
     def get_hyper_parameter_values(self) -> list[hp.HyperParamValues]:
@@ -131,6 +126,7 @@ class ALSUpdate(MLUpdate):
         rm = self._prepare(train_data)
         if not rm.user_ids or not rm.item_ids:
             raise ValueError("no (user, item) interactions to train on")
+        mesh = mesh_from_config(self._config)
         model = als_ops.train_als(
             rm.user_idx,
             rm.item_idx,
@@ -142,6 +138,9 @@ class ALSUpdate(MLUpdate):
             alpha=alpha,
             implicit=self.implicit,
             iterations=self.iterations,
+            mesh=mesh,
+            shard_factors=mesh is not None
+            and bool(self._config.get("oryx.batch.compute.shard-factors", False)),
             matmul_dtype=self._config.get("oryx.batch.compute.matmul-dtype", None),
             init_y=self._warm_start_init_y(rm, features),
             packing=self.packing,

@@ -9,10 +9,10 @@ SILHOUETTE, KMeansUpdate.evaluate:139-178 — metrics where lower is
 better are negated so MLUpdate can always maximize).
 
 Port note: a copy of ``oryx_tpu/app/kmeans/update.py`` with its imports
-pointed at ``oryx_tpu_torch``. Training runs on the one default card
-(``ops/kmeans.train_kmeans``, through the B3 sweep kernels), even where
-the host has several; a config that sets ``oryx.batch.compute.mesh``
-raises NotYetPortedError.
+pointed at ``oryx_tpu_torch``. Training runs through the B3 sweep
+kernels (``ops/kmeans.train_kmeans``), over the mesh
+``parallel.mesh.mesh_from_config`` gives (``oryx.batch.compute.mesh``,
+or every card of a host with several), else on the one default card.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ from xml.etree.ElementTree import Element
 
 import numpy as np
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.app.kmeans import common as km
 from oryx_tpu_torch.app.schema import InputSchema
 from oryx_tpu_torch.bus.core import KeyMessage
@@ -35,6 +34,7 @@ from oryx_tpu_torch.ml import param as hp
 from oryx_tpu_torch.ml.update import MLUpdate
 from oryx_tpu_torch.ops import kmeans as km_ops
 from oryx_tpu_torch.ops import pallas_kmeans
+from oryx_tpu_torch.parallel.mesh import mesh_from_config
 
 log = logging.getLogger(__name__)
 
@@ -55,11 +55,6 @@ class KMeansUpdate(MLUpdate):
             raise ValueError(f"unknown initialization-strategy {self.init_strategy}")
         if self.minibatch_size is not None and self.minibatch_size <= 0:
             raise ValueError("oryx.ml.kmeans.minibatch-size must be positive")
-        if config.get("oryx.batch.compute.mesh", None) is not None:
-            raise NotYetPortedError(
-                "oryx.batch.compute.mesh is set, but k-means over a device mesh is "
-                "not yet ported to oryx_tpu_torch"
-            )
         self.schema = InputSchema(config)
         km.check_numeric_only(self.schema)
         self._config = config
@@ -87,6 +82,7 @@ class KMeansUpdate(MLUpdate):
         points = self._points(train_data)
         if len(points) == 0:
             raise ValueError("no points to cluster")
+        mesh = mesh_from_config(self._config)
         # warm-start: run 0 seeds Lloyd from the champion's centers (the
         # remaining runs stay independent restarts, so a drifted previous
         # model can't trap every run in its basin); train_kmeans falls
@@ -99,6 +95,7 @@ class KMeansUpdate(MLUpdate):
                 k,
                 iterations=self.iterations,
                 init=self.init_strategy,
+                mesh=mesh,
                 initial_centers=warm_centers if run == 0 else None,
                 minibatch_size=self.minibatch_size,
             )

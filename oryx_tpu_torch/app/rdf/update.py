@@ -12,9 +12,9 @@ output, and accuracy / negated-RMSE evaluation against the app-tier
 forest (batch/mllib/rdf/Evaluation.java:54).
 
 Port note: a copy of ``oryx_tpu/app/rdf/update.py`` with its imports
-pointed at ``oryx_tpu_torch``. Training runs on the one default card
-(``ops/forest.train_forest``'s device path); a config that sets
-``oryx.batch.compute.mesh`` raises NotYetPortedError. ``evaluate`` keeps
+pointed at ``oryx_tpu_torch``. Training runs ``ops/forest.train_forest``'s
+device path, over the mesh ``parallel.mesh.mesh_from_config`` gives
+(``oryx.batch.compute.mesh``), else on the one default card. ``evaluate`` keeps
 the reference's per-row host prediction through the app-tier forest.
 """
 
@@ -28,7 +28,6 @@ from xml.etree.ElementTree import Element
 
 import numpy as np
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.app.rdf import encode, forest_pmml, tree as T
 from oryx_tpu_torch.app.schema import InputSchema
 from oryx_tpu_torch.bus.core import KeyMessage
@@ -36,6 +35,7 @@ from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.ml import param as hp
 from oryx_tpu_torch.ml.update import MLUpdate
 from oryx_tpu_torch.ops import forest as forest_ops
+from oryx_tpu_torch.parallel.mesh import mesh_from_config
 
 log = logging.getLogger(__name__)
 
@@ -49,11 +49,6 @@ class RDFUpdate(MLUpdate):
         self.hist_mode = config.get_string("oryx.ml.rdf.hist-mode")
         if self.hist_mode not in ("auto", "matmul", "scalar", "reference"):
             raise ValueError(f"unknown oryx.ml.rdf.hist-mode {self.hist_mode!r}")
-        if config.get("oryx.batch.compute.mesh", None) is not None:
-            raise NotYetPortedError(
-                "oryx.batch.compute.mesh is set, but random-forest training over a "
-                "device mesh is not yet ported to oryx_tpu_torch"
-            )
         self.schema = InputSchema(config)
         if not self.schema.has_target():
             raise ValueError("rdf requires a target feature")
@@ -108,6 +103,7 @@ class RDFUpdate(MLUpdate):
             min_info_gain=self.min_info_gain,
             impurity=impurity,
             exclude_features={target_pred},
+            mesh=mesh_from_config(self._config),
             hist_mode=self.hist_mode,
         )
         log.info(

@@ -24,6 +24,11 @@ def set_device(device: str | torch.device | None) -> None:
     _chosen = None if device is None else torch.device(device)
 
 
+def chosen() -> torch.device | None:
+    """The device ``set_device`` pinned, or None."""
+    return _chosen
+
+
 def default_device() -> torch.device:
     if _chosen is not None:
         return _chosen

@@ -6,23 +6,19 @@ stream starting from stored group offsets (the reference reads them from
 ZooKeeper; here from the bus's offset ledger).
 
 Port note: a copy of ``oryx_tpu/lambda_/base.py`` with its imports pointed at
-``oryx_tpu_torch``, less the JAX multi-controller runtime and the XLA
-compilation cache: a config that asks for either
-(``oryx.batch.compute.distributed.*`` or its ``ORYX_*`` environment
-variables, ``oryx.compute.compile-cache-dir``) raises NotYetPortedError.
+``oryx_tpu_torch``. ``oryx.batch.compute.distributed.*`` joins a
+``torch.distributed`` run, and ``oryx.compute.compile-cache-dir`` is where
+the kernels are built and loaded (``parallel/distributed.py``).
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import threading
 from typing import Iterator
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.bus.core import Broker, KeyMessage, TopicConsumer, get_broker
 from oryx_tpu_torch.common import ledger, metrics
-from oryx_tpu_torch.common.compute import refuse_compile_cache
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
 
@@ -39,28 +35,6 @@ def behind(positions: dict[int, int], end: dict[int, int]) -> bool:
     while its consumer is behind the end it took at its start, at most
     DRAIN_EMPTY_POLLS empty polls in a row."""
     return any(pos < end.get(p, 0) for p, pos in positions.items())
-
-# settings of oryx_tpu/parallel/distributed.py: multi-process runs (A9)
-_DISTRIBUTED_KEYS = ("coordinator-address", "num-processes", "process-id", "auto")
-_DISTRIBUTED_ENV = ("ORYX_COORDINATOR", "ORYX_NUM_PROCESSES", "ORYX_PROCESS_ID")
-
-
-def _refuse_unported_compute(config: Config) -> None:
-    """Multi-process runs and the XLA compilation cache are not ported: a
-    config that asks for either must not run as one process silently."""
-    for key in _DISTRIBUTED_KEYS:
-        if config.get(f"oryx.batch.compute.distributed.{key}", None) not in (None, False):
-            raise NotYetPortedError(
-                f"oryx.batch.compute.distributed.{key} is set, but multi-process "
-                "runs are not yet ported to oryx_tpu_torch"
-            )
-    for var in _DISTRIBUTED_ENV:
-        if os.environ.get(var):
-            raise NotYetPortedError(
-                f"${var} is set, but multi-process runs are not yet ported to oryx_tpu_torch"
-            )
-    refuse_compile_cache(config)
-
 
 class AbstractLayer:
     def __init__(self, config: Config, layer_name: str) -> None:
@@ -89,7 +63,16 @@ class AbstractLayer:
         # max-attempts consecutive failures -> the layer reports unhealthy)
         self.retry_policy = RetryPolicy.from_config(config, f"oryx.{layer_name}.retry")
         self._supervised: list[SupervisedThread] = []
-        _refuse_unported_compute(config)
+        # multi-process: join the run before any device is touched, so
+        # the scoped devices span every rank (no-op unless
+        # oryx.batch.compute.distributed.* is configured)
+        from oryx_tpu_torch.parallel.distributed import (
+            maybe_enable_compile_cache,
+            maybe_initialize,
+        )
+
+        maybe_initialize(config)
+        maybe_enable_compile_cache(config)
 
     # -- topics -------------------------------------------------------------
 

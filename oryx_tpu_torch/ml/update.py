@@ -24,14 +24,16 @@ surfaced to `build_model` for warm-starting; and count-based retention GC
 trims old generations after each successful run.
 
 Port note: a copy of ``oryx_tpu/ml/update.py`` with its imports pointed at
-``oryx_tpu_torch``, less the disjoint sub-meshes: with
-``oryx.ml.eval.parallelism > 1`` candidates run on threads against the
-one card, as the JAX package runs them with one device.
+``oryx_tpu_torch``. With ``oryx.ml.eval.parallelism > 1`` candidates
+train on threads, each inside the ``device_scope`` of its own disjoint
+sub-mesh (``parallel.mesh.partition_devices``); with one card every
+candidate's group is that card.
 """
 
 from __future__ import annotations
 
 import abc
+import contextlib
 import logging
 import math
 import os
@@ -396,13 +398,32 @@ class MLUpdate(BatchLayerUpdate, abc.ABC):
         all_train: Iterable[KeyMessage],
         test_data: list[KeyMessage],
     ) -> tuple[float, Path, Element, Sequence] | None:
+        # Disjoint sub-meshes: with N>1 parallel candidates and enough
+        # devices, each candidate trains on its own contiguous device
+        # subset, the analogue of MLUpdate.java:256-288's parallel Spark
+        # jobs. With one device (or parallelism 1) every group is the full
+        # device set: the serial fallback costs nothing.
+        from oryx_tpu_torch.parallel import mesh as mesh_mod
+
+        groups = (
+            mesh_mod.partition_devices(self.eval_parallelism)
+            if self.eval_parallelism > 1 and len(combos) > 1
+            else None
+        )
+
         def build_and_eval(i: int) -> tuple[float, Path, Element, Sequence] | None:
             candidate_path = candidates_root / str(i)
             candidate_path.mkdir(parents=True, exist_ok=True)
             hyper_parameters = combos[i]
+            scope = (
+                mesh_mod.device_scope(groups[i % len(groups)])
+                if groups
+                else contextlib.nullcontext()
+            )
             t_build = time.monotonic()
             try:
-                model = self.build_model(all_train, hyper_parameters, candidate_path)
+                with scope:
+                    model = self.build_model(all_train, hyper_parameters, candidate_path)
             except Exception:
                 log.exception("failed to build candidate %d (%s)", i, hyper_parameters)
                 return None

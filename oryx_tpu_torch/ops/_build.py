@@ -3,11 +3,14 @@
 
 Each source under ``oryx_tpu_torch/csrc`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface,
-``oryx_tpu_torch/_build/lib<name>-<hash>.so``. The hash covers the source
-and the flags, so an edited source rebuilds and an unchanged one loads
-the library already built. A lock file in the build directory serialises
-builds across processes; ``build()`` starts one ``nvcc`` per source, all
-at once.
+``oryx_tpu_torch/_build/lib<name>-<hash>.so``, or in the directory
+``oryx.compute.compile-cache-dir`` names (``set_build_dir``, from
+``parallel/distributed.maybe_enable_compile_cache``). The hash covers the
+source and the flags, so an edited source rebuilds and an unchanged one
+loads the library already built, in this process or a later one. A lock
+file in the build directory serialises builds across processes;
+``build()`` starts one ``nvcc`` per source, all at once. ``EVENTS`` records
+which libraries this process built, found built, and loaded.
 """
 
 from __future__ import annotations
@@ -35,6 +38,16 @@ NVCC_FLAGS = [
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
+# (name, "built" | "found" | "loaded", library path): what this process's
+# build() compiled or found already built, and what load() opened
+EVENTS: list[tuple[str, str, str]] = []
+
+
+def set_build_dir(path) -> None:
+    """Build and load kernels in ``path`` from now on; libraries already
+    loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def _nvcc() -> str:
@@ -71,6 +84,7 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
             procs = {}
             for n in names:
                 if out[n].exists():
+                    EVENTS.append((n, "found", str(out[n])))
                     continue
                 tmp = out[n].with_suffix(f".tmp{os.getpid()}.so")
                 log = open(log_path(n), "w")
@@ -89,6 +103,7 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
                 log.close()
                 if rc == 0:
                     os.replace(tmp, out[n])
+                    EVENTS.append((n, "built", str(out[n])))
                 else:
                     failed.append(f"{n} (nvcc exit {rc}):\n{log_path(n).read_text()}")
             if failed:
@@ -107,4 +122,5 @@ def load(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build([name])
             lib = _loaded[name] = ctypes.CDLL(str(path))
+            EVENTS.append((name, "loaded", str(path)))
         return lib

@@ -32,9 +32,15 @@ Port notes:
   ``compiled_run_cache_info`` existed only for XLA's compile cache and
   have no counterpart; nor has the XLA shape padding of the fold-in
   (``_bucket``).
-- A device mesh or ``shard_factors=True`` raises NotYetPortedError:
-  the sharded-factor ring exchange (``_train_als_sharded``) comes with
-  multi-GPU.
+- A device mesh (``parallel/mesh.py``), in the JAX package's two modes:
+  replicated factors (each shard solves its slice of every bucket
+  against its copy of the other side, YtY on each shard, and one
+  ``all_reduce_sum`` of the disjoint solved rows replicates the new
+  factors), or ``shard_factors=True`` (``_train_als_sharded``: factors in
+  the device-major bucket layout of ``_sharded_layout``, YtY an
+  ``all_reduce_sum`` of local Gramians, and the neighbor gather a ring
+  exchange over S ``ring_shift`` steps). Pad slots are not solved in
+  either mode: they solve to zero in the JAX package.
 - The solve: the JAX package's ``jnp.linalg.solve`` is an LU solve; here
   ``torch.linalg.cholesky_ex`` and ``cholesky_solve``, since a batched
   LU (``solve_ex``) is several times slower on the card at rank 200
@@ -69,7 +75,6 @@ from typing import Callable, ContextManager, Optional
 import numpy as np
 import torch
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.common import ledger
 from oryx_tpu_torch.common import rng as rng_mod
 from oryx_tpu_torch.device import resolve
@@ -256,20 +261,26 @@ class ALSModel:
     y: np.ndarray  # [num_items, k]
 
 
-def bucket_tensors(buckets: list[NeighborBucket], device) -> list[tuple]:
+def bucket_tensors(buckets: list[NeighborBucket], device, shard: int = 0,
+                   num_shards: int = 1) -> list[tuple]:
     """Each bucket's real slots on ``device`` as (target, idx, val, deg,
-    chunk), target being the int64 output row per slot. The pad slots
-    (row -1) are the bucket's tail and are left out."""
+    chunk), target being the int64 output row per slot; of a mesh shard's
+    slice of every bucket (its ``num_slots / num_shards`` slots) where
+    ``num_shards`` > 1. The pad slots (row -1) are a bucket's tail and are
+    left out."""
     out = []
     for b in buckets:
-        n = int(np.count_nonzero(b.rows >= 0))
+        per = b.num_slots // num_shards
+        sl = slice(shard * per, (shard + 1) * per)
+        rows = b.rows[sl]
+        n = int(np.count_nonzero(rows >= 0))
         if not n:
             continue
         out.append((
-            torch.from_numpy(b.rows[:n].astype(np.int64)).to(device),
-            torch.from_numpy(np.ascontiguousarray(b.idx[:n])).to(device),
-            torch.from_numpy(np.ascontiguousarray(b.val[:n])).to(device),
-            torch.from_numpy(np.ascontiguousarray(b.deg[:n])).to(device),
+            torch.from_numpy(rows[:n].astype(np.int64)).to(device),
+            torch.from_numpy(np.ascontiguousarray(b.idx[sl][:n])).to(device),
+            torch.from_numpy(np.ascontiguousarray(b.val[sl][:n])).to(device),
+            torch.from_numpy(np.ascontiguousarray(b.deg[sl][:n])).to(device),
             b.chunk,
         ))
     return out
@@ -305,28 +316,36 @@ def train_als(
     ``workspace_elems`` bounds the per-chunk gather workspace (elements,
     not bytes). ``matmul_dtype="bfloat16"``
     (oryx.batch.compute.matmul-dtype) rounds the Gramian operands to
-    bfloat16; solves stay f32. ``mesh`` and ``shard_factors`` are not
-    ported (NotYetPortedError)."""
+    bfloat16; solves stay f32. With ``mesh``, neighbor buckets are
+    row-sharded over its shards; factors are replicated (default) or, with
+    ``shard_factors=True``, sharded over the mesh (ring-exchange
+    half-sweeps; ``init_y`` then does not apply, as in the JAX package).
+    ``device`` applies without a mesh."""
     t_init = time.perf_counter()
     if matmul_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(
             f"matmul_dtype must be float32 or bfloat16, got {matmul_dtype!r}"
         )
-    if mesh is not None or shard_factors:
-        raise NotYetPortedError(
-            "ALS over a device mesh (mesh, shard_factors) is not yet ported to oryx_tpu_torch"
-        )
-    dev = resolve(device)
     md = torch.bfloat16 if matmul_dtype == "bfloat16" else None
     seed_val = rng_mod.next_seed() if seed is None else seed
+    if shard_factors:
+        if mesh is None:
+            raise ValueError("shard_factors=True requires a mesh")
+        return _train_als_sharded(
+            user_idx, item_idx, values, num_users, num_items, features,
+            lam, alpha, implicit, iterations, mesh, seed_val, workspace_elems,
+            md, packing,
+        )
+    dev = resolve(device) if mesh is None else None
+    num_shards = mesh.size if mesh is not None else 1
 
     t_pack0 = time.perf_counter()
     u_buckets = build_neighbor_buckets(
-        user_idx, item_idx, values, num_users,
+        user_idx, item_idx, values, num_users, num_shards,
         workspace_elems=workspace_elems, features=features, options=packing,
     )
     i_buckets = build_neighbor_buckets(
-        item_idx, user_idx, values, num_items,
+        item_idx, user_idx, values, num_items, num_shards,
         workspace_elems=workspace_elems, features=features, options=packing,
     )
     t_pack = time.perf_counter() - t_pack0
@@ -350,13 +369,17 @@ def train_als(
         ).astype(np.float32)
 
     t_iter = time.perf_counter()
-    u_args = bucket_tensors(u_buckets, dev)
-    i_args = bucket_tensors(i_buckets, dev)
-    x = torch.zeros((users_pad, features), dtype=torch.float32, device=dev)
-    y = torch.from_numpy(y0).to(dev)
-    for _ in range(iterations):
-        x = _sweep_buckets(y, users_pad, u_args, lam, alpha, implicit, md)
-        y = _sweep_buckets(x, items_pad, i_args, lam, alpha, implicit, md)
+    if mesh is not None:
+        x, y = _run_replicated(mesh, u_buckets, i_buckets, y0, users_pad, items_pad,
+                               iterations, lam, alpha, implicit, md)
+    else:
+        u_args = bucket_tensors(u_buckets, dev)
+        i_args = bucket_tensors(i_buckets, dev)
+        x = torch.zeros((users_pad, features), dtype=torch.float32, device=dev)
+        y = torch.from_numpy(y0).to(dev)
+        for _ in range(iterations):
+            x = _sweep_buckets(y, users_pad, u_args, lam, alpha, implicit, md)
+            y = _sweep_buckets(x, items_pad, i_args, lam, alpha, implicit, md)
     x_np = x[:num_users].cpu().numpy()
     y_np = y[:num_items].cpu().numpy()
     last_phase_seconds.clear()
@@ -366,6 +389,221 @@ def train_als(
         iterate=time.perf_counter() - t_iter,
     )
     return ALSModel(x=x_np, y=y_np)
+
+
+def _run_replicated(mesh, u_buckets, i_buckets, y0: np.ndarray, users_pad: int,
+                    items_pad: int, iterations: int, lam, alpha, implicit, md):
+    """Replicated-factor half-sweeps over ``mesh``: every shard solves its
+    slice of each bucket against its copy of the other side (YtY on each
+    shard), and one ``all_reduce_sum`` of the shards' outputs, whose rows
+    are disjoint, gives every shard the new factors. Returns the first
+    local shard's (x, y)."""
+    from oryx_tpu_torch.parallel.mesh import all_reduce_sum, put, replicated
+
+    s = mesh.size
+    devs = mesh.local_devices()
+    u_args = [bucket_tensors(u_buckets, d, i, s) for i, d in zip(mesh.local, devs)]
+    i_args = [bucket_tensors(i_buckets, d, i, s) for i, d in zip(mesh.local, devs)]
+    y_l = put(y0, replicated(mesh))
+    x_l = y_l
+    for _ in range(iterations):
+        x_l = all_reduce_sum(mesh, [
+            _sweep_buckets(y, users_pad, a, lam, alpha, implicit, md) for y, a in zip(y_l, u_args)
+        ])
+        y_l = all_reduce_sum(mesh, [
+            _sweep_buckets(x, items_pad, a, lam, alpha, implicit, md) for x, a in zip(x_l, i_args)
+        ])
+    if not iterations:
+        x_l = [torch.zeros((users_pad, y0.shape[1]), dtype=torch.float32, device=devs[0])]
+    return x_l[0], y_l[0]
+
+
+# ---------------------------------------------------------------------------
+# Sharded-factor training: ring-exchange half-sweeps
+# ---------------------------------------------------------------------------
+
+
+def _sharded_layout(buckets: list[NeighborBucket], num_rows: int, s: int):
+    """Device-major slot layout for sharded factors.
+
+    Global slot order is device-major, bucket-minor: device d's block is
+    the concatenation of every bucket's d-th shard slice. Returns
+    (perm_rows [T] global row id per slot (-1 pad), pos [num_rows] slot
+    position per row (-1 if degree 0), loc = slots per device)."""
+    loc = sum(b.num_slots // s for b in buckets)
+    total = loc * s
+    perm_rows = np.full(total, -1, dtype=np.int64)
+    pos = np.full(num_rows, -1, dtype=np.int64)
+    offset = 0
+    for b in buckets:
+        n_b = b.num_slots
+        n_loc = n_b // s
+        i = np.arange(n_b)
+        d, j = i // n_loc, i % n_loc
+        gp = d * loc + offset + j
+        perm_rows[gp] = b.rows
+        valid = b.rows >= 0
+        pos[b.rows[valid]] = gp[valid]
+        offset += n_loc
+    return perm_rows, pos, loc
+
+
+def _translate_to_shards(idx: np.ndarray, pos_other: np.ndarray, other_loc: int):
+    """Map col ids to (owner shard, local row) in the other side's layout.
+
+    Entries whose col has no slot (only possible for mask-0 padding, idx
+    0) get shard -1 — matched by no ring step, contributing zero."""
+    p = pos_other[idx]
+    ish = np.where(p < 0, -1, p // other_loc).astype(np.int32)
+    ilo = np.where(p < 0, 0, p % other_loc).astype(np.int32)
+    return ish, ilo
+
+
+def _shard_slices(buckets, arrs, shard: int, s: int, device) -> list[tuple]:
+    """A shard's slice of every bucket in the sharded layout: (ish, ilo,
+    val, deg) on ``device``, the slots per shard, the real (leading) slots
+    among them and the chunk."""
+    out = []
+    for b, (ish, ilo, val, deg) in zip(buckets, arrs):
+        per = b.num_slots // s
+        sl = slice(shard * per, (shard + 1) * per)
+        real = int(np.count_nonzero(b.rows[sl] >= 0))
+        out.append((
+            *(torch.from_numpy(np.ascontiguousarray(a[sl])).to(device)
+              for a in (ish, ilo, val, deg)),
+            per, real, b.chunk,
+        ))
+    return out
+
+
+def _ring_fill(mesh, other_l, ish_l, ilo_l) -> list[torch.Tensor]:
+    """Every local shard's [C, D, k] neighbor workspace: at ring step t
+    shard g holds the other side's shard (g + t) mod S and fills the slots
+    that shard owns (``ring_fill`` of the JAX package; its last shift,
+    which returns every block home, is left out)."""
+    from oryx_tpu_torch.parallel.mesh import ring_shift
+
+    s = mesh.size
+    k = other_l[0].shape[1]
+    v_l = [torch.zeros(ish.shape + (k,), dtype=torch.float32, device=ish.device)
+           for ish in ish_l]
+    cur = list(other_l)
+    for t in range(s):
+        for j, g in enumerate(mesh.local):
+            hit = (ish_l[j] == (g + t) % s)[..., None]
+            v_l[j] = v_l[j] + torch.where(hit, cur[j][ilo_l[j].long()], 0.0)
+        if t + 1 < s:
+            cur = ring_shift(mesh, cur)
+    return v_l
+
+
+def _sharded_half_sweep(mesh, other_l, shard_args, out_rows: int, lam, alpha, implicit, md):
+    """One half-sweep with factors sharded: YtY an ``all_reduce_sum`` of the
+    shards' Gramians (pad slots are zero), every chunk's workspace a ring
+    fill, then each shard solves its chunk's real slots into its
+    [out_rows, k] block (pad slots stay zero)."""
+    from oryx_tpu_torch.parallel.mesh import all_reduce_sum
+
+    k = other_l[0].shape[1]
+    yty_l = [None] * len(other_l)
+    if implicit:
+        yty_l = all_reduce_sum(mesh, [_rounded(o, md).T @ _rounded(o, md) for o in other_l])
+    out_l = [torch.zeros((out_rows, k), dtype=torch.float32, device=o.device) for o in other_l]
+    piece = max(1, SOLVE_ELEMS // (k * k))
+    offset = 0
+    for b in range(len(shard_args[0])):
+        per, chunk = shard_args[0][b][4], shard_args[0][b][6]
+        for c0 in range(0, per, chunk):
+            c1 = min(c0 + chunk, per)
+            # the slots each shard solves: its real slots lead its slice
+            reals = [max(0, min(c1, a[b][5]) - c0) for a in shard_args]
+            v_l = _ring_fill(
+                mesh, other_l,
+                [a[b][0][c0 : c0 + r] for a, r in zip(shard_args, reals)],
+                [a[b][1][c0 : c0 + r] for a, r in zip(shard_args, reals)],
+            )
+            for j, (a, r) in enumerate(zip(shard_args, reals)):
+                if not r:
+                    continue
+                cval, cdeg = a[b][2][c0 : c0 + r], a[b][3][c0 : c0 + r]
+                iota = torch.arange(cval.shape[1], dtype=torch.int32, device=cval.device)
+                cmask = (iota[None, :] < cdeg[:, None]).to(torch.float32)
+                v = v_l[j] * cmask[..., None]
+                for s0 in range(0, r, piece):
+                    s1 = min(s0 + piece, r)
+                    am, bm = _normal_equations(v[s0:s1], cval[s0:s1], cmask[s0:s1], yty_l[j],
+                                               lam, alpha, implicit, k, md)
+                    out_l[j][offset + c0 + s0 : offset + c0 + s1] = _solve(am, bm)
+        offset += per
+    return out_l
+
+
+def _train_als_sharded(
+    user_idx, item_idx, values, num_users, num_items, features,
+    lam, alpha, implicit, iterations, mesh, seed_val, workspace_elems,
+    matmul_dtype=None, packing=None,
+) -> ALSModel:
+    """ALS with factors sharded over the mesh (see the module doc): the
+    JAX package's layout, permutations and init, so the natural-order
+    factors compare."""
+    from oryx_tpu_torch.parallel.mesh import all_gather, put, shard_rows
+
+    t_init = time.perf_counter()
+    s = mesh.size
+    u_buckets = build_neighbor_buckets(
+        user_idx, item_idx, values, num_users, s,
+        workspace_elems=workspace_elems, features=features, options=packing,
+    )
+    i_buckets = build_neighbor_buckets(
+        item_idx, user_idx, values, num_items, s,
+        workspace_elems=workspace_elems, features=features, options=packing,
+    )
+    if not u_buckets or not i_buckets:
+        return ALSModel(
+            x=np.zeros((num_users, features), np.float32),
+            y=np.zeros((num_items, features), np.float32),
+        )
+
+    t_pack = time.perf_counter() - t_init
+    perm_x, pos_x, u_loc = _sharded_layout(u_buckets, num_users, s)
+    perm_y, pos_y, i_loc = _sharded_layout(i_buckets, num_items, s)
+    u_arrs = [(*_translate_to_shards(b.idx, pos_y, i_loc), b.val, b.deg) for b in u_buckets]
+    i_arrs = [(*_translate_to_shards(b.idx, pos_x, u_loc), b.val, b.deg) for b in i_buckets]
+    devs = mesh.local_devices()
+    u_sh = [_shard_slices(u_buckets, u_arrs, i, s, d) for i, d in zip(mesh.local, devs)]
+    i_sh = [_shard_slices(i_buckets, i_arrs, i, s, d) for i, d in zip(mesh.local, devs)]
+
+    # the natural-order init of the replicated path, permuted into the
+    # sharded layout (pad slots zero: they enter the summed YtY)
+    y_nat = 0.1 * np.random.default_rng(seed_val).standard_normal(
+        (num_items, features)
+    ).astype(np.float32)
+    y0 = np.zeros((i_loc * s, features), np.float32)
+    yv0 = perm_y >= 0
+    y0[yv0] = y_nat[perm_y[yv0]]
+
+    t_iter = time.perf_counter()
+    y_l = put(y0, shard_rows(mesh))
+    x_l = [torch.zeros((u_loc, features), dtype=torch.float32, device=d) for d in devs]
+    for _ in range(iterations):
+        x_l = _sharded_half_sweep(mesh, y_l, u_sh, u_loc, lam, alpha, implicit, matmul_dtype)
+        y_l = _sharded_half_sweep(mesh, x_l, i_sh, i_loc, lam, alpha, implicit, matmul_dtype)
+    x_p = all_gather(mesh, x_l)[0].cpu().numpy()
+    y_p = all_gather(mesh, y_l)[0].cpu().numpy()
+
+    x = np.zeros((num_users, features), np.float32)
+    y = np.zeros((num_items, features), np.float32)
+    xv = perm_x >= 0
+    yv = perm_y >= 0
+    x[perm_x[xv]] = x_p[xv]
+    y[perm_y[yv]] = y_p[yv]
+    last_phase_seconds.clear()
+    last_phase_seconds.update(
+        pack=t_pack,
+        init=t_iter - t_init - t_pack,
+        iterate=time.perf_counter() - t_iter,
+    )
+    return ALSModel(x=x, y=y)
 
 
 # -- evaluation --------------------------------------------------------------

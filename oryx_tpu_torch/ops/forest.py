@@ -51,8 +51,11 @@ Port notes:
   plumbing (``_grow_level_trees``, the jitted ``_eval_group_hists``)
   existed only for XLA's compile cache and has no counterpart; the
   ``lax.scan`` over trees is a Python loop over the chunk's trees.
-- ``mesh`` raises NotYetPortedError: the row-sharded level pass
-  (``_grow_level_trees_mesh``) comes with multi-GPU.
+- ``mesh``: rows shard over the mesh's shards and one
+  ``all_reduce_sum`` per tree and level sums their histograms
+  (``_grow_level_trees_mesh``, the JAX package's shard_map'd psum). For
+  classification the sums are integers, exact in float32, so a mesh
+  grows one card's trees; regression's float sums move with the shards.
 - The last bit of ``log``: the card's ``logf`` and the CPU's may differ
   by one ulp, so two candidates with different statistics whose entropy
   gains agree to about 1e-7 may be ordered differently on the card and
@@ -77,7 +80,6 @@ from typing import Callable, ContextManager
 import numpy as np
 import torch
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.common import rng as rng_mod
 from oryx_tpu_torch.device import full_float32, resolve
 
@@ -316,10 +318,7 @@ def _grow_level_impl(
     new_node_of [n]). ``stage(name)`` wraps the "histograms", "splits"
     and "routing" work, for timing."""
     with stage("histograms"):
-        pos = node_of - level_start  # position within level; <0 or >=L = inactive
-        active = (pos >= 0) & (pos < num_level_nodes)
-        pos_c = torch.where(active, pos, 0).long()
-        w_act = torch.where(active, w_ex, 0.0)
+        active, pos_c, w_act = _level_rows(node_of, w_ex, level_start, num_level_nodes)
         hists = _level_histograms(
             binned, w_act, y_cls, chan, pos_c, num_level_nodes, num_bins,
             impurity, hist_mode,
@@ -330,18 +329,30 @@ def _grow_level_impl(
             min_node_size, min_info_gain, is_last_level,
         )
     with stage("routing"):
-        # route examples: children heap indices; leaves freeze at -(heap+2)
-        node_heap = (pos_c + level_start).to(torch.int32)
-        ex_feat = split_feature[pos_c]
-        ex_bin = split_bin[pos_c]
-        ex_split = (ex_feat >= 0) & active
-        col = binned.gather(1, ex_feat.clamp(min=0).long()[:, None])[:, 0]
-        child = 2 * node_heap + 1 + (col > ex_bin).to(torch.int32)
-        new_node_of = torch.where(
-            ex_split, child, torch.where(active, -node_heap - 2, node_of)
-        )
-    # inactive-but-was-active encode as -(heap+2) so final leaf is recoverable
+        new_node_of = _route(binned, node_of, active, pos_c, split_feature, split_bin,
+                             level_start)
     return split_feature, split_bin, gains, node_tot, new_node_of
+
+
+def _level_rows(node_of, w_ex, level_start: int, num_level_nodes: int):
+    """(active [n] bool, clamped position in the level [n] int64, weights
+    [n] zeroed where inactive) of one tree's rows at one level."""
+    pos = node_of - level_start  # position within level; <0 or >=L = inactive
+    active = (pos >= 0) & (pos < num_level_nodes)
+    return active, torch.where(active, pos, 0).long(), torch.where(active, w_ex, 0.0)
+
+
+def _route(binned, node_of, active, pos_c, split_feature, split_bin, level_start: int):
+    """Each row's heap index after the level's splits: a split node's rows
+    go to its children, a leaf's freeze at -(heap+2), so the final leaf
+    stays recoverable; inactive rows keep theirs."""
+    node_heap = (pos_c + level_start).to(torch.int32)
+    ex_feat = split_feature[pos_c]
+    ex_bin = split_bin[pos_c]
+    ex_split = (ex_feat >= 0) & active
+    col = binned.gather(1, ex_feat.clamp(min=0).long()[:, None])[:, 0]
+    child = 2 * node_heap + 1 + (col > ex_bin).to(torch.int32)
+    return torch.where(ex_split, child, torch.where(active, -node_heap - 2, node_of))
 
 
 def _grow_level_trees_impl(
@@ -375,6 +386,59 @@ def _grow_level_trees_impl(
     ]
     # (sf [T,L], sb [T,L], gain [T,L], node_tot [T,L,S], node_of [T,n])
     return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _grow_level_trees_mesh(
+    mesh,
+    shards,  # per local shard: (binned [n_loc, p], y_cls [n_loc], chan [n_loc, S])
+    w_l,  # per local shard: [T, n_loc] example weights
+    node_l,  # per local shard: [T, n_loc] heap index or -1
+    mask_l,  # per local shard: [T, L, p] mtry masks (replicated)
+    allowed_l,  # per local shard: [p] (replicated)
+    level_start: int,
+    num_level_nodes: int,
+    num_bins: int,
+    impurity: str,
+    min_node_size: float,
+    min_info_gain: float,
+    is_last_level: bool,
+    hist_mode: str = "auto",
+    stage: Callable[[str], ContextManager] = _no_stage,
+):
+    """Whole-chunk level pass over a mesh (``_grow_level_trees_mesh`` of the
+    JAX package): per tree, every shard takes its rows' histograms, one
+    ``all_reduce_sum`` gives the global ones, split selection runs once
+    per device (every shard's copy is the same), and every shard routes
+    its own rows. Returns the first local shard's (sf [T,L], sb [T,L],
+    gain [T,L], node_tot [T,L,S]) and each local shard's node_of [T, n_loc]."""
+    from oryx_tpu_torch.parallel.mesh import all_reduce_sum
+
+    outs, nodes = [], [[] for _ in shards]
+    for t in range(w_l[0].shape[0]):
+        rows, local = [], []
+        with stage("histograms"):
+            for (binned, y_cls, chan), w, no in zip(shards, w_l, node_l):
+                active, pos_c, w_act = _level_rows(no[t], w[t], level_start, num_level_nodes)
+                rows.append((active, pos_c))
+                local.append(_level_histograms(
+                    binned, w_act, y_cls, chan, pos_c, num_level_nodes, num_bins,
+                    impurity, hist_mode,
+                ))
+            hists = all_reduce_sum(mesh, local)
+        splits = {}
+        with stage("splits"):
+            for j, h in enumerate(hists):
+                if h.device not in splits:
+                    splits[h.device] = _level_splits_from_hists(
+                        h, mask_l[j][t], allowed_l[j], impurity,
+                        min_node_size, min_info_gain, is_last_level,
+                    )
+        with stage("routing"):
+            for j, ((binned, _, _), no, (active, pos_c)) in enumerate(zip(shards, node_l, rows)):
+                sf, sb, _, _ = splits[hists[j].device]
+                nodes[j].append(_route(binned, no[t], active, pos_c, sf, sb, level_start))
+        outs.append(splits[hists[0].device])
+    return tuple(torch.stack(parts) for parts in zip(*outs)), [torch.stack(n) for n in nodes]
 
 
 def _eval_group_hists(hists, node_tot, feat_mask, allowed_mask, mins,
@@ -553,14 +617,12 @@ def train_forest(
     it is on when the device is the CPU. Both paths consume the identical
     random stream and run split selection through the same torch
     functions. ``stage(name)`` wraps each tree-level's "histograms",
-    "splits" and "routing" work on the device path, for timing. ``mesh``
-    is not ported (NotYetPortedError)."""
+    "splits" and "routing" work on the device path, for timing. With
+    ``mesh``, example rows shard over its shards (padded with rows of
+    weight 0) and each level's histograms are summed over them by one
+    ``all_reduce_sum``; ``device`` and ``host_hist`` are then unused."""
     t_init = time.perf_counter()
-    if mesh is not None:
-        raise NotYetPortedError(
-            "random-forest training over a device mesh is not yet ported to oryx_tpu_torch"
-        )
-    dev = resolve(device)
+    dev = resolve(device) if mesh is None else None
     st = _setup(binned, targets, num_classes, num_trees, impurity, mtry, seed,
                 exclude_features)
     n, p = st.binned.shape
@@ -573,10 +635,13 @@ def train_forest(
     t_gains = np.zeros((num_trees, max_nodes), dtype=np.float64)
     out = ForestArrays(t_feat, t_bin, t_stats, t_counts, t_gains, num_classes)
     if host_hist is None:
-        host_hist = dev.type == "cpu"
+        host_hist = mesh is None and dev.type == "cpu"
 
     t_iter = time.perf_counter()
-    if host_hist:
+    if mesh is not None:
+        _train_mesh_chunks(st, mesh, num_bins, min_node_size, min_info_gain, max_depth,
+                           num_trees, hist_mode, stage or _no_stage, out)
+    elif host_hist:
         _train_host_chunks(
             st.binned, st.y_cls, st.chan_base, num_classes, st.allowed_vec, num_bins,
             st.imp_kind, min_node_size, min_info_gain, max_depth, num_trees, st.tc,
@@ -622,16 +687,65 @@ def _train_device_chunks(st: _Setup, dev, num_bins, min_node_size, min_info_gain
             # every deeper level is all-leaf — don't dispatch it
             if not bool((sf >= 0).any()):
                 break
-        for level_start, num_level, sf, sb, gains, node_tot in level_out:
-            sl = slice(level_start, level_start + num_level)
-            node_tot = node_tot.cpu().numpy()  # [tc, L, S]
-            out.split_feature[t0:t1, sl] = sf.cpu().numpy()
-            out.split_bin[t0:t1, sl] = sb.cpu().numpy()
-            out.node_stats[t0:t1, sl] = node_tot
-            out.node_counts[t0:t1, sl] = (
-                node_tot[..., 0] if out.num_classes is None else node_tot.sum(axis=2)
+        _store_levels(out, t0, t1, level_out)
+
+
+def _store_levels(out: ForestArrays, t0: int, t1: int, level_out: list) -> None:
+    """Copy a tree chunk's grown levels into the host forest arrays."""
+    for level_start, num_level, sf, sb, gains, node_tot in level_out:
+        sl = slice(level_start, level_start + num_level)
+        node_tot = node_tot.cpu().numpy()  # [tc, L, S]
+        out.split_feature[t0:t1, sl] = sf.cpu().numpy()
+        out.split_bin[t0:t1, sl] = sb.cpu().numpy()
+        out.node_stats[t0:t1, sl] = node_tot
+        out.node_counts[t0:t1, sl] = (
+            node_tot[..., 0] if out.num_classes is None else node_tot.sum(axis=2)
+        )
+        out.gains[t0:t1, sl] = gains.cpu().numpy()
+
+
+def _train_mesh_chunks(st: _Setup, mesh, num_bins, min_node_size, min_info_gain,
+                       max_depth, num_trees, hist_mode, stage, out: ForestArrays):
+    """The device level loop over a mesh: rows padded to a shard multiple
+    (pad rows have weight 0, so they start and stay inactive) and sharded;
+    the same random stream, chunks and early exit as one card."""
+    from oryx_tpu_torch.parallel.mesh import pad_to_multiple, put, replicated, shard_rows
+
+    n = st.binned.shape[0]
+    n_pad = pad_to_multiple(n, mesh.size)
+    per = n_pad // mesh.size
+    tc = max(1, min(num_trees, int(_TREE_CHUNK_BUDGET_BYTES) // max(1, n_pad * 8)))
+
+    def padded(a: np.ndarray, axis: int = 0) -> np.ndarray:
+        shape = list(a.shape)
+        shape[axis] = n_pad
+        full = np.zeros(shape, a.dtype)
+        full[(slice(None),) * axis + (slice(0, n),)] = a
+        return full
+
+    shards = list(zip(*(put(padded(a), shard_rows(mesh))
+                        for a in (st.binned, st.y_cls, st.chan_base))))
+    allowed_l = put(st.allowed_vec, replicated(mesh))
+    mins = float(np.float32(min_node_size)), float(np.float32(min_info_gain))
+    for t0 in range(0, num_trees, tc):
+        t1 = min(t0 + tc, num_trees)
+        w_c = padded(st.draws.chunk_weights(t0, t1), axis=1)
+        w_l = [torch.from_numpy(np.ascontiguousarray(w_c[:, i * per : (i + 1) * per]))
+               .to(mesh.shards[i].device) for i in mesh.local]
+        node_l = [torch.where(w > 0, 0, -1).to(torch.int32) for w in w_l]
+        level_out = []
+        for depth in range(max_depth + 1):
+            level_start = 2**depth - 1
+            num_level = 2**depth
+            mask_l = put(st.draws.level_masks(t0, t1, num_level), replicated(mesh))
+            (sf, sb, gains, node_tot), node_l = _grow_level_trees_mesh(
+                mesh, shards, w_l, node_l, mask_l, allowed_l, level_start, num_level,
+                num_bins, st.imp_kind, mins[0], mins[1], depth == max_depth, hist_mode, stage,
             )
-            out.gains[t0:t1, sl] = gains.cpu().numpy()
+            level_out.append((level_start, num_level, sf, sb, gains, node_tot))
+            if not bool((sf >= 0).any()):
+                break
+        _store_levels(out, t0, t1, level_out)
 
 
 def _train_host_chunks(

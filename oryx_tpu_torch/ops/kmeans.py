@@ -5,7 +5,15 @@
 initial centers are picked (warm start, "random", or k-means|| on the
 device or the host), then every Lloyd iteration, every mini-batch step
 and the final full pass go through the fused sweep kernels of
-``ops/pallas_kmeans.py`` (B3). Device meshes are not ported.
+``ops/pallas_kmeans.py`` (B3).
+
+Over a device mesh (``parallel/mesh.py``) the points are row-sharded,
+padded with rows no sweep counts, and the centers replicated: each Lloyd
+iteration runs one B3 sweep per shard, whose per-center sums, counts and
+cost one ``all_reduce_sum`` turns into the global ones, and every shard
+moves its copy of the centers alike. As in the JAX package, a mesh runs
+full-batch Lloyd (no mini-batch) and picks its init on the host unless
+``init_backend="device"``.
 
 The host k-means|| init, ``assign_clusters`` and the four internal
 clustering metrics (SumSquaredError / DaviesBouldinIndex / DunnIndex /
@@ -20,7 +28,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch.common import rng as rng_mod
 from oryx_tpu_torch.device import resolve
 from oryx_tpu_torch.ops import pallas_kmeans
@@ -172,23 +179,23 @@ def train_kmeans(
     reported counts and cost. n at or below the batch size runs full-batch
     Lloyd.
 
-    ``init_backend``: "device" and "auto" run k-means|| init on the card,
-    "host" keeps the NumPy passes. ``mesh`` (multi-GPU) is not ported."""
-    if mesh is not None:
-        raise NotYetPortedError("k-means over a device mesh is not yet ported to oryx_tpu_torch")
-    dev = resolve(device)
+    ``init_backend``: "device" runs k-means|| init on the card, "host"
+    keeps the NumPy passes, "auto" = device except under a mesh. With
+    ``mesh`` the points shard over its shards (one B3 sweep per shard per
+    iteration, one ``all_reduce_sum``); ``device`` is then unused."""
     points = np.asarray(points, dtype=np.float32)
     n, d = points.shape
     if n == 0:
         raise ValueError("no points")
     k = min(k, n)
     gen = np.random.default_rng(rng_mod.next_seed() if seed is None else seed)
-    minibatch = minibatch_size is not None and 0 < minibatch_size < n
-    device_init = init_backend in ("device", "auto")
+    minibatch = minibatch_size is not None and 0 < minibatch_size < n and mesh is None
+    device_init = init_backend == "device" or (init_backend == "auto" and mesh is None)
+    dev = resolve(device) if mesh is None else mesh.shards[mesh.local[0]].device
 
     t_init = time.perf_counter()
     # the upload is enqueued first, so the init (device or host) overlaps it
-    pts_dev = _upload(points, dev)
+    pts_dev = _upload(points, dev) if mesh is None or device_init else None
 
     def pick_init():
         if initial_centers is not None:
@@ -206,7 +213,9 @@ def train_kmeans(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)  # the init phase ends with its device work
     t_iter = time.perf_counter()
-    if minibatch:
+    if mesh is not None:
+        out = _lloyd_mesh(points, centers0, iterations, mesh)
+    elif minibatch:
         g = torch.Generator(device=dev).manual_seed(int(gen.integers(2**31)))
         out = pallas_kmeans.minibatch_lloyd(
             pts_dev, centers0, iterations, int(minibatch_size), g, n_items=n
@@ -216,6 +225,41 @@ def train_kmeans(
     last_phase_seconds.clear()
     last_phase_seconds.update(init=t_iter - t_init, iterate=time.perf_counter() - t_iter)
     return out
+
+
+def _lloyd_mesh(points: np.ndarray, centers0, iterations: int, mesh):
+    """Lloyd over ``mesh``: points row-sharded (padded to a shard multiple;
+    a shard's sweep counts only its real rows), centers replicated. One
+    B3 sweep per shard per iteration, summed over the shards by one
+    ``all_reduce_sum``; counts and cost against the final centers."""
+    from oryx_tpu_torch.parallel.mesh import all_reduce_sum, pad_to_multiple, put, shard_rows
+
+    n, d = points.shape
+    s = mesh.size
+    per = pad_to_multiple(n, s) // s
+    padded = np.zeros((per * s, d), np.float32)
+    padded[:n] = points
+    pts = put(padded, shard_rows(mesh))
+    real = [max(0, min(per, n - i * per)) for i in mesh.local]
+    k = centers0.shape[0]
+    kp = pallas_kmeans.padded_k(k)
+    ctr = [pallas_kmeans._padded_centers(centers0, kp, p.device) for p in pts]
+
+    def sweep_one(p, c, r):
+        if r == 0:  # a shard of padding rows only adds nothing
+            return torch.zeros(kp * d + kp + 1, dtype=torch.float32, device=p.device)
+        sm, cn, co = pallas_kmeans.sweep(p, c, r, k)
+        return torch.cat([sm.reshape(-1), cn, co])
+
+    def sweep_all(ctr):
+        packed = [sweep_one(p, c, r) for p, c, r in zip(pts, ctr, real)]
+        tot = all_reduce_sum(mesh, packed)
+        return [(t[: kp * d].view(kp, d), t[kp * d : kp * d + kp], t[-1:]) for t in tot]
+
+    for _ in range(iterations):
+        ctr = [pallas_kmeans._lloyd_update(c, sm, cn) for c, (sm, cn, _) in zip(ctr, sweep_all(ctr))]
+    _, counts, cost = sweep_all(ctr)[0]
+    return pallas_kmeans._results(ctr[0], counts, cost, k)
 
 
 def _kmeans_parallel_init(points: np.ndarray, k: int, gen: np.random.Generator, rounds: int = 2):

@@ -18,12 +18,23 @@ same calls run synchronously.
 ``upload_random`` generates a random item matrix on the card, in the
 handle form of ``upload``.
 
-Not ported yet: ``upload_sharded`` / ``top_k_sharded``.
+``upload_sharded`` / ``top_k_sharded`` shard the item rows over a device
+mesh (``parallel/mesh.py``): each shard holds a streaming handle of its
+rows and scans it with the same kernels as one card (B1 ``topn_scan`` for
+b <= 256, B2 ``topn_candidates`` above, each merged by ``topn_merge``, an
+int8 shard rescoring its candidates against its residual plane); the
+shards' [b, k] lists, their ids moved to global rows, are all-gathered and
+merged once more by ``topn_merge``. The JAX package runs this scan in XLA
+(``jnp.dot`` + ``lax.top_k`` per shard, both int8 planes summed in full);
+the port's per-shard scan is its hand kernel, as on one card. Ties go to
+the lowest global id; rows past the catalog never score.
 """
 
 from __future__ import annotations
 
+import math
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -34,6 +45,7 @@ from oryx_tpu_torch.ops.ivf import IVFIndex
 from oryx_tpu_torch.ops.streaming_topn import (
     _INT8_FEAT_MULTIPLE,
     BLOCK_N,
+    MAX_KERNEL_K,
     StreamingItemMatrix,
     _ceil_to,
     _quantize_residual,
@@ -42,6 +54,8 @@ from oryx_tpu_torch.ops.streaming_topn import (
     top_k_streaming_device,
     top_k_streaming_device_multi,
     top_k_streaming_device_multi_indexed,
+    topn_merge,
+    topn_merge_plain,
     torch_dtype,
     upload_streaming,
 )
@@ -58,6 +72,8 @@ def top_k_scores(uploaded, query: np.ndarray, k: int, cosine: bool = False):
     """(indices, scores) of the k best items for one query vector."""
     if isinstance(uploaded, IVFIndex):
         idx, vals = ivf_ops.top_k(uploaded, query, k, cosine=cosine)
+    elif isinstance(uploaded, ShardedItemMatrix):
+        idx, vals = top_k_sharded(uploaded, query, k, cosine=cosine)
     else:
         idx, vals = top_k_streaming(uploaded, query, k, cosine=cosine)
     return idx[0], vals[0]
@@ -68,7 +84,75 @@ def top_k_scores_batch(uploaded, queries: np.ndarray, k: int, cosine: bool = Fal
     candidates kernel."""
     if isinstance(uploaded, IVFIndex):
         return ivf_ops.top_k(uploaded, queries, k, cosine=cosine)
+    if isinstance(uploaded, ShardedItemMatrix):
+        return top_k_sharded(uploaded, queries, k, cosine=cosine)
     return top_k_streaming(uploaded, queries, k, cosine=cosine)
+
+
+# -- mesh-sharded scan --------------------------------------------------------
+
+
+@dataclass
+class ShardedItemMatrix:
+    """Item matrix row-sharded over a device mesh: every shard holds the
+    streaming handle of its ``per`` rows (the multi-card serving layout:
+    a 40M x 200 float32 model is 32 GB on one card, 8 GB a card over
+    four)."""
+
+    shards: list  # this process's shards' StreamingItemMatrix, in shard order
+    bases: list  # each of those shards' first global row
+    n_items: int
+    mesh: object
+    per: int  # rows per shard, padding included
+
+
+def upload_sharded(matrix: np.ndarray, mesh, dtype=None) -> ShardedItemMatrix:
+    """Shard a packed [n, k] item matrix row-wise over ``mesh``'s shards
+    (padded so every shard gets an equal slice). ``dtype=int8``
+    row-quantizes each shard's rows as the streaming handle does, so the
+    codes equal one card's."""
+    from oryx_tpu_torch.parallel.mesh import pad_to_multiple
+
+    matrix = np.asarray(matrix, dtype=np.float32)
+    n, k = matrix.shape
+    d = mesh.size
+    per = pad_to_multiple(max(n, d), d) // d
+    dtype = torch_dtype(dtype)
+    shards, bases = [], []
+    for i in mesh.local:
+        lo, hi = i * per, min(n, (i + 1) * per)
+        rows = matrix[lo:hi] if hi > lo else np.zeros((0, k), np.float32)
+        shards.append(upload_streaming(rows, dtype=dtype, device=mesh.shards[i].device))
+        bases.append(lo)
+    return ShardedItemMatrix(shards=shards, bases=bases, n_items=n, mesh=mesh, per=per)
+
+
+def top_k_sharded(
+    up: ShardedItemMatrix, queries: np.ndarray, k: int, cosine: bool = False
+) -> tuple[np.ndarray, np.ndarray]:
+    """(indices [b, k], scores [b, k]) over the mesh-sharded matrix."""
+    from oryx_tpu_torch.parallel.mesh import all_gather
+
+    q = np.atleast_2d(np.asarray(queries, dtype=np.float32))
+    k = max(1, min(int(k), up.n_items))
+    b = q.shape[0]
+    vals, ids = [], []
+    for h, base in zip(up.shards, up.bases):
+        v = torch.full((b, k), -math.inf, dtype=torch.float32, device=h.device)
+        # a shard short of k rows fills with its last padding row at -inf
+        i = torch.full((b, k), base + up.per - 1, dtype=torch.int32, device=h.device)
+        if h.n_items:
+            kk = min(k, h.n_items)
+            sv, si = top_k_streaming_device(h, q, kk, cosine=cosine)
+            v[:, :kk] = sv
+            i[:, :kk] = si + base
+        vals.append(v[None])
+        ids.append(i[None])
+    all_v = all_gather(up.mesh, vals)[0]  # [S, b, k], shard s's ids below shard s+1's
+    all_i = all_gather(up.mesh, ids)[0]
+    merge = topn_merge if k <= MAX_KERNEL_K else topn_merge_plain
+    mv, mi = merge(all_v.contiguous(), all_i.contiguous(), k)
+    return mi.cpu().numpy(), mv.cpu().numpy()
 
 
 def capacity(uploaded) -> int:

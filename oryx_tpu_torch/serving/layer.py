@@ -111,7 +111,6 @@ from urllib.parse import parse_qs, urlsplit
 
 from oryx_tpu_torch.bus.core import get_broker
 from oryx_tpu_torch.common import ledger, metrics, profiling, tracing
-from oryx_tpu_torch.common.compute import refuse_compile_cache
 from oryx_tpu_torch.common.config import Config
 from oryx_tpu_torch.common.lang import check_port_module, load_instance_of
 from oryx_tpu_torch.common.resilience import RetryPolicy, SupervisedThread
@@ -628,7 +627,9 @@ class ServingLayer:
     def __init__(self, config: Config) -> None:
         default_device()  # the port serves from the card: fail now, not per request
         self.config = config
-        refuse_compile_cache(config)
+        from oryx_tpu_torch.parallel.distributed import maybe_enable_compile_cache
+
+        maybe_enable_compile_cache(config)  # the scan kernels load from it like training's
         tracing.configure_from(config)
         self.port = config.get_int("oryx.serving.api.port")
         self.context_path = config.get_string("oryx.serving.api.context-path").rstrip("/")

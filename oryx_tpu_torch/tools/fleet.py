@@ -59,6 +59,7 @@ package's reports no crash.
 from __future__ import annotations
 
 import argparse
+import http.client
 import json
 import os
 import signal
@@ -353,13 +354,28 @@ class FleetHarness:
         return json.loads(body)
 
     def wait_converged(self, generation: str, timeout: float = 10.0) -> bool:
-        """True once every replica serves `generation` (skew settled)."""
+        """True once every live replica names `generation` (skew settled)
+        and answers /readyz 200. The tracker names a generation when it
+        filters the MODEL, a beat before the manager has applied it, and
+        readiness follows the apply: the JAX package's harness returns on
+        the tracker alone, so /readyz could still answer 503 just after."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
-            if all(g == generation for g in self.replica_generations()):
+            if all(g == generation for g in self.replica_generations()) and self._all_ready():
                 return True
             time.sleep(0.05)
         return False
+
+    def _all_ready(self) -> bool:
+        """Every live replica answers /readyz 200."""
+        for i in self.live_indices():
+            try:
+                status, _ = _http("GET", f"{self.targets[i].base_url}/readyz", timeout=2.0)
+            except (OSError, http.client.HTTPException):
+                return False
+            if status != 200:
+                return False
+        return True
 
     # -- online experiments (docs/experiments.md) ----------------------------
 

@@ -12,7 +12,6 @@ import pytest
 
 from oryx_tpu.ops import als as jax_als
 from oryx_tpu.ops import packing as jax_packing
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch import device as port_device
 from oryx_tpu_torch.app.als.common import compute_updated_xu
 from oryx_tpu_torch.bus.inproc import InProcessBroker
@@ -225,12 +224,27 @@ def test_warm_start_matches_jax(shape_ok):
     np.testing.assert_allclose(got.y, want.y, **FACTORS)
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"shard_factors": True}],
-                         ids=["mesh", "shard_factors"])
-def test_mesh_and_sharded_factors_raise(kwargs):
+@pytest.mark.parametrize("shard_factors", [False, True], ids=["mesh", "shard_factors"])
+def test_mesh_and_sharded_factors_match_jax(shard_factors):
+    """Both mesh modes on eight CPU shards against the JAX package's on its
+    eight virtual devices: factors within the reference's parity bars."""
+    from oryx_tpu.parallel.mesh import get_mesh as jax_mesh
+
+    from oryx_tpu_torch.parallel.mesh import get_mesh
+
     u, i, v = low_rank_ratings()
-    with pytest.raises(NotYetPortedError, match="mesh"):
-        als_ops.train_als(u, i, v, 60, 40, features=4, lam=0.1, **kwargs)
+    kw = dict(features=4, lam=0.1, iterations=3, seed=5, shard_factors=shard_factors)
+    want = jax_als.train_als(u, i, v, 60, 40, mesh=jax_mesh(), **kw)
+    got = als_ops.train_als(u, i, v, 60, 40, mesh=get_mesh(devices=["cpu"] * 8), **kw)
+    np.testing.assert_allclose(got.x, want.x, **FACTORS)
+    np.testing.assert_allclose(got.y, want.y, **FACTORS)
+
+
+def test_sharded_factors_need_a_mesh_as_in_jax():
+    u, i, v = low_rank_ratings()
+    for train in (jax_als.train_als, als_ops.train_als):
+        with pytest.raises(ValueError, match="requires a mesh"):
+            train(u, i, v, 60, 40, features=4, lam=0.1, shard_factors=True)
 
 
 def test_bad_matmul_dtype_raises():

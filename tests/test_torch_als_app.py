@@ -32,7 +32,7 @@ from oryx_tpu.app.als.speed import ALSSpeedModelManager as JaxSpeedManager
 from oryx_tpu.bus.core import KeyMessage as JaxKeyMessage
 from oryx_tpu.common import config as jconfig
 from oryx_tpu.common import rng as jrng
-from oryx_tpu_torch import NotYetPortedError, bus
+from oryx_tpu_torch import bus
 from oryx_tpu_torch import device as port_device
 from oryx_tpu_torch.app import pmml as app_pmml
 from oryx_tpu_torch.app.als import serving_model as tsm
@@ -150,9 +150,26 @@ def test_time_ordered_split_matches_jax():
     ]
 
 
-def test_mesh_raises():
-    with pytest.raises(NotYetPortedError, match="mesh"):
-        tupdate.ALSUpdate(update_config(C, extra='batch.compute.mesh = "data:1"'))
+@pytest.mark.parametrize("shard_factors", [False, True], ids=["replicated", "shard_factors"])
+def test_mesh_trains_as_the_jax_package(tmp_path, shard_factors):
+    """``oryx.batch.compute.mesh`` (and ``shard-factors``) train over eight
+    CPU shards; the JAX package trains over its eight virtual devices. The
+    factor files agree within the reference's parity bars."""
+    from oryx_tpu_torch.parallel.mesh import device_scope
+
+    extra = f"batch.compute {{ mesh {{ data = 8 }}, shard-factors = {str(shard_factors).lower()} }}"
+    lines = interaction_lines()
+    jax_up = jupdate.ALSUpdate(update_config(jconfig, extra=extra))
+    port_up = tupdate.ALSUpdate(update_config(C, extra=extra))
+    jax_up.build_model([JaxKeyMessage(None, m) for m in lines], [5, 0.01, 2.0], tmp_path / "j")
+    with device_scope(["cpu"] * 8):
+        port_up.build_model([KeyMessage(None, m) for m in lines], [5, 0.01, 2.0], tmp_path / "p")
+    for side in ("X", "Y"):
+        jids, jmat = tupdate._load_features(tmp_path / "j" / side)
+        tids, tmat = tupdate._load_features(tmp_path / "p" / side)
+        order = {id_: r for r, id_ in enumerate(jids)}
+        assert sorted(tids) == sorted(jids)
+        np.testing.assert_allclose(tmat, jmat[[order[t] for t in tids]], **FACTORS)
 
 
 def test_warm_start_carries_the_champion_factors(tmp_path):

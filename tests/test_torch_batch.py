@@ -10,8 +10,11 @@ registry and KMeansUpdate against the JAX package's, on the CPU.
   equal. A champion PMML from either package serves the same /assign
   answers from the other's manager.
 - Registry store, gate and manifest cases run on both packages.
-- Settings the port does not serve yet raise NotYetPortedError, and
-  the port's CLI refuses config-named classes of the JAX package.
+- The compute settings of ``parallel/`` run: a one-process
+  torch.distributed run joined from the keys or the environment, the
+  kernel compile cache, a k-means generation over an 8-shard CPU mesh
+  against the JAX package's; the port's CLI refuses config-named classes
+  of the JAX package.
 """
 
 import json
@@ -39,7 +42,6 @@ from oryx_tpu.lambda_.batch import BatchLayer as JaxBatchLayer
 from oryx_tpu.registry import gate as jgate
 from oryx_tpu.registry import manifest as jmanifest
 from oryx_tpu.registry import store as jstore
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch import bus as tbus
 from oryx_tpu_torch import device as port_device
 from oryx_tpu_torch.app.kmeans import common as tcommon
@@ -439,29 +441,116 @@ def test_cli_batch_refuses_jax_package_classes(tmp_path):
     assert "oryx_tpu_torch.app.kmeans.update:KMeansUpdate" in out.stderr
 
 
-@pytest.mark.parametrize(
-    "extra",
-    [
-        'batch.compute.distributed.coordinator-address = "localhost:1234"',
-        "batch.compute.distributed.auto = true",
-        'compute.compile-cache-dir = "/nonexistent/cache"',
-    ],
-)
-def test_unported_compute_settings_raise(tmp_path, extra):
-    with pytest.raises(NotYetPortedError):
-        BatchLayer(kmeans_config("torch", tmp_path, "inproc://refuse", extra))
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
-def test_distributed_environment_raises(tmp_path, monkeypatch):
-    monkeypatch.setenv("ORYX_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotYetPortedError, match="ORYX_COORDINATOR"):
-        BatchLayer(kmeans_config("torch", tmp_path, "inproc://refuse"))
+@pytest.fixture
+def one_process_run():
+    """Leaves no torch.distributed run and no compile-cache setting behind."""
+    from oryx_tpu_torch.ops import _build
+    from oryx_tpu_torch.parallel import distributed
+
+    build_dir = _build.BUILD_DIR
+    yield distributed
+    distributed.shutdown()
+    distributed._cache_dir = None
+    _build.set_build_dir(build_dir)
 
 
-def test_mesh_raises(tmp_path):
-    cfg = kmeans_config("torch", tmp_path, "inproc://refuse", "batch.compute.mesh { data = 1 }")
-    with pytest.raises(NotYetPortedError, match="mesh"):
-        KMeansUpdate(cfg)
+@pytest.mark.parametrize("setting", ["coordinator-address", "auto", "compile-cache-dir"])
+def test_compute_settings_run(tmp_path, monkeypatch, one_process_run, setting):
+    """The settings of ``parallel/distributed.py``, once refused, now run:
+    the batch layer joins a one-process torch.distributed run from the
+    ``distributed`` keys (or, with ``auto``, from torchrun's environment),
+    and builds and loads its kernels in ``compile-cache-dir``, as the JAX
+    package points XLA's cache there. A coordinator without the other
+    two keys raises the JAX package's ValueError in both packages."""
+    from oryx_tpu.parallel import distributed as jdist
+
+    from oryx_tpu_torch.ops import _build
+
+    distributed = one_process_run
+    loc = "inproc://compute-settings"
+    if setting == "coordinator-address":
+        partial = 'batch.compute.distributed.coordinator-address = "127.0.0.1:1"'
+        errors = []
+        for pkg, layer in (("jax", JaxBatchLayer), ("torch", BatchLayer)):
+            with pytest.raises(ValueError) as err:
+                layer(kmeans_config(pkg, tmp_path, loc, partial))
+            errors.append(str(err.value))
+        assert errors[0] == errors[1] and "num-processes" in errors[0]
+        extra = ("batch.compute.distributed { coordinator-address = "
+                 f'"127.0.0.1:{_free_port()}", num-processes = 1, process-id = 0 }}')
+    elif setting == "auto":
+        for var, value in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(_free_port())),
+                           ("WORLD_SIZE", "1"), ("RANK", "0")):
+            monkeypatch.setenv(var, value)
+        extra = "batch.compute.distributed.auto = true"
+    else:
+        extra = f'compute.compile-cache-dir = "{tmp_path}/cache"'
+    layer = BatchLayer(kmeans_config("torch", tmp_path, loc, extra))
+    try:
+        if setting == "compile-cache-dir":
+            assert not distributed.is_initialized()
+            assert _build.BUILD_DIR == tmp_path / "cache" and (tmp_path / "cache").is_dir()
+            assert _build.library_path("topn").parent == tmp_path / "cache"
+            # the JAX package's batch layer points XLA's cache at the same key
+            import jax
+
+            prev = (jdist._cache_enabled, jax.config.jax_compilation_cache_dir,
+                    jax.config.jax_persistent_cache_min_compile_time_secs)
+            try:
+                jdist._cache_enabled = False
+                jdist.maybe_enable_compile_cache(kmeans_config("jax", tmp_path, loc, extra))
+                assert jax.config.jax_compilation_cache_dir == f"{tmp_path}/cache"
+            finally:
+                jdist._cache_enabled = prev[0]
+                jax.config.update("jax_compilation_cache_dir", prev[1])
+                jax.config.update("jax_persistent_cache_min_compile_time_secs", prev[2])
+        else:
+            assert distributed.is_initialized() and distributed.backend() == "gloo"
+            assert distributed.rank() == 0 and distributed.world_size() == 1
+            from oryx_tpu_torch.parallel.mesh import Placement, scoped_devices
+
+            assert scoped_devices() == [Placement(port_device.chosen(), 0)]
+    finally:
+        layer.close()
+
+
+def test_distributed_environment_joins(tmp_path, monkeypatch, one_process_run):
+    """$ORYX_COORDINATOR, $ORYX_NUM_PROCESSES and $ORYX_PROCESS_ID, once
+    refused, join a one-process run as the config keys do."""
+    monkeypatch.setenv("ORYX_COORDINATOR", f"127.0.0.1:{_free_port()}")
+    monkeypatch.setenv("ORYX_NUM_PROCESSES", "1")
+    monkeypatch.setenv("ORYX_PROCESS_ID", "0")
+    layer = BatchLayer(kmeans_config("torch", tmp_path, "inproc://dist-env"))
+    try:
+        assert one_process_run.is_initialized() and one_process_run.world_size() == 1
+    finally:
+        layer.close()
+
+
+def test_mesh_generation_matches_the_jax_package(tmp_path):
+    """``oryx.batch.compute.mesh``, once refused: a k-means generation over
+    eight CPU shards publishes the JAX package's clusters (its mesh of
+    eight virtual devices) within the JAX tests' bars."""
+    from oryx_tpu_torch.parallel.mesh import device_scope
+
+    lines = blob_lines(seed=11, per=60)
+    extra = 'kmeans.initialization-strategy = "random"\nbatch.compute.mesh { data = 8 }'
+    jc, _ = run_generation("jax", tmp_path, lines, extra)
+    with device_scope(["cpu"] * 8):
+        tc, _ = run_generation("torch", tmp_path, lines, extra)
+    assert [c.id for c in tc] == [c.id for c in jc]
+    assert [c.count for c in tc] == [c.count for c in jc]
+    np.testing.assert_allclose(
+        np.stack([c.center for c in tc]), np.stack([c.center for c in jc]), rtol=1e-5, atol=1e-5
+    )
 
 
 def test_profile_dir_traces_on_both_packages(tmp_path):

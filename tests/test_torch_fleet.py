@@ -1108,3 +1108,38 @@ def test_crash_campaign_waits_for_a_respawn_slower_than_the_traffic(tmp_path, mo
     for key in ("replicas", "recovery_budget_s", "recovery_within_budget", "duration_s",
                 "offered", "offered_rate", "ok", "failed", "shed", "error_kinds"):
         assert port[key] == ref[key], key
+
+
+def test_wait_converged_waits_for_readyz(tmp_path, monkeypatch):
+    """The port's ``wait_converged`` returns only once every replica names
+    the generation and answers /readyz 200, even where the manager applies
+    the MODEL well after the tracker has named its generation (a 0.3 s
+    pause after the tracker's filter). The JAX package's harness returns
+    on the tracker alone (ROADMAP, "Known departures")."""
+    from oryx_tpu_torch.registry import tracking
+    from oryx_tpu_torch.serving import layer as serving_layer
+
+    original = tracking.GenerationTracker.filter_block
+    paused = []
+
+    def filter_then_pause(self, block):
+        out = original(self, block)
+        if out is not None and serving_layer._block_has_model(out):
+            paused.append(self)
+            time.sleep(0.3)
+        return out
+
+    monkeypatch.setattr(tracking.GenerationTracker, "filter_block", filter_then_pause)
+    with fleet_tool.FleetHarness(2, str(tmp_path), bus_name="fleet-readyz") as fleet:
+        gen = fleet.publish(metric=0.90)
+        assert fleet.wait_converged(gen, timeout=15.0)
+        statuses = []
+        for target in fleet.targets:
+            try:
+                with urllib.request.urlopen(f"{target.base_url}/readyz", timeout=5) as resp:
+                    statuses.append(resp.status)
+            except urllib.error.HTTPError as e:
+                statuses.append(e.code)
+        assert statuses == [200, 200]
+        assert fleet.replica_generations() == [gen, gen]
+    assert len(paused) >= 2  # each replica's MODEL waited behind the tracker

@@ -23,7 +23,6 @@ from oryx_tpu.common import config as jconfig
 from oryx_tpu.common import pmml as jpmml
 from oryx_tpu.ops import kmeans as jkm
 from oryx_tpu.ops import pallas_kmeans as jpk
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch import device as port_device
 from oryx_tpu_torch.app.kmeans import common as tcommon
 from oryx_tpu_torch.app.schema import InputSchema as TorchInputSchema
@@ -325,12 +324,24 @@ def test_device_init_picks_valid_distinct_rows():
 
 
 def test_warm_start_and_mesh():
+    """A warm start seeds Lloyd as given; over an 8-shard CPU mesh, from
+    the same initial centers, the JAX package's mesh run (8 virtual
+    devices) and the port's agree: counts equal, centers and cost within
+    its own bars (tests/app/kmeans/test_kmeans.py:58)."""
+    from oryx_tpu.parallel.mesh import get_mesh as jax_mesh
+
+    from oryx_tpu_torch.parallel.mesh import get_mesh
+
     pts = trainer_blobs()
     warm = np.array([[0.0, 0.0], [8.0, 8.0], [-8.0, 8.0]], np.float32)
     c, _, _ = tkm.train_kmeans(pts, 3, iterations=0, initial_centers=warm)
     np.testing.assert_array_equal(c, warm)
-    with pytest.raises(NotYetPortedError):
-        tkm.train_kmeans(pts, 3, mesh=object())
+    jc, jn, jcost = jkm.train_kmeans(pts, 3, iterations=5, initial_centers=warm, mesh=jax_mesh())
+    tc, tn, tcost = tkm.train_kmeans(pts, 3, iterations=5, initial_centers=warm,
+                                     mesh=get_mesh(devices=["cpu"] * 8))
+    np.testing.assert_array_equal(tn, np.asarray(jn))
+    np.testing.assert_allclose(tc, np.asarray(jc), **SUMS_TOL)
+    assert tcost == pytest.approx(float(jcost), rel=COST_RTOL)
 
 
 def test_centers_from_jax_gives_port_tensors():

@@ -24,7 +24,6 @@ import pytest
 import torch
 
 from oryx_tpu.ops import forest as jf
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch import device as port_device
 from oryx_tpu_torch.bus.inproc import InProcessBroker
 from oryx_tpu_torch.common import rng as trng
@@ -308,10 +307,22 @@ def test_device_path_runs_no_bincount(monkeypatch):
     np.testing.assert_array_equal(got.node_counts, want.node_counts)
 
 
-def test_mesh_raises_not_yet_ported():
-    x, y, bins, classes = _classes(17, n=50)
-    with pytest.raises(NotYetPortedError):
-        tf.train_forest(x, y, num_bins=bins, num_classes=classes, mesh=object())
+def test_mesh_grows_the_jax_packages_forest():
+    """Rows sharded over eight CPU shards, level histograms summed by one
+    all_reduce_sum: the JAX package's mesh forest (its eight virtual
+    devices), split for split (tests/ops/test_forest.py:8's bar: the
+    classification histograms are exact sums either way)."""
+    from oryx_tpu.parallel.mesh import get_mesh as jax_mesh
+
+    from oryx_tpu_torch.parallel.mesh import get_mesh
+
+    x, y, bins, classes = _classes(17)
+    kw = dict(num_bins=bins, num_classes=classes, num_trees=3, max_depth=4, seed=3)
+    want = jf.train_forest(x, y, mesh=jax_mesh(), **kw)
+    got = tf.train_forest(x, y, mesh=get_mesh(devices=["cpu"] * 8), **kw)
+    np.testing.assert_array_equal(got.split_feature, want.split_feature)
+    np.testing.assert_array_equal(got.split_bin, want.split_bin)
+    np.testing.assert_array_equal(got.node_counts, want.node_counts)
 
 
 def test_train_forest_raises_without_cuda_unless_cpu_chosen(monkeypatch):

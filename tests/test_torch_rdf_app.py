@@ -13,6 +13,7 @@ JAX package's RDF lambda test on the port, over ``inproc:`` and
 ``file:``, and chip_smoke's rdf-lambda phase at a small size.
 """
 
+import contextlib
 import importlib.util
 import json
 import re
@@ -34,7 +35,6 @@ from oryx_tpu.bus.core import KeyMessage as JaxKeyMessage
 from oryx_tpu.common import config as jconfig
 from oryx_tpu.common import pmml as jpmml
 from oryx_tpu.common import rng as jrng
-from oryx_tpu_torch import NotYetPortedError
 from oryx_tpu_torch import device as port_device
 from oryx_tpu_torch.app.rdf import encode as tencode
 from oryx_tpu_torch.app.rdf import forest_pmml as tfp
@@ -326,9 +326,33 @@ def test_rdf_update_generation_matches_jax(regression, tmp_path):
         assert 0.5 < tscore <= 1.0
 
 
-def test_rdf_update_refuses_a_mesh():
-    with pytest.raises(NotYetPortedError):
-        tupdate.RDFUpdate(_config(tconfig, extra='batch.compute.mesh = { data = 2 }'))
+def test_rdf_update_trains_over_a_mesh_as_the_jax_package(tmp_path):
+    """``oryx.batch.compute.mesh``, once refused: RDFUpdate over eight CPU
+    shards against the JAX package's over its eight virtual devices, on
+    the same lines and test seed: the same trees and the same score (the
+    classification histograms are exact sums on either mesh)."""
+    from oryx_tpu_torch.parallel.mesh import device_scope
+
+    lines = _lines(400, 5, False)
+    extra = "batch.compute.mesh { data = 8 }"
+    models = {}
+    for name, upd, cfg_mod, km_cls, rng in (("jax", jupdate, jconfig, JaxKeyMessage, jrng),
+                                            ("torch", tupdate, tconfig, KeyMessage, trng)):
+        rng.use_test_seed()
+        try:
+            update = upd.RDFUpdate(_config(cfg_mod, SCHEMA, extra))
+            data = [km_cls(None, line) for line in lines]
+            with device_scope(["cpu"] * 8) if name == "torch" else contextlib.nullcontext():
+                model = update.build_model(data[:320], [16, 4, "entropy"], tmp_path / name)
+            models[name] = (model, update.evaluate(model, tmp_path / name, data[320:], data[:320]))
+        finally:
+            rng.clear_test_seed()
+    (tmodel, tscore), (jmodel, jscore) = models["torch"], models["jax"]
+    got, want = (_strip_header(pmml_mod.to_string(doc))
+                 for pmml_mod, doc in ((tpmml, tmodel), (jpmml, jmodel)))
+    np.testing.assert_allclose(_importances(got), _importances(want), rtol=1e-5)
+    assert _without_numbers(got) == _without_numbers(want)
+    assert tscore == jscore and 0.5 < tscore <= 1.0
 
 
 @pytest.mark.parametrize("regression", [False, True], ids=["classification", "regression"])

@@ -447,31 +447,56 @@ def test_index_and_vector_paths_agree_with_jax(dtype):
         m.close()
 
 
-# -- what is not ported yet raises -------------------------------------------
+# -- the settings of parallel/ -------------------------------------------------
 
 
 @pytest.mark.parametrize("extra", [
     "als.serving.shard-items = true",
 ])
-def test_unported_settings_raise(extra):
-    with pytest.raises(tsm.NotYetPortedError):
-        tsm.ALSServingModelManager(serving_config("torch", "inproc://unused2", extra))
+def test_shard_items_serves_as_the_jax_package(extra):
+    """``als.serving.shard-items``, once refused, starts on both packages:
+    the model a MODEL record makes row-shards Y (the JAX package over its
+    eight virtual devices, the port over the scoped devices: here the
+    CPU), and /recommend and /similarity answer the same bodies."""
+    bodies = {}
+    for pkg in PACKAGES:
+        layer, base, _ = _start(pkg, f"inproc://shard-items-{pkg}", ITEM_VECS, USER_VECS, KNOWN,
+                                2, extra=extra)
+        try:
+            model = layer.model_manager.get_model()
+            assert model.shard_items and not model._x_staging
+            bodies[pkg] = [http("GET", f"{base}{path}")[:2]
+                           for path in ("/recommend/U2?howMany=3", "/recommend/U0",
+                                        "/similarity/I0/I1", "/recommendToAnonymous/I0=2.0/I2")]
+            assert isinstance(model._ensure_y_matrix()[2], PACKAGES[pkg][0].topn_ops.ShardedItemMatrix)
+        finally:
+            layer.close()
+    assert all(status == 200 for status, _ in bodies["torch"])
+    assert bodies["torch"] == bodies["jax"]
 
 
-def test_compile_cache_dir_is_refused_as_the_batch_layer_refuses_it(tmp_path):
-    """``oryx.compute.compile-cache-dir`` names the JAX package's XLA cache,
-    which the port does not have: the serving layer refuses it, as the
-    batch layer does, rather than serve without it."""
-    from oryx_tpu_torch.lambda_.batch import BatchLayer
+def test_compile_cache_dir_holds_the_kernels_as_in_the_batch_layer(tmp_path):
+    """``oryx.compute.compile-cache-dir``, once refused: the serving layer,
+    as the batch layer, builds and loads the port's kernels in it (the JAX
+    package points XLA's persistent cache there); the first layer's
+    setting holds for the process."""
+    from oryx_tpu_torch.ops import _build
+    from oryx_tpu_torch.parallel import distributed
 
+    build_dir = _build.BUILD_DIR
     extra = f'compute.compile-cache-dir = "{tmp_path}/cache"'
-    with pytest.raises(tsm.NotYetPortedError, match="compile-cache-dir"):
-        ServingLayer(serving_config("torch", "inproc://compile-cache", extra))
-    cfg = serving_config("torch", "inproc://compile-cache", extra).with_overlay(
-        f'oryx.batch.storage {{ data-dir = "{tmp_path}/data/", model-dir = "{tmp_path}/model/" }}'
-    )
-    with pytest.raises(tsm.NotYetPortedError, match="compile-cache-dir"):
-        BatchLayer(cfg)
+    try:
+        layer = ServingLayer(serving_config("torch", "inproc://compile-cache", extra))
+        layer.close()
+        assert _build.BUILD_DIR == tmp_path / "cache" and (tmp_path / "cache").is_dir()
+        assert distributed._cache_dir == f"{tmp_path}/cache"
+        # a second layer in the process, whatever its setting: a no-op
+        other = f'compute.compile-cache-dir = "{tmp_path}/other"'
+        ServingLayer(serving_config("torch", "inproc://compile-cache-2", other)).close()
+        assert _build.BUILD_DIR == tmp_path / "cache" and not (tmp_path / "other").exists()
+    finally:
+        distributed._cache_dir = None
+        _build.set_build_dir(build_dir)
 
 
 def test_start_after_a_partial_start_raises_the_jax_packages_message():

@@ -213,6 +213,18 @@ Phases, each printing one JSON line:
    mid-run, no failed request, its recovery seconds; the whole phase
    under the port's lock-order watchdog, as 9c (the crash campaign's
    replica processes are not watched);
+9e. crash-sweep: the port's kill-point sweep
+   (``oryx_tpu_torch/tools/crash_sweep.py``) at one crashpoint of each
+   catalog layer (``bus.file.roll.mid``, ``storage.commit.post``,
+   ``registry.publish.post``, ``batch.commit.pre``, ``speed.commit.post``,
+   ``serving.restage.pre-commit``), one worker process at a time at the
+   port's default device: each kill run must die by SIGKILL at its site,
+   the recovery run in the same directory must exit 0, and the audit
+   must find no acknowledged input lost, no duplicate or lost
+   generation, a clean registry fsck and a CHAMPION that never moved
+   back; per site the kill's exit, the recovery and its seconds, the
+   violations; no kernel launched (the workers train the scripted-metric
+   update and run the wordcount speed manager);
 10. rdf-train: random-forest training through ``ops/forest.py`` on the
    card (PyTorch ops: the JAX package runs them through XLA, no Pallas
    kernel): (a) tools/train_benchmark.py:215-248's configuration
@@ -366,11 +378,13 @@ Phases, each printing one JSON line:
 17. the card's name and power limit, then ``{"ok": true, "device": ...}``.
 
 The run's order is not the phases' numbers: 1 (with 1b beside the
-build), 2-5, 8, 10 and 12 one after another; then 7, 9, 9b and 11 (each in a thread of this process,
-their layers processes of their own) and 9c (in a process of its own,
-``--alone tenants``) at once, beside 6 and then 13 in this process, and
-9d (``--alone fleet``) from the end of 6; then 14, 14c, 14b and 15. The phases that time kernels or host code run with nothing
-beside them; each phase's clock line gives its own seconds, and the
+build), 2-4, 16, 5, 8, 10 and 12 one after another; then 7, 9, 9b and
+11 (each in a thread of this process, their layers processes of their
+own) and 9c (in a process of its own, ``--alone tenants``) at once,
+beside 6 and then 13 in this process, and 9d (``--alone fleet``), 16b
+(four rank processes) and 9e (one worker process at a time) from the end
+of 6; then 14, 14c, 14b and 15. The phases that time kernels or host
+code run with nothing beside them; each phase's clock line gives its own seconds, and the
 "beside" line the rest of the wait.
 
 Any failure raises and the exit code is not 0. Without CUDA, or run
@@ -7094,6 +7108,51 @@ def phase_mesh_procs(seed: int, smi: str, device: str = "cuda", script: str | No
     return {"launches": dict(launches)}
 
 
+# -- phase 9e: the kill-point sweep (oryx_tpu_torch/tools/crash_sweep.py) ------------
+
+# one site of each catalog layer (oryx_tpu_torch/common/crashpoints.py):
+# the tests sweep all 22 on the CPU
+CRASH_SWEEP_SITES = ("bus.file.roll.mid", "storage.commit.post", "registry.publish.post",
+                     "batch.commit.pre", "speed.commit.post", "serving.restage.pre-commit")
+
+
+def phase_crash_sweep(torch, smi: str, device: str = "cuda") -> dict:
+    """Phase 9e (crash-sweep): the port's kill-point sweep at
+    CRASH_SWEEP_SITES, beside the window. At each site a worker process
+    (``python -m oryx_tpu_torch.tools.crash_sweep --worker``, at the port's
+    default device) dies by SIGKILL at the armed crashpoint, a second
+    worker recovers in the same directory, and the audit holds the
+    at-least-once contract: no acknowledged input lost, no duplicate or
+    lost generation, a clean registry fsck, a CHAMPION that never moves
+    back. One worker at a time: the phase loads one core. Its workers
+    train the scripted-metric update and run the wordcount speed manager,
+    so it launches no kernel. ``device`` rehearses it on the CPU after
+    ``set_device("cpu")``."""
+    from oryx_tpu_torch import device as port_device
+    from oryx_tpu_torch.tools import crash_sweep
+
+    worker_device = port_device.default_device().type
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-crash-sweep-") as tmp:
+        results = crash_sweep.sweep(list(CRASH_SWEEP_SITES), base_dir=tmp)
+    out = {"phase": "crash-sweep",
+           "device": torch.cuda.get_device_name(0) if device != "cpu" else "cpu",
+           "nvidia_smi": smi, "worker_device": worker_device,
+           "kernels": "none launched: the workers train ScriptedMetricUpdate and run "
+                      "the wordcount speed manager",
+           "sites": [{"site": r.site, "ok": r.ok, "kill_exit": r.kill_exit,
+                      "recovered": r.recovered, "recovery_seconds": r.recovery_seconds,
+                      "violations": r.violations, "error": r.error} for r in results],
+           "passed": sum(r.ok for r in results), "s": time.perf_counter() - t0}
+    emit(out)
+    if worker_device != device:
+        raise AssertionError(f"crash-sweep: the workers ran on {worker_device}, not {device}")
+    failed = [r.site for r in results if not r.ok]
+    if failed:
+        raise AssertionError(f"crash-sweep: {failed} failed")
+    return out
+
+
 class PhaseClock:
     """Prints each phase's wall seconds, and the run's so far."""
 
@@ -7323,8 +7382,9 @@ def main() -> int:
           "mesh_procs_als_1m_iterations": [ALS_SCALE_ITERATIONS, MESH_PROCS_ALS_ITERATIONS],
           "run_at_once": "kmeans-lambda, als-lambda, buses, rdf-lambda and tenants (its own "
                          "process), beside kmeans-batch and ivf-serving; fleet (its own "
-                         "process) and mesh-procs (four rank processes) from the end of "
-                         "kmeans-batch"})
+                         "process), mesh-procs (four rank processes) and crash-sweep "
+                         "(one worker process at a time) from the end of kmeans-batch",
+          "crash_sweep_sites": [22, len(CRASH_SWEEP_SITES)]})
     clock = PhaseClock(t0)
     gen = np.random.default_rng(args.seed)
     y = factors(gen, args.items, args.features)
@@ -7475,6 +7535,8 @@ def main() -> int:
         # first minute holds kmeans-lambda's first generation, whose
         # check must stop the batch process within its interval
         beside.start("mesh-procs", phase_mesh_procs, args.seed, smi)
+        # the kill-point sweep: one worker process at a time, no kernel
+        beside.start("crash-sweep", phase_crash_sweep, torch, smi)
         ivf_srv = phase_ivf_serving(torch, args, stn, pk, args.seed)
         clock("ivf-serving")
     finally:

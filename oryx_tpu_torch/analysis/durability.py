@@ -3,7 +3,8 @@ JAX package's ``oryx_tpu/analysis/durability.py``, rule for rule.
 
 Every durable-state mutation in the repo is supposed to be one commit
 sequence: same-directory sibling temp, file fsync, atomic rename,
-parent-directory fsync. The kill-point sweep proves the instrumented
+parent-directory fsync. The kill-point sweep
+(``oryx_tpu_torch/tools/crash_sweep.py``) proves the instrumented
 sequences recover; this pass hunts the sequences that *skipped* the
 protocol — the writes a sweep can't find because no crashpoint was ever
 threaded through them.

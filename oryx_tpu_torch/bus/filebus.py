@@ -316,7 +316,8 @@ class FileBroker(Broker):
         leaves (the active segment archived, the new base never
         committed); left alone it would shadow every record in the
         freshly archived segment, silently losing acknowledged input.
-        Found by the kill-point sweep at ``bus.file.roll.mid``."""
+        Found by the kill-point sweep at ``bus.file.roll.mid``
+        (``oryx_tpu_torch/tools/crash_sweep.py``)."""
         path = self._active_path(topic, i)
         with _Flock(path.with_suffix(".lock")):
             if _repair_torn_tail(path):

@@ -18,10 +18,11 @@ setting
 in a worker's environment kills the process with SIGKILL the <nth> time
 (1-based) execution reaches that site — no atexit hooks, no ``finally``
 blocks, no stream flushing: the closest stand-in for ``kill -9`` a
-process can inflict on itself. The sweep harness (tools/crash_sweep.py)
-iterates every site in ``CATALOG``, kills a worker at each one, restarts
-it, and asserts the at-least-once invariants (no acknowledged-input
-loss, no duplicate generations, monotone CHAMPION lineage) survived.
+process can inflict on itself. The sweep harness
+(oryx_tpu_torch/tools/crash_sweep.py) iterates every site in
+``CATALOG``, kills a worker at each one, restarts it, and asserts the
+at-least-once invariants (no acknowledged-input loss, no duplicate
+generations, monotone CHAMPION lineage) survived.
 
 For in-process unit tests ``arm(site, nth, action="raise")`` raises
 ``CrashPointReached`` instead of killing the interpreter, so a single
@@ -54,7 +55,8 @@ __all__ = [
 KILL_EXIT_CODE = 137
 
 # The authoritative kill-point registry: site -> (layer, what dies here).
-# Docs (docs/durability.md) and the sweep harness both read this table;
+# Docs (docs/durability.md) and the sweep harness
+# (oryx_tpu_torch/tools/crash_sweep.py) both read this table;
 # an instrumented call site MUST be declared here or the sweep will
 # never exercise it. Sites are named <subsystem>.<sequence>.<step>.
 CATALOG: dict[str, tuple[str, str]] = {
